@@ -1,15 +1,22 @@
-"""Dataset registry and a serial batch loader for inference.
+"""Dataset registry and a serial batch loader (counterpart of
+``sketchedit_tpu/data/__init__.py``) for ``dataset_mode`` ``testimage``,
+``editimage`` (training) and ``base`` (no dataset).
 
-Counterpart of ``sketchedit_tpu/data/__init__.py`` for ``dataset_mode``
-``testimage`` (and ``base``, the no-dataset default of the test options).
-Batches are numpy NHWC; the last partial batch is padded with repeats of
-its last sample and flagged by ``valid``, the count of real samples.
+Batches are numpy NHWC. ``collate`` is a copy of the JAX package's
+``_collate``: the last partial batch is padded with repeats of its last
+sample and flagged by ``valid``; items in the compact protocol (uint8
+``image_u8`` and bool masks, as ``EditImageDataset`` gives them) are
+expanded to float32 unless ``compact``, in which case the batch keeps the
+uint8 image as ``image`` and the bool masks, and the trainer expands them
+on the device. ``DataLoader`` is the JAX loader without its worker pools:
+the same order (shuffled from ``seed + epoch``) and the same items.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from sketchedit_tpu_torch.data.editimage import EditImageDataset
 from sketchedit_tpu_torch.data.testimage import TestImageDataset
 
 
@@ -27,7 +34,8 @@ class BaseDataset:
         return 0
 
 
-DATASETS = {"testimage": TestImageDataset, "base": BaseDataset}
+DATASETS = {"testimage": TestImageDataset, "editimage": EditImageDataset,
+            "base": BaseDataset}
 
 
 def find_dataset_using_name(name: str):
@@ -42,25 +50,64 @@ def get_option_setter(name: str):
     return find_dataset_using_name(name).modify_commandline_options
 
 
-def collate(samples, batch_size: int):
-    """Stack samples, padding to ``batch_size`` with the last one."""
+def collate(samples, batch_size: int, compact: bool = False):
+    """Stack samples, padding to ``batch_size`` with the last one; expand
+    the compact protocol unless ``compact``."""
     n = len(samples)
     batch = {}
     for key in samples[0]:
         vals = [s[key] for s in samples]
         if isinstance(vals[0], np.ndarray):
-            batch[key] = np.stack(vals + [vals[-1]] * (batch_size - n))
+            vals = vals + [vals[-1]] * (batch_size - n)
+            stacked = np.stack(vals)
+            if stacked.dtype == bool and not compact:
+                stacked = stacked.astype(np.float32)
+            batch[key] = stacked
         else:
-            batch[key] = vals
+            batch[key] = list(vals)
+    if 'image_u8' in batch:
+        if compact:
+            batch['image'] = batch.pop('image_u8')
+        else:
+            img = batch.pop('image_u8').astype(np.float32) / 127.5 - 1.0
+            batch['image'] = img
+            batch['gt'] = img
     batch['valid'] = n
     return batch
 
 
-def iterate_batches(dataset, batch_size: int):
-    """Serial, ordered batches."""
-    for start in range(0, len(dataset), batch_size):
-        stop = min(start + batch_size, len(dataset))
-        yield collate([dataset[i] for i in range(start, stop)], batch_size)
+class DataLoader:
+    """Ordered or shuffled batches, read serially. Each pass over it is one
+    epoch; shuffling draws the order from ``seed + epoch``."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0,
+                 compact: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.compact = compact
+        self._epoch = 0
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        self._epoch += 1
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(order)
+        bs = self.batch_size
+        for start in range(0, len(order), bs):
+            idx = order[start:start + bs]
+            if self.drop_last and len(idx) < bs:
+                return
+            yield collate([self.dataset[i] for i in idx], bs, self.compact)
 
 
 def create_dataloader(opt):
@@ -69,4 +116,7 @@ def create_dataloader(opt):
     instance.initialize(opt)
     print(f"dataset [{type(instance).__name__}] of size {len(instance)} "
           "was created")
-    return iterate_batches(instance, opt.batchSize)
+    train = bool(getattr(opt, 'isTrain', False))
+    return DataLoader(instance, batch_size=opt.batchSize,
+                      shuffle=not opt.serial_batches, drop_last=train,
+                      compact=train)

@@ -172,3 +172,16 @@ class DeepFillC2Generator(nn.Module):
         h = torch.cat([x_hallu, pm], dim=1)
         x_stage2 = torch.tanh(self._run(h, _SPEC_ALLCONV_DEC))
         return x_stage1, x_stage2
+
+
+def param_groups(names, stage: str = "all"):
+    """Layer names trained under ``--update_part`` (DeepFillC2Generator's
+    get_param_list): 'all'/'image' -> every layer; 'coarse' -> conv* (the
+    stage-1 branch); 'fine' -> the rest; anything else -> none."""
+    if stage in ("all", "image"):
+        return list(names)
+    if stage == "coarse":
+        return [n for n in names if n.startswith("conv")]
+    if stage == "fine":
+        return [n for n in names if not n.startswith("conv")]
+    return []

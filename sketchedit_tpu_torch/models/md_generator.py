@@ -72,11 +72,29 @@ class MDGenerator(nn.Module):
             x = getattr(self, spec[0])(x)
         return x
 
-    def forward(self, image, sketch):
+    def forward(self, image, sketch, mask_dtype=None):
         """image (B, 3, H, W) in [-1, 1], sketch (B, 1, H, W) in {0, 1}.
-        Returns (soft_mask (B, 1, H, W), mask_image (B, 3, H, W))."""
+        Returns (soft_mask (B, 1, H, W), mask_image (B, 3, H, W)).
+        ``mask_dtype`` widens the sigmoid (training passes float32 under
+        bfloat16 compute: a bf16 sigmoid is exactly 0 or 1 past |logit| ~
+        6.3, which kills the mask-BCE gradient on confidently wrong
+        pixels)."""
         x = self._run(torch.cat([image, sketch], dim=1), _ENCODER[:-1])
         x_bneck = self.conv10_atrous(x)     # only the mask branch reads it
         mask_image = torch.tanh(self._run(x, _IMAGE_DECODER))
-        soft_mask = torch.sigmoid(self._run(x_bneck, _MASK_DECODER))
-        return soft_mask, mask_image
+        logits = self._run(x_bneck, _MASK_DECODER)
+        if mask_dtype is not None:
+            logits = logits.to(mask_dtype)
+        return torch.sigmoid(logits), mask_image
+
+
+def param_groups(names, stage: str = "all"):
+    """Layer names trained under ``--update_part`` (MDGenerator's
+    get_param_list): 'all'/'mask' -> every layer; 'maskim' -> layers named
+    conv*, which in this net is every layer too (the reference's quirk,
+    kept); anything else -> none."""
+    if stage in ("all", "mask"):
+        return list(names)
+    if stage == "maskim":
+        return [n for n in names if n.startswith("conv")]
+    return []

@@ -6,6 +6,8 @@
   is None, the output is split in half along channels and combined as
   ``act(a) * sigmoid(g)``; the effective width is half the declared cout.
 - ``gated_deconv2d``: nearest x2 upsample, then a 3x3 gated conv.
+- ``leaky_conv2d``: conv with padding ``int((k-1)/2)``, then leaky-relu (the
+  reference ``dis_conv``, used by the discriminator).
 
 ``GatedConv2d`` is an ``nn.Conv2d`` (as the reference's ``gen_conv`` is), so
 its state-dict keys are ``<layer>.weight`` (OIHW) and ``<layer>.bias``.
@@ -53,6 +55,14 @@ def gated_deconv2d(x, weight, bias, *, activation: str | None = "elu"):
                         activation=activation)
 
 
+def leaky_conv2d(x, weight, bias, *, stride: int = 2,
+                 negative_slope: float = 0.01):
+    """Conv + leaky-relu; the reference's slope is F.leaky_relu's 0.01."""
+    y = F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), stride=stride,
+                 padding=int((weight.shape[-1] - 1) / 2))
+    return F.leaky_relu(y, negative_slope)
+
+
 class GatedConv2d(nn.Conv2d):
     """One layer of a spec table: (cin, cout, ksize, stride, rate,
     activation, deconv)."""
@@ -98,6 +108,11 @@ def init_conv_(conv: nn.Conv2d, generator: torch.Generator, *,
         w = torch.randn(shape, generator=generator) * math.sqrt(2.0 / fan_in)
     elif init_type == "normal":
         w = torch.randn(shape, generator=generator) * gain
+    elif init_type == "orthogonal":
+        flat = torch.randn((cout, fan_in), generator=generator)
+        q, r = torch.linalg.qr(flat.T if fan_in >= cout else flat)
+        q = q * torch.sign(torch.diagonal(r))
+        w = gain * (q.T if fan_in >= cout else q).reshape(shape)
     elif init_type == "none":
         bound_w = math.sqrt(6.0 / ((1 + 5) * fan_in))
         w = (torch.rand(shape, generator=generator) * 2 - 1) * bound_w

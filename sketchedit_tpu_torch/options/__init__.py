@@ -2,6 +2,7 @@ import sys
 
 from sketchedit_tpu_torch.options.base_options import BaseOptions
 from sketchedit_tpu_torch.options.test_options import TestOptions
+from sketchedit_tpu_torch.options.train_options import TrainOptions
 
 
 def parse_argv(options_cls, argv):
@@ -16,4 +17,4 @@ def parse_argv(options_cls, argv):
         sys.argv = saved
 
 
-__all__ = ["BaseOptions", "TestOptions", "parse_argv"]
+__all__ = ["BaseOptions", "TestOptions", "TrainOptions", "parse_argv"]

@@ -56,7 +56,7 @@ class BaseOptions:
         parser.add_argument('--no_flip', action='store_true')
         parser.add_argument('--nThreads', default=0, type=int,
                             help='accepted for script compatibility; the '
-                                 'inference loader is serial')
+                                 'port reads its datasets serially')
         parser.add_argument('--max_dataset_size', type=int, default=sys.maxsize)
         parser.add_argument('--load_from_opt_file', action='store_true')
         parser.add_argument('--display_winsize', type=int, default=400,
@@ -113,6 +113,21 @@ class BaseOptions:
         self.parser = parser
         return opt
 
+    def save_options(self, opt):
+        """Snapshot to ``opt.txt`` and ``opt.json`` in the run directory
+        (what --load_from_opt_file reads back)."""
+        base = os.path.join(opt.checkpoints_dir, opt.name, 'opt')
+        os.makedirs(os.path.dirname(base), exist_ok=True)
+        with open(base + '.txt', 'wt') as f:
+            for k, v in sorted(vars(opt).items()):
+                default = self.parser.get_default(k)
+                note = '' if v == default else f'\t[default: {default}]'
+                f.write(f'{str(k):>25}: {str(v):<30}{note}\n')
+        payload = {k: v for k, v in vars(opt).items()
+                   if isinstance(v, (int, float, str, bool, type(None)))}
+        with open(base + '.json', 'wt') as f:
+            json.dump(payload, f, indent=1)
+
     def _update_defaults_from_file(self, parser, opt):
         path = os.path.join(opt.checkpoints_dir, opt.name, 'opt.json')
         with open(path) as f:
@@ -136,6 +151,8 @@ class BaseOptions:
         opt = self.gather_options()
         opt.isTrain = self.isTrain
         self.print_options(opt)
+        if opt.isTrain:
+            self.save_options(opt)
         opt.gpu_ids = [int(s) for s in str(opt.gpu_ids).split(',')
                        if s and int(s) >= 0]
         self.opt = opt

@@ -72,6 +72,31 @@ def test_md_generator_matches_jax():
     assert np.asarray(want_mask).std() > 0.1    # not a vacuous compare
 
 
+def test_md_generator_mask_dtype_widens_the_sigmoid():
+    """mask_dtype=float32 under bfloat16 compute (the trainer's call, as
+    md_generator.apply's mask_dtype in the JAX package): the soft mask is
+    float32, rounds to the bf16 mask, and lies strictly inside (0, 1) at
+    positions where the bf16 sigmoid is exactly 0 or 1. The last mask
+    layer's weights are scaled by 50 so that some logits lie past bf16's
+    saturation point (|logit| ~ 6.3)."""
+    params = scaled_params(j_m.init_params, 0, GAIN_M)
+    params["conv_mask_17"]["w"] = params["conv_mask_17"]["w"] * np.float32(50)
+    net = MDGenerator()
+    net.load_state_dict(jax_params_to_state_dict(params), strict=True)
+    img, sketch, _ = _inputs(0, H=32, W=32)
+    x, s = nchw(img).bfloat16(), nchw(sketch).bfloat16()
+    with torch.no_grad():
+        soft16, im16 = net(x, s)
+        soft32, im32 = net(x, s, mask_dtype=torch.float32)
+    assert soft16.dtype == torch.bfloat16 and soft32.dtype == torch.float32
+    assert torch.equal(im16, im32)
+    torch.testing.assert_close(soft32.bfloat16().float(), soft16.float(),
+                               rtol=2 ** -8, atol=0)
+    saturated = (soft16 == 0) | (soft16 == 1)
+    assert saturated.any()
+    assert ((soft32[saturated] > 0) & (soft32[saturated] < 1)).any()
+
+
 @pytest.mark.parametrize("impl,pool_type,joint", [
     ("dense", "max", True),          # the released flags
     ("kernel", "max", True),         # the kernel's CPU (plain) path

@@ -83,6 +83,46 @@ def test_gated_deconv2d_matches_jax(cout, act):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("stride,slope", [(2, 0.2), (1, 0.01)])
+def test_leaky_conv2d_matches_jax(stride, slope):
+    """The discriminator's 5x5 conv + leaky-relu (slope 0.2 there)."""
+    rs = np.random.RandomState(stride)
+    x = rs.randn(2, 17, 20, 7).astype(np.float32)
+    w, b = _conv_params(rs, 7, 8, 5)
+    want = np.asarray(jgc.leaky_conv2d(
+        {"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x),
+        stride=stride, negative_slope=slope))
+    got = nhwc(tgc.leaky_conv2d(nchw(x), *_torch_wb(w, b), stride=stride,
+                                negative_slope=slope))
+    assert got.shape == want.shape
+    assert (want < 0).any()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_gaussian_blur3x3_matches_jax():
+    rs = np.random.RandomState(5)
+    x = rs.uniform(-1, 1, (2, 13, 16, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        nhwc(timage.gaussian_blur3x3(nchw(x))),
+        np.asarray(jimage.gaussian_blur3x3(jnp.asarray(x))), **TOL)
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 8), (1, 16)])
+def test_orthogonal_init_is_orthogonal(cin, cout):
+    """init_type 'orthogonal', as init_conv_params builds it: the (cout,
+    cin*k*k) weight matrix has orthonormal rows (or columns when cout is the
+    larger side) scaled by the gain, and a zero bias."""
+    conv = tgc.GatedConv2d(cin, cout, 3, stride=1, rate=1, activation=None)
+    tgc.init_conv_(conv, torch.Generator().manual_seed(0),
+                   init_type="orthogonal", gain=0.5)
+    m = conv.weight.detach().reshape(cout, -1).double()
+    gram = m @ m.T if cout <= m.shape[1] else m.T @ m
+    torch.testing.assert_close(gram, 0.25 * torch.eye(gram.shape[0],
+                                                      dtype=torch.float64),
+                               rtol=0, atol=1e-6)
+    assert not conv.bias.any()
+
+
 def test_gated_conv_module_matches_function():
     """The nn.Module form runs the same math and keeps the reference's
     padding and dilation."""
