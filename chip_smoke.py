@@ -10,23 +10,40 @@ Phases, in order; any failure raises and the exit code is not 0:
 3. kernels vs plain: the contextual-attention forward kernel, then the dQ
    and dK/dV backward kernels, against their plain PyTorch versions at the
    main paths' shapes (inference 256^2 B = 1 and 4, training 256^2 B = 1
-   and 8), float32 and bfloat16, plus a ragged and an all-gated case;
+   and 8), float32 and bfloat16, plus a ragged and an all-gated case; the
+   shared-tensor and D-split forwards (256^2 B = 1 and 8, 512^2 and 1024^2
+   B = 1) and the dV and dK kernels the same way, each also against the
+   kernel that computes the same function (the default forward, the fused
+   dK/dV);
 4. inference path: the runner's EditPipeline on uint8 batches at 256^2
    (B = 1 and 4, float32 and bfloat16) and 252^2, one forward launch per
    netG forward, checked against the same pipeline with dense attention
    and, at 64^2, against the port on the CPU;
 5. train step: one G+D step at 256^2, B = 8, per branch flag, through the
    kernels and through the dense attention (losses and every gradient
-   compared, launches counted), the bfloat16 step's gradients held to the
-   float32 ones, and the step on the GPU against the step on the CPU;
-6. training path: the train loop, 5 steps at 256^2, B = 8, in float32 and
+   compared, launches counted), the same step under SKETCHEDIT_SPLIT_DKDV=1
+   and under SKETCHEDIT_SHARED_ATTN=1 against the default kernels' step,
+   the bfloat16 step's gradients held to the float32 ones, and the step on
+   the GPU against the step on the CPU;
+6. training path: the train loop, 3 steps at 256^2, B = 8, in float32 and
    bfloat16 on batches from the editimage loader (synthetic PNGs), with
    the launch counts of the forward and both backward kernels, and a saved
    checkpoint reloaded; then the train CLI for 2 steps;
 7. CLI: the batch inference CLI with test_celeb.sh's flags;
-8. times: CUDA events after warm-up (inference and train step, each
+8. serving: the BatchingExecutor on the EditPipeline in process (32
+   concurrent submits; serve defaults and float32; the default, shared and
+   D-split forwards, the last also at 512^2), one forward launch per
+   dispatched batch, every float32 row held to 1 LSB of a B = 1 call fed
+   the batch's hard mask (and of the B = 1 pipeline as it is where the
+   hard masks agree); the serve CLI as a subprocess (JSON, raw bulk, a
+   malformed body, /stats) under SKETCHEDIT_SHARED_ATTN=1 and under
+   SKETCHEDIT_DSPLIT_ATTN=1 at --edit_size 512; the demo in process (with
+   and without --face_crop) and over HTTP;
+9. times: CUDA events after warm-up (inference and train step, each
    kernel, its plain version and one PyTorch call computing the same
-   function); one JSON line per item, and the `kernels` line.
+   function, the three forwards at 512^2 and 1024^2, served throughput per
+   --max_batch and client count); one JSON line per item, and the `kernels`
+   line.
 
 The weights are random, drawn from --seed: kaiming init scaled by 1.8
 (netM) and 1.5 (netG), since kaiming alone lets the gated activations
@@ -38,14 +55,20 @@ when CUDA is unavailable or the package is missing.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import torch
@@ -58,6 +81,11 @@ CELEB_FLAGS = ["--batchSize", "1", "--nThreads", "1", "--name", "celeb",
                "--image_postfix", ".png", "--mask_postfix", ".png",
                "--model", "editline2", "--netG", "deepfillc2",
                "--pool_type", "max", "--use_cam", "--which_epoch", "latest"]
+# test_celeb.sh's model flags, for the servers
+SERVE_FLAGS = ["--name", "celeb", "--joint_train_inp", "--model", "editline2",
+               "--netG", "deepfillc2", "--pool_type", "max", "--use_cam",
+               "--which_epoch", "latest"]
+SERVER_UP_S = 300       # a server subprocess must answer /healthz by then
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores and bfloat16 on them, FLOP/s; memory, bytes/s.
 PEAKS = {
@@ -135,14 +163,81 @@ def scale_weights_(net_m, net_g):
                 conv.weight.mul_(gain)
 
 
+# launch counters of ops/attention_cuda.py: the three forwards (fwd_lse:
+# those of any of them that wrote the logsumexp) and the four backwards
+COUNTERS = {"fwd": "LAUNCHES", "shared": "LAUNCHES_SHARED",
+            "dsplit": "LAUNCHES_DSPLIT", "fwd_lse": "LAUNCHES_LSE",
+            "dq": "LAUNCHES_DQ", "dkdv": "LAUNCHES_DKDV",
+            "dv": "LAUNCHES_DV", "dk": "LAUNCHES_DK"}
+
+
 def counts(ac):
-    """The launch counters: forward (with lse), dQ, dK/dV."""
-    return {"fwd": ac.LAUNCHES, "fwd_lse": ac.LAUNCHES_LSE,
-            "dq": ac.LAUNCHES_DQ, "dkdv": ac.LAUNCHES_DKDV}
+    return {k: getattr(ac, v) for k, v in COUNTERS.items()}
+
+
+def set_counts(ac, values):
+    for k, v in values.items():
+        setattr(ac, COUNTERS[k], v)
 
 
 def zero_counts(ac):
-    ac.LAUNCHES = ac.LAUNCHES_LSE = ac.LAUNCHES_DQ = ac.LAUNCHES_DKDV = 0
+    set_counts(ac, dict.fromkeys(COUNTERS, 0))
+
+
+def expect(**launched):
+    """A full counter reading: the named counts, 0 everywhere else."""
+    return {k: launched.get(k, 0) for k in COUNTERS}
+
+
+@contextlib.contextmanager
+def env(**variables):
+    """Set environment variables for a block (the kernels' switches are
+    read on every call)."""
+    saved = {k: os.environ.get(k) for k in variables}
+    os.environ.update(variables)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(url, data=None, ctype=None, timeout=120):
+    """(status, body) of one request; an HTTP error status is returned."""
+    req = urllib.request.Request(
+        url, data=data, headers={"Content-Type": ctype} if ctype else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, None
+
+
+class Recorded:
+    """A pipeline that keeps every batch it is given and what it returned."""
+
+    def __init__(self, pipeline):
+        self.pipeline = pipeline
+        self.calls = []
+
+    def __call__(self, images, sketches):
+        out = self.pipeline(images, sketches)
+        self.calls.append((images, sketches, out))
+        return out
+
+
+def u8_diff(a, b):
+    return np.abs(np.asarray(a).astype(np.int16) - np.asarray(b).astype(
+        np.int16))
 
 
 def train_batch(B, H, seed):
@@ -179,9 +274,13 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     from sketchedit_tpu_torch.ops import _build, attention_cuda
     from sketchedit_tpu_torch.ops.attention_cuda import (
-        attention_core, attention_core_dkdv, attention_core_dkdv_reference,
+        attention_core, attention_core_dk, attention_core_dk_reference,
+        attention_core_dkdv, attention_core_dkdv_reference,
         attention_core_dq, attention_core_dq_reference,
-        attention_core_reference, attention_inputs)
+        attention_core_dsplit, attention_core_dsplit_reference,
+        attention_core_dv, attention_core_dv_reference,
+        attention_core_reference, attention_core_shared,
+        attention_core_shared_reference, attention_inputs)
     from sketchedit_tpu_torch.options import parse_argv
     from sketchedit_tpu_torch.options.test_options import TestOptions
     from sketchedit_tpu_torch.runner import build_pipeline
@@ -267,6 +366,81 @@ def main():
     assert keep.sum().item() == 0
     check_core("all_gated", Q, V, V, keep, kscale=ksc)
 
+    # the shared-tensor and D-split forwards: against their plain versions
+    # and against the default kernel, which computes the same function
+    variant_errs = {}
+
+    def check_variant(tag, variant, Q, K, V, keep, kscale):
+        """``variant`` (shared: Q, K and V are one tensor; dsplit) with a
+        float32 output and the lse, against its plain version on the same
+        (bf16-rounded) inputs and against attention_core."""
+        before = counts(attention_cuda)
+        if variant == "shared":
+            assert Q is V and K is V
+            out, lse = attention_core_shared(V, kscale, keep, return_lse=True,
+                                             out_dtype=torch.float32)
+            want, want_lse = attention_core_shared_reference(
+                V.float(), kscale, keep, return_lse=True)
+        else:
+            out, lse = attention_core_dsplit(
+                Q, K, V, keep, return_lse=True, out_dtype=torch.float32,
+                kscale=kscale)
+            want, want_lse = attention_core_dsplit_reference(
+                Q.float(), K.float(), V.float(), keep, return_lse=True,
+                kscale=kscale)
+        torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in counts(attention_cuda).items()}
+        assert used == expect(**{variant: 1, "fwd_lse": 1}), (tag, used)
+        sib, sib_lse = attention_core(Q, K, V, keep, return_lse=True,
+                                      out_dtype=torch.float32, kscale=kscale)
+        assert out.dtype == torch.float32 and out.shape == want.shape, tag
+        assert torch.isfinite(out).all() and torch.isfinite(lse).all(), tag
+        tol = TOL[torch.float32]
+        row = {"phase": "variant_vs_plain", "kernel": variant, "case": tag,
+               "shape_BNPD": [Q.shape[0], Q.shape[1], K.shape[1], Q.shape[2]],
+               "dtype": str(V.dtype).split(".")[-1], "tol": tol,
+               "max_abs_err": (out - want).abs().max().item(),
+               "lse_max_abs_err": (lse - want_lse).abs().max().item(),
+               "max_abs_diff_vs_fwd_kernel": (out - sib).abs().max().item()}
+        for got, ref in ((out, want), (lse, want_lse), (out, sib),
+                         (lse, sib_lse)):
+            torch.testing.assert_close(got, ref, rtol=tol, atol=tol,
+                                       msg=lambda m: f"{variant} {tag}: {m}")
+        variant_errs[(variant, tag)] = row["max_abs_err"]
+        emit(row)
+
+    variant_inputs = {}
+    for B, hw in ((1, 64), (8, 64), (1, 128), (1, 256)):
+        f = features(rs, B, hw, hw).to(dev)
+        m = hole_mask(B, hw, hw).to(dev)
+        # 1024^2: the plain version's S is 1.04 GB; float32 only
+        for dt in ((torch.float32,) if hw == 256
+                   else (torch.float32, torch.bfloat16)):
+            fd = f.to(dt)
+            Q, V, keep, ksc = attention_inputs(fd, fd, m)
+            tag = f"B{B}_{hw}sq_{str(dt).split('.')[-1]}"
+            for variant in ("shared", "dsplit"):
+                check_variant(tag, variant, Q, V, V, keep, ksc)
+            if hw < 256:
+                variant_inputs[(B, hw, dt)] = (Q, V, keep, ksc)
+        del f, fd, Q, V
+    ksc_r = torch.from_numpy(((0.5 + rs.rand(2, 70)) * 70 ** -0.5).astype(
+        np.float32)).to(dev)
+    check_variant("unaligned_2x150x150x70", "shared", Vr, Vr, Vr, keep_r,
+                  ksc_r)
+    check_variant("unaligned_2x130x150x70", "dsplit", Qr, Kr, Vr, keep_r,
+                  ksc_r * 70 ** 0.5)
+    Q, V, keep, ksc = attention_inputs(fa, fa, torch.ones(1, 1, 64, 64,
+                                                          device=dev))
+    for variant in ("shared", "dsplit"):
+        check_variant("all_gated", variant, Q, V, V, keep, ksc)
+    with torch.enable_grad():
+        try:
+            attention_core_dsplit(Q.clone().requires_grad_(), V, V, keep)
+            raise AssertionError("the D-split kernel took a gradient")
+        except RuntimeError as e:
+            assert "SKETCHEDIT_DSPLIT_ATTN" in str(e), e
+
     bwd_errs = {}
     bwd_inputs = {}
 
@@ -280,10 +454,11 @@ def main():
         bargs = (Q, K, V, keep, lse, (dO * out).sum(-1), dO, 10.0, kscale)
         before = counts(attention_cuda)
         got = (attention_core_dq(*bargs), *attention_core_dkdv(*bargs))
+        dV1 = attention_core_dv(Q, K, keep, lse, dO, 10.0, kscale)
+        dK1 = attention_core_dk(*bargs)
         torch.cuda.synchronize()
-        after = counts(attention_cuda)
-        assert (after["dq"], after["dkdv"]) == (before["dq"] + 1,
-                                                before["dkdv"] + 1), tag
+        used = {k: v - before[k] for k, v in counts(attention_cuda).items()}
+        assert used == expect(dq=1, dkdv=1, dv=1, dk=1), (tag, used)
         want = (attention_core_dq_reference(*bargs),
                 *attention_core_dkdv_reference(*bargs))
         row = {"phase": "bwd_kernels_vs_plain", "case": tag,
@@ -297,9 +472,26 @@ def main():
             row[f"{name}_max_abs_err"] = err
             row[f"{name}_max_abs"] = scale
             assert err <= BWD_TOL * max(scale, 1e-6), f"{tag} {name}: {err}"
+        # the single-output kernels: against their own plain versions and
+        # against the fused kernel's outputs
+        for name, g, w, sib in (
+                ("dV_alone", dV1, attention_core_dv_reference(
+                    Q, K, keep, lse, dO, 10.0, kscale), got[2]),
+                ("dK_alone", dK1, attention_core_dk_reference(*bargs),
+                 got[1])):
+            assert g.dtype == torch.float32 and g.shape == w.shape, tag
+            assert torch.isfinite(g).all(), f"{tag} {name}"
+            scale = max(w.abs().max().item(), 1e-6)
+            row[f"{name}_max_abs_err"] = (g - w).abs().max().item()
+            row[f"{name}_max_abs_diff_vs_fused"] = (g - sib).abs().max().item()
+            assert row[f"{name}_max_abs_err"] <= BWD_TOL * scale, (tag, name)
+            assert row[f"{name}_max_abs_diff_vs_fused"] <= BWD_TOL * scale, (
+                tag, name)
         bwd_errs[tag] = {"dq": row["dQ_max_abs_err"],
                          "dkdv": max(row["dK_eff_max_abs_err"],
-                                     row["dV_max_abs_err"])}
+                                     row["dV_max_abs_err"]),
+                         "dv": row["dV_alone_max_abs_err"],
+                         "dk": row["dK_alone_max_abs_err"]}
         emit(row)
         return bargs
 
@@ -370,9 +562,8 @@ def main():
         assert attention_cuda.LAUNCHES == before + 1, "one launch per netG"
         launches[dt] += attention_cuda.LAUNCHES - before
         results.append((composed, mask))
-    assert attention_cuda.LAUNCHES == len(cases) and all(launches.values())
-    c = counts(attention_cuda)
-    assert c["fwd_lse"] == c["dq"] == c["dkdv"] == 0, c
+    assert all(launches.values())
+    assert counts(attention_cuda) == expect(fwd=len(cases))
 
     # The kernel path against the dense path on the same batch. float32:
     # composed within 1 LSB. bfloat16: both compute the attention in
@@ -491,12 +682,14 @@ def main():
                    for k in want)
 
     batch8 = train_batch(8, 256, args.seed + 200)
+    default_step = {}
     for flag in (0, 1, 2):
         m_k, g_k, n_k = one_step("float32", "kernel", batch8, (flag, flag))
+        default_step[flag] = (m_k, g_k)
         m_d, g_d, n_d = one_step("float32", "dense", batch8, (flag, flag))
         # one forward with lse, one dQ and one dK/dV in the G step; one
         # forward without lse in the D step's regeneration of the fakes
-        assert n_k == {"fwd": 2, "fwd_lse": 1, "dq": 1, "dkdv": 1}, n_k
+        assert n_k == expect(fwd=2, fwd_lse=1, dq=1, dkdv=1), n_k
         assert not any(n_d.values()), n_d
         loss_diff = losses_agree(m_k, m_d)
         worst = grad_errors(g_k, g_d)
@@ -504,6 +697,35 @@ def main():
               "batch": 8, "dtype": "float32", "flag": flag, "losses": m_k,
               "max_loss_rel_diff": loss_diff, "grad_err": worst,
               "grad_tol": GRAD_TOL, "launches": n_k})
+
+    # the same step through the kernels that the switches select, against
+    # the default kernels' step: exact launch counts (the G step's forward
+    # with lse and its backward; the D step's forward without lse)
+    switch_launches = {}
+    for switch, want in (
+            ("SKETCHEDIT_SPLIT_DKDV",
+             expect(fwd=2, fwd_lse=1, dq=1, dv=1, dk=1)),
+            ("SKETCHEDIT_SHARED_ATTN",
+             expect(shared=2, fwd_lse=1, dq=1, dkdv=1))):
+        with env(**{switch: "1"}):
+            m_s, g_s, n_s = one_step("float32", "kernel", batch8, (1, 1))
+        assert n_s == want, (switch, n_s)
+        switch_launches[switch] = n_s
+        m_k, g_k = default_step[1]
+        emit({"phase": "train_step_switch_vs_default", "switch": switch,
+              "hw": [256, 256], "batch": 8, "dtype": "float32", "flag": 1,
+              "max_loss_rel_diff": losses_agree(m_s, m_k),
+              "grad_err": grad_errors(g_s, g_k), "grad_tol": GRAD_TOL,
+              "launches": n_s})
+    del default_step
+    # and in bfloat16 under the split switch: launch counts, finite losses
+    with env(SKETCHEDIT_SPLIT_DKDV="1"):
+        m_s, _, n_s = one_step("bfloat16", "kernel", batch8, (1, 1))
+    assert n_s == expect(fwd=2, fwd_lse=1, dq=1, dv=1, dk=1), n_s
+    assert all(np.isfinite(v) for v in m_s.values()), m_s
+    switch_launches["SKETCHEDIT_SPLIT_DKDV[bf16]"] = n_s
+    emit({"phase": "train_step_switch", "switch": "SKETCHEDIT_SPLIT_DKDV",
+          "dtype": "bfloat16", "losses": m_s, "launches": n_s})
 
     # bfloat16: both paths held to the float32 dense step's generator
     # gradients; the kernel path's error may exceed the dense path's by 5%
@@ -538,7 +760,7 @@ def main():
     pngs = os.path.join(tmp.name, "train_images")
     os.makedirs(pngs)
     r = np.random.RandomState(args.seed + 400)
-    for i in range(40):
+    for i in range(24):
         arr = (r.rand(256, 256, 3) * 255).astype(np.uint8)
         arr[r.randint(0, 200):, r.randint(0, 200):] //= 3   # some edges
         Image.fromarray(arr).save(os.path.join(pngs, f"{i:03d}.png"))
@@ -551,7 +773,7 @@ def main():
         checkpoints_dir=os.path.join(tmp.name, "train_ck"), name="smoke")
     with contextlib.redirect_stdout(io.StringIO()):
         loader = data_mod.create_dataloader(ns)
-    assert len(loader) == 5
+    assert len(loader) == 3
     train_launches = {}
     for dt in ("float32", "bfloat16"):
         state, cfg = train_state(dt, "auto")
@@ -565,8 +787,8 @@ def main():
         torch.cuda.synchronize()
         used = counts(attention_cuda)
         loop_s = time.perf_counter() - t0
-        assert len(seen) == 5 and state.step == 5
-        assert used == {"fwd": 10, "fwd_lse": 5, "dq": 5, "dkdv": 5}, used
+        assert len(seen) == 3 and state.step == 3
+        assert used == expect(fwd=6, fwd_lse=3, dq=3, dkdv=3), used
         train_launches[dt] = used
         losses = [{k: float(v) for k, v in m.items()} for m in seen]
         assert all(np.isfinite(v) for m in losses for v in m.values())
@@ -587,7 +809,7 @@ def main():
                                            cfg)["fake"] for s in (state, fresh)]
         assert torch.equal(outs[0], outs[1]), "reloaded checkpoint differs"
         emit({"phase": "train_loop", "hw": [256, 256], "batch": 8,
-              "dtype": dt, "steps": 5, "seconds": round(loop_s, 3),
+              "dtype": dt, "steps": 3, "seconds": round(loop_s, 3),
               "launches": used, "first_losses": losses[0],
               "last_losses": losses[-1], "params_changed": True,
               "checkpoint_reloads": True})
@@ -643,7 +865,441 @@ def main():
     emit({"phase": "cli", "images": len(names),
           "seconds": round(time.perf_counter() - t0, 3)})
 
-    # 8. times ------------------------------------------------------------
+    # 8. serving ------------------------------------------------------------
+    from sketchedit_tpu_torch.cli.demo import DemoOptions
+    from sketchedit_tpu_torch.cli.serve import ApiOptions
+    from sketchedit_tpu_torch.server import rawproto
+    from sketchedit_tpu_torch.server.demo_server import DemoApp
+    from sketchedit_tpu_torch.server.demo_server import serve as demo_serve
+    from sketchedit_tpu_torch.server.executor import (
+        _BUCKETS, BatchingExecutor)
+
+    # the servers load the float32 pipeline's (scaled) weights from disk
+    serve_ck = os.path.join(tmp.name, "serve_ck")
+    ck_ns = argparse.Namespace(checkpoints_dir=serve_ck, name="celeb")
+    ckpt.save_pipeline({"M": pipes["float32"].model.netM,
+                        "G": pipes["float32"].model.netG}, "latest", ck_ns)
+
+    def serve_pipeline(options_cls, *extra):
+        """The pipeline a server builds from test_celeb.sh's model flags:
+        serve defaults (bfloat16, TF32 allowed) unless ``extra`` says
+        otherwise. build_pipeline sets the process-wide TF32 switches."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            opt = parse_argv(options_cls, [*SERVE_FLAGS, "--checkpoints_dir",
+                                           serve_ck, *extra])
+            return opt, build_pipeline(opt, require_checkpoint=True)
+
+    F32 = ("--compute_dtype", "float32", "--precision", "highest")
+
+    def settled(executor, n_served):
+        """stats() once ``n_served`` requests are counted: the counters
+        land after the futures resolve, so readers poll."""
+        deadline = time.time() + 30
+        while True:
+            stats = executor.stats()
+            if stats["requests_served"] >= n_served:
+                return stats
+            assert time.time() < deadline, stats
+            time.sleep(0.005)
+
+    def served(pipeline, requests, max_batch, clients=None):
+        """Warm an executor, then send every request through it from
+        ``clients`` threads (one per request unless given); (results, stats,
+        launches, seconds, latencies in ms). ``batches_after_warmup`` counts
+        the batches of the requests alone."""
+        executor = BatchingExecutor(pipeline, max_batch=max_batch,
+                                    max_wait_ms=20)
+        clients = clients or len(requests)
+        out = [None] * len(requests)
+        latency = [None] * len(requests)
+
+        def client(c):
+            for i in range(c, len(requests), clients):
+                t0 = time.perf_counter()
+                out[i] = executor.submit(*requests[i]).result(timeout=300)
+                latency[i] = (time.perf_counter() - t0) * 1e3
+        try:
+            executor.warmup(requests[0][0].shape[:2], timeout=300)
+            n_warm = sum({b for b in _BUCKETS if b <= max_batch}
+                         | {max_batch})
+            warm = settled(executor, n_warm)["batches_dispatched"]
+            zero_counts(attention_cuda)
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(clients)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            seconds = time.perf_counter() - t0
+            stats = settled(executor, n_warm + len(requests))
+            stats["batches_after_warmup"] = stats["batches_dispatched"] - warm
+            return out, stats, counts(attention_cuda), seconds, latency
+        finally:
+            executor.shutdown()
+
+    def requests_at(hw, n, seed):
+        img, sk = batch(n, hw, hw, seed)
+        return [(img[i], sk[i]) for i in range(n)]
+
+    def rows_alone(pipe, images, sketches, composed):
+        """A batch's rows against B = 1 calls, stage by stage, on this thread
+        and the default kernel. netM on the batch and on each row alone:
+        how far the soft masks differ, and how many pixels of the hard mask
+        (soft > 0.5) flip for it. Then each row alone through netG, fed the
+        hard mask the batch gave that row, and the composite: how far
+        ``composed`` (the batch's uint8 result) is from it. Returns the
+        numbers and, per row, whether the two hard masks agree."""
+        model, dt = pipe.model, pipe.config.dtype
+        thr = pipe.config.mask_threshold
+        soft_diff = margin = 0.0
+        worst = flips = 0
+        agree = []
+        with torch.inference_mode():
+            x = torch.from_numpy(images).to(dev).permute(0, 3, 1, 2).to(
+                dt) / 127.5 - 1.0
+            s_ = (torch.from_numpy(sketches).to(dev).permute(0, 3, 1, 2)
+                  > 0).to(dt)
+            soft_b = model.netM(x, s_)[0]
+            for r in range(x.shape[0]):
+                xr, sr, sb = x[r:r + 1], s_[r:r + 1], soft_b[r:r + 1]
+                soft_1 = model.netM(xr, sr)[0]
+                soft_diff = max(soft_diff,
+                                (soft_1 - sb).abs().max().item())
+                flipped = (soft_1 > thr) != (sb > thr)
+                n_flipped = int(flipped.sum().item())
+                flips += n_flipped
+                agree.append(n_flipped == 0)
+                if n_flipped:
+                    margin = max(margin,
+                                 (soft_1[flipped] - thr).abs().max().item())
+                hard = (sb > thr).to(dt)
+                fake = model.netG(xr, xr, hard, hard, sr)[1]
+                one = fake * soft_1 + xr * (1.0 - soft_1)
+                one = torch.round((torch.clamp(one, -1, 1) + 1.0) * 127.5
+                                  ).to(torch.uint8).permute(0, 2, 3, 1)
+                worst = max(worst, int(u8_diff(one[0].cpu().numpy(),
+                                               composed[r]).max()))
+        return {"max_u8_diff_vs_alone_given_batch_hard_mask": worst,
+                "netM_soft_mask_max_abs_diff_vs_alone": soft_diff,
+                "hard_mask_pixels_flipped_vs_alone": flips,
+                "frac_hard_mask_pixels_flipped_vs_alone":
+                    flips / float(soft_b.numel()),
+                "flipped_pixels_max_distance_from_threshold": margin,
+                "rows": len(agree), "rows_hard_masks_agree": sum(agree)}, agree
+
+    # A served row and a B = 1 call of the same image need not agree: the
+    # hard mask is netM's soft mask cut at 0.5, attention spreads one flipped
+    # pixel of it over the whole hole, and cuDNN picks its algorithms by
+    # batch size. So in float32 every served batch is taken apart by
+    # rows_alone: each row is held to 1 LSB of the B = 1 pipeline fed the
+    # hard mask the batch gave it, the soft masks must agree to SOFT_TOL,
+    # and a request whose two hard masks agree is held to 1 LSB of the
+    # B = 1 pipeline as it is. A fault that couples rows of a batch (the
+    # padding, a reduction across the batch) fails these checks; the same
+    # numbers through the dense attention, where no kernel runs, stand
+    # beside. bfloat16 is held to the pipeline alone on the same batch.
+    SOFT_TOL = 5e-3     # 9.6e-4 at worst on an H100 80GB HBM3
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img32 = np.stack([r[0] for r in requests_at(256, 32, args.seed + 500)])
+    sk32 = np.stack([r[1] for r in requests_at(256, 32, args.seed + 500)])
+    for impl, p in (("kernel", pipes["float32"]), ("dense", dense["float32"])):
+        together = p(img32, sk32)[0]
+        apart = np.concatenate([p(img32[i:i + 1], sk32[i:i + 1])[0]
+                                for i in range(32)])
+        effect, _ = rows_alone(p, img32, sk32, together)
+        emit({"phase": "batch_size_effect", "attention": impl,
+              "dtype": "float32", "hw": [256, 256], "batch": 32,
+              "frac_pixels_off_by_more_than_1_vs_one_by_one":
+                  float((u8_diff(together, apart) > 1).mean()),
+              "max_u8_diff_vs_one_by_one":
+                  int(u8_diff(together, apart).max()), **effect, **card})
+        assert effect["max_u8_diff_vs_alone_given_batch_hard_mask"] <= 1
+        assert effect["netM_soft_mask_max_abs_diff_vs_alone"] <= SOFT_TOL
+    del img32, sk32, together, apart
+    serve_launches = {}
+    reqs256 = requests_at(256, 32, args.seed + 500)
+    reqs512 = requests_at(512, 8, args.seed + 501)
+    for dt, extra in (("float32", F32), ("bfloat16", ())):
+        _, pipe = serve_pipeline(ApiOptions, *extra)
+        assert pipe.config.compute_dtype == dt
+        alone = {256: [pipe(i[None], s[None]) for i, s in reqs256],
+                 512: [pipe(i[None], s[None]) for i, s in reqs512]}
+        for switch, kernel, hw, reqs in (
+                (None, "fwd", 256, reqs256),
+                ("SKETCHEDIT_SHARED_ATTN", "shared", 256, reqs256),
+                ("SKETCHEDIT_DSPLIT_ATTN", "dsplit", 256, reqs256),
+                ("SKETCHEDIT_DSPLIT_ATTN", "dsplit", 512, reqs512)):
+            max_batch = 32 if hw == 256 else 8
+            rec = Recorded(pipe)
+            with env(**({switch: "1"} if switch else {})):
+                out, stats, used, _, _ = served(rec, reqs, max_batch)
+            n_batches = stats["batches_after_warmup"]
+            assert all(o is not None for o in out)
+            assert stats["batch_errors"] == 0, stats
+            assert n_batches < len(reqs), "nothing was coalesced"
+            # one forward launch per dispatched batch, by the chosen kernel
+            assert used == expect(**{kernel: n_batches}), (used, n_batches)
+            calls = rec.calls[len(rec.calls) - n_batches:]
+            # every caller got the row of its own image, bit for bit
+            rows = {}
+            for c, (images, _, _) in enumerate(calls):
+                for r in range(images.shape[0]):
+                    rows.setdefault(images[r].tobytes(), (c, r))
+            for (img, _), o in zip(reqs, out):
+                c, r = rows[img.tobytes()]
+                assert o[0].shape == (hw, hw, 3) and o[0].dtype == np.uint8
+                assert o[1].shape == (hw, hw, 1)
+                assert np.array_equal(o[0], calls[c][2][0][r])
+                assert np.array_equal(o[1], calls[c][2][1][r])
+            # each batch again through the pipeline alone, on this thread
+            # and the default kernel
+            worst, means = 0, []
+            for images, sketches, (composed, mask) in calls:
+                ref_c, ref_m = pipe(images, sketches)
+                worst = max(worst, u8_diff(composed, ref_c).max(),
+                            u8_diff(mask, ref_m).max())
+                means.append(u8_diff(composed, ref_c).mean())
+            one_by_one = [u8_diff(o[0], a[0][0]) for o, a in zip(out,
+                                                                alone[hw])]
+            effect = {}
+            if dt == "float32":
+                agreeing = 0
+                parts = [rows_alone(pipe, im, sk, c)
+                         for im, sk, (c, _) in calls]
+                for k in parts[0][0]:
+                    effect[k] = (max if "max" in k else sum)(
+                        e[k] for e, _ in parts)
+                effect["frac_hard_mask_pixels_flipped_vs_alone"] = (
+                    effect["hard_mask_pixels_flipped_vs_alone"]
+                    / float(effect["rows"] * hw * hw))
+                for (img, _), d in zip(reqs, one_by_one):
+                    c, r = rows[img.tobytes()]
+                    if parts[c][1][r]:
+                        agreeing += 1
+                        assert d.max() <= 1, (switch, hw, int(d.max()))
+                effect["requests_hard_masks_agree_held_to_one_by_one"] = (
+                    agreeing)
+            emit({"phase": "serving_in_process", "dtype": dt,
+                  "switch": switch, "kernel": kernel, "hw": [hw, hw],
+                  "requests": len(reqs), "max_batch": max_batch,
+                  "batches": n_batches,
+                  "batch_size_histogram": stats["batch_size_histogram"],
+                  "launches": used,
+                  "max_u8_diff_vs_pipeline_alone_same_batch": int(worst),
+                  "mean_u8_diff_vs_pipeline_alone_same_batch":
+                      float(np.mean(means)),
+                  "max_u8_diff_vs_one_by_one":
+                      int(max(d.max() for d in one_by_one)),
+                  "frac_pixels_off_by_more_than_1_vs_one_by_one":
+                      float(np.mean([(d > 1).mean() for d in one_by_one])),
+                  **effect, "dispatch_ms": stats["dispatch_ms"],
+                  "assemble_ms": stats["assemble_ms"],
+                  "scatter_ms": stats["scatter_ms"], **card})
+            if dt == "float32":
+                assert worst <= 1, (switch, hw, worst)
+                assert effect[
+                    "max_u8_diff_vs_alone_given_batch_hard_mask"] <= 1, (
+                        switch, hw)
+                assert effect[
+                    "netM_soft_mask_max_abs_diff_vs_alone"] <= SOFT_TOL
+            else:
+                # bfloat16: the kernels' summation orders flip roundings,
+                # which the bf16 convs amplify to several LSB
+                assert np.mean(means) < 1.0, (switch, hw, np.mean(means))
+            serve_launches[(kernel, hw, dt)] = used[kernel]
+        if dt == "float32":
+            f32_pipe = pipe
+        del pipe, rec, calls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # the serve CLI as a subprocess: float32 under the D-split switch at
+    # 512^2, serve defaults (bfloat16) under the shared switch at 256^2
+    def png_b64(arr):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    def bucket_references(pipeline, reqs):
+        """Per request, the pipeline's answer alone (B = 1) and as a row of
+        the batch of eight: the two batch sizes a --max_batch 8 server
+        dispatches (see the note on batch size above)."""
+        stack = pipeline(np.stack([r[0] for r in reqs[:8]]),
+                         np.stack([r[1] for r in reqs[:8]]))
+        return [[pipeline(img[None], sk[None]),
+                 (stack[0][i:i + 1], stack[1][i:i + 1])]
+                for i, (img, sk) in enumerate(reqs[:8])]
+
+    def serve_cli(switch, hw, reqs, want, extra, tol_max, tol_mean):
+        port = free_port()
+        t0 = time.perf_counter()
+        log = open(os.path.join(tmp.name, f"serve_{hw}.log"), "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sketchedit_tpu_torch.cli.serve",
+             *SERVE_FLAGS, "--checkpoints_dir", serve_ck, "--port", str(port),
+             "--edit_size", str(hw), "--max_batch", "8", "--device", "cuda",
+             *extra], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, switch: "1",
+                 "SERVE_WARMUP_WATCHDOG_S": str(SERVER_UP_S)})
+        base = f"http://127.0.0.1:{port}"
+        try:
+            while True:     # the port is bound only after warm-up
+                assert proc.poll() is None, "the server exited"
+                assert time.perf_counter() - t0 < SERVER_UP_S, "never bound"
+                try:
+                    if http(base + "/healthz", timeout=5) == (200, b"ok"):
+                        break
+                except OSError:
+                    time.sleep(0.5)
+            up_s = time.perf_counter() - t0
+            results = [None] * 4
+
+            def post_json(i):
+                img, sk = reqs[i]
+                status, body = http(base + "/edit", json.dumps({
+                    "image": png_b64(img), "sketch": png_b64(sk[:, :, 0])}
+                    ).encode(), "application/json")
+                assert status == 200, status
+                reply = json.loads(body)
+                results[i] = tuple(np.asarray(Image.open(io.BytesIO(
+                    base64.b64decode(reply[k])))) for k in ("image", "mask"))
+            threads = [threading.Thread(target=post_json, args=(i,))
+                       for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            assert all(r is not None for r in results)
+            status, body = http(base + "/edit", b"".join(
+                rawproto.encode(img, sk[:, :, 0]) for img, sk in reqs[:8]),
+                "application/octet-stream")
+            assert status == 200
+            frames = rawproto.decode_frames(body)
+            assert len(frames) == 8
+            results += [(f[0], f[1][:, :, 0]) for f in frames]
+            assert http(base + "/edit", b"SKED\x01", "application/"
+                        "octet-stream")[0] == 400
+            assert http(base + "/edit", b"{not json",
+                        "application/json")[0] == 400
+            assert http(base + "/nope", b"{}", "application/json")[0] == 404
+            worst, means = 0, []
+            for got, refs in zip(results, [*want[:4], *want[:8]]):
+                assert got[0].shape == (hw, hw, 3), got[0].shape
+                assert got[1].shape == (hw, hw), got[1].shape
+                # the nearer of the two batch sizes' references
+                err, mean = min(
+                    (max(u8_diff(got[0], w_c[0]).max(),
+                         u8_diff(got[1], w_m[0, :, :, 0]).max()),
+                     u8_diff(got[0], w_c[0]).mean()) for w_c, w_m in refs)
+                worst = max(worst, err)
+                means.append(mean)
+            assert worst <= tol_max and np.mean(means) <= tol_mean, (
+                worst, np.mean(means))
+            deadline = time.time() + 30      # /stats: poll, as its users do
+            while True:
+                stats = json.loads(http(base + "/stats")[1])
+                # 9 warm-up requests (buckets 1 and 8), 4 JSON, 8 raw frames
+                if (stats["executor"]["requests_served"] >= 9 + 4 + 8
+                        and stats["raw_path_stages"]["totals"]["bodies"]):
+                    break
+                assert time.time() < deadline, stats
+                time.sleep(0.05)
+            assert stats["http"] == {"ok": 5, "client_error": 3,
+                                     "server_error": 0}, stats["http"]
+            assert stats["executor"]["batch_errors"] == 0
+            assert stats["raw_path_stages"]["totals"]["frames"] == 8
+            emit({"phase": "serve_cli", "switch": switch, "hw": [hw, hw],
+                  "flags": list(extra), "seconds_to_healthz": round(up_s, 1),
+                  "json_posts": 4, "raw_frames": 8,
+                  "max_u8_diff_vs_in_process": int(worst),
+                  "mean_u8_diff_vs_in_process": float(np.mean(means)),
+                  "batch_size_histogram":
+                      stats["executor"]["batch_size_histogram"],
+                  "dispatch_ms": stats["executor"]["dispatch_ms"], **card})
+        except BaseException:
+            log.seek(0)
+            print(log.read()[-4000:], file=sys.stderr)
+            raise
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+            log.close()
+
+    serve_cli("SKETCHEDIT_DSPLIT_ATTN", 512, reqs512,
+              bucket_references(f32_pipe, reqs512), F32, tol_max=1,
+              tol_mean=1.0)
+    del f32_pipe
+    _, pipe = serve_pipeline(ApiOptions)
+    bf16_refs = bucket_references(pipe, reqs256)
+    del pipe
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # bfloat16: the kernels' summation orders flip roundings, which the bf16
+    # convs amplify to a few LSB (3 at worst on an H100 80GB HBM3)
+    serve_cli("SKETCHEDIT_SHARED_ATTN", 256, reqs256, bf16_refs, (),
+              tol_max=8, tol_mean=1.0)
+
+    # the demo: DemoApp in process on the card, with and without the
+    # crop-edit-paste composite, then one round trip over HTTP
+    static = os.path.join(tmp.name, "static")
+    os.makedirs(os.path.join(static, "images"))
+    demo_img, demo_sk = batch(1, 256, 256, args.seed + 600)
+    Image.fromarray(demo_img[0]).save(os.path.join(static, "images",
+                                                   "example.png"))
+    sk_img = Image.fromarray(demo_sk[0, :, :, 0])
+    demo_opt, pipe = serve_pipeline(DemoOptions)
+    assert not demo_opt.face_crop and demo_opt.compute_dtype == "bfloat16"
+    for face_crop in (False, True):
+        app = DemoApp(pipe, static_root=static, face_crop=face_crop)
+        zero_counts(attention_cuda)
+        name = app.process_image(Image.fromarray(demo_img[0]), sk_img,
+                                 f"demo_{int(face_crop)}.png",
+                                 save_to_input=False)
+        assert counts(attention_cuda) == expect(fwd=1)
+        out = np.asarray(Image.open(os.path.join(static, "results", name)))
+        assert out.shape == (256, 256, 3)
+        changed = float((u8_diff(out, demo_img[0]) > 8).mean())
+        assert changed > 0.01, "the demo edit changed nothing"
+        emit({"phase": "demo_in_process", "face_crop": face_crop,
+              "frac_pixels_edited": changed})
+    port = free_port()
+    threading.Thread(target=demo_serve, args=(app, port), daemon=True).start()
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.time() + 30
+    while True:
+        try:
+            status, page = http(base + "/", timeout=5)
+            break
+        except OSError:
+            assert time.time() < deadline, "the demo server never bound"
+            time.sleep(0.1)
+    assert status == 200 and b"example.png" in page and b"canvas" in page
+    buf = io.BytesIO()
+    sk_img.save(buf, format="PNG")
+    status, body = http(base + "/", urllib.parse.urlencode({
+        "imgname": "example.png", "im_idx": "0",
+        "mask": "data:image/png;base64,"
+                + base64.b64encode(buf.getvalue()).decode()}).encode())
+    assert (status, body) == (200, b"/?idx=0")
+    page = http(base + "/?idx=0")[1].decode()
+    name = page.split("/static/images/")[1].split('"')[0].split("?")[0]
+    assert name.startswith("result_")
+    status, body = http(f"{base}/static/images/{name}")
+    assert status == 200
+    assert Image.open(io.BytesIO(body)).size == (256, 256)
+    assert http(base + "/", b"mask=%40%40notbase64")[0] == 400
+    emit({"phase": "demo_http", "result": name})
+    del pipe, app
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # 9. times ------------------------------------------------------------
     for B in (1, 4):
         img, sk = batch(B, 256, 256, args.seed + 50 + B)
         row = {"phase": "time_main_path", "hw": [256, 256], "batch": B,
@@ -690,10 +1346,17 @@ def main():
                "dtype": str(dt).split(".")[-1], **card}
         row["dq_ms"] = cuda_ms(lambda: attention_core_dq(*bargs), reps=10)
         row["dkdv_ms"] = cuda_ms(lambda: attention_core_dkdv(*bargs), reps=10)
+        row["dv_ms"] = cuda_ms(lambda: attention_core_dv(
+            Q, K, keep, lse, dO, 10.0, ksc), reps=10)
+        row["dk_ms"] = cuda_ms(lambda: attention_core_dk(*bargs), reps=10)
         row["dq_plain_ms"] = cuda_ms(
             lambda: attention_core_dq_reference(*bargs), reps=10)
         row["dkdv_plain_ms"] = cuda_ms(
             lambda: attention_core_dkdv_reference(*bargs), reps=10)
+        row["dv_plain_ms"] = cuda_ms(lambda: attention_core_dv_reference(
+            Q, K, keep, lse, dO, 10.0, ksc), reps=10)
+        row["dk_plain_ms"] = cuda_ms(
+            lambda: attention_core_dk_reference(*bargs), reps=10)
         Kg = (V.float() * ksc[:, None, :] * (10.0 * keep)[..., None]).to(dt)
         q_, k_, v_ = (t.detach().clone().requires_grad_() for t in (Q, Kg, V))
         o_ = F.scaled_dot_product_attention(q_, k_, v_, scale=1.0)
@@ -703,16 +1366,21 @@ def main():
         del o_
         # the work this run's data needs: S and dP over every key, dV over
         # every key (P > 0 for a gated key too), dS-products over the kept
-        # keys only; each input read once (Q, K and V are one tensor), each
-        # output written once
+        # keys only; the dK kernel alone needs S, dP and dS^T Q for the kept
+        # keys only (a gated key's dS is 0), the dV kernel S and P^T dO for
+        # every key, so the split pair counts S twice; each input read once
+        # (Q, K and V are one tensor), each output written once
         kept = keep.sum().item()
         nprod = 2.0 * B * N * P * D
         flops = {"dq": 2 * nprod + 2.0 * N * D * kept,
-                 "dkdv": 3 * nprod + 2.0 * N * D * kept}
+                 "dkdv": 3 * nprod + 2.0 * N * D * kept,
+                 "dv": 2 * nprod, "dk": 6.0 * N * D * kept}
         inputs = B * (Q.element_size() * P * D + 4 * (P + D + N * D + 2 * N))
-        nbytes = {"dq": inputs + 4 * B * N * D, "dkdv": inputs + 8 * B * P * D}
+        nbytes = {"dq": inputs + 4 * B * N * D, "dkdv": inputs + 8 * B * P * D,
+                  "dv": inputs - 4 * B * N + 4 * B * P * D,
+                  "dk": inputs + 4 * B * P * D}
         peak = peaks[str(dt).split(".")[-1]]
-        for k in ("dq", "dkdv"):
+        for k in ("dq", "dkdv", "dv", "dk"):
             t_ops = flops[k] / peak * 1e3
             t_bytes = nbytes[k] / peaks["bytes"] * 1e3
             row[f"{k}_bound_ms"] = max(t_ops, t_bytes)
@@ -720,10 +1388,80 @@ def main():
             row[f"{k}_gflop"] = flops[k] / 1e9
         bwd_times[(B, dt)] = row
         emit(row)
-    for k, v in saved.items():               # timing launches do not count
-        setattr(attention_cuda, {"fwd": "LAUNCHES", "fwd_lse": "LAUNCHES_LSE",
-                                 "dq": "LAUNCHES_DQ",
-                                 "dkdv": "LAUNCHES_DKDV"}[k], v)
+
+    # the three forwards side by side: 256^2 (B = 1 and 8), 512^2 and
+    # 1024^2 (B = 1), float32 and bfloat16, float32 output as on the main
+    # path; the plain version (not at 1024^2) and the library call beside
+    fwd_times = {}
+    f1024 = features(rs, 1, 256, 256).to(dev)
+    m1024 = hole_mask(1, 256, 256).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        fd = f1024.to(dt)
+        variant_inputs[(1, 256, dt)] = attention_inputs(fd, fd, m1024)
+    del f1024, fd
+    for (B, hw, dt), (Q, V, keep, ksc) in variant_inputs.items():
+        N, D = Q.shape[1:]
+        reps = 10 if hw < 128 else (5 if hw == 128 else 2)
+        f32 = torch.float32
+        row = {"phase": "time_forwards", "image_hw": [4 * hw, 4 * hw],
+               "shape_BNPD": [B, N, N, D], "dtype": str(dt).split(".")[-1],
+               **card}
+        row["fwd_ms"] = cuda_ms(lambda: attention_core(
+            Q, V, V, keep, out_dtype=f32, kscale=ksc), reps, warmup=1)
+        row["shared_ms"] = cuda_ms(lambda: attention_core_shared(
+            V, ksc, keep, out_dtype=f32), reps, warmup=1)
+        row["dsplit_ms"] = cuda_ms(lambda: attention_core_dsplit(
+            Q, V, V, keep, out_dtype=f32, kscale=ksc), reps, warmup=1)
+        if hw < 256:
+            row["plain_ms"] = cuda_ms(lambda: attention_core_reference(
+                Q, V, V, keep, out_dtype=f32, kscale=ksc), reps, warmup=1)
+            row["dsplit_plain_ms"] = cuda_ms(
+                lambda: attention_core_dsplit_reference(
+                    Q, V, V, keep, out_dtype=f32, kscale=ksc), reps, warmup=1)
+        Ks = (V.float() * ksc[:, None, :] * (10.0 * keep)[..., None]).to(dt)
+        row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            Q, Ks, V, scale=1.0), reps, warmup=1)
+        del Ks
+        # The three compute one function, so they share one bound: S and
+        # P V once each, each input read once (one tensor), the float32
+        # output written. The D-split's second S is its design's cost, not
+        # work the function needs.
+        nbytes = B * (Q.element_size() * N * D + 4 * (N * D + N + D))
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        t_ops = 4.0 * B * N * N * D / peaks[row["dtype"]] * 1e3
+        for k in ("fwd", "shared", "dsplit"):
+            row[f"{k}_bound_ms"] = max(t_ops, t_bytes)
+            row[f"{k}_bound_by"] = "bytes" if t_bytes > t_ops else "operations"
+        fwd_times[(B, hw, dt)] = row
+        emit(row)
+    set_counts(attention_cuda, saved)        # timing launches do not count
+
+    # served throughput in process at 256^2 with the serve defaults
+    # (bfloat16, TF32 allowed): each client sends 8 requests one after
+    # another. --max_batch 32 and 128 are read at the same client counts
+    # (32 and 128), twice each, in turn; with 32 clients a limit of 128
+    # never fills, so each batch waits out the executor's 20 ms window.
+    _, pipe = serve_pipeline(ApiOptions)
+    for clients, max_batch in ((32, 1), (32, 8), (32, 32), (32, 128),
+                               (128, 32), (128, 128), (32, 32), (32, 128),
+                               (128, 32), (128, 128)):
+        reqs = [reqs256[i % 32] for i in range(clients * 8)]
+        _, stats, _, seconds, latency = served(pipe, reqs, max_batch, clients)
+        lat = np.sort(np.asarray(latency))
+        emit({"phase": "time_serving", "hw": [256, 256], "dtype": "bfloat16",
+              "max_batch": max_batch, "clients": clients,
+              "requests": len(reqs), "img_per_s": len(reqs) / seconds,
+              "latency_ms": {"p50": float(lat[len(lat) // 2]),
+                             "p95": float(lat[int(len(lat) * 0.95)])},
+              "mean_batch_fill": stats["mean_batch_fill"],
+              "batch_size_histogram": stats["batch_size_histogram"],
+              "dispatch_ms": stats["dispatch_ms"],
+              "assemble_ms": stats["assemble_ms"],
+              "scatter_ms": stats["scatter_ms"], **card})
+    del pipe
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    set_counts(attention_cuda, saved)
 
     kernels = []
     for dt in (torch.float32, torch.bfloat16):
@@ -762,16 +1500,44 @@ def main():
             "shape_BNPD": [B, N, P, D], "dtype": str(dt).split(".")[-1],
             "peaks_assumed": part, **card})
     for dt in (torch.float32, torch.bfloat16):
+        # the forward variants: the shared kernel at the served 256^2, the
+        # D-split kernel at its own --edit_size 512; launches from the
+        # in-process serving runs under each switch
+        name = str(dt).split(".")[-1]
+        for k, hw, src_line in (("shared", 64, 103), ("dsplit", 128, 156)):
+            row = fwd_times[(1, hw, dt)]
+            kernels.append({
+                "name": f"contextual_attention_fwd_{k}"
+                        + ("" if dt == torch.float32 else "[bf16]"),
+                "route": "cuda",
+                "source": "sketchedit_tpu_torch/csrc/contextual_attention_fwd.cu",
+                "replaces": f"sketchedit_tpu/ops/attention_pallas.py:{src_line}",
+                "launches": serve_launches[(k, 4 * hw, name)],
+                "max_abs_err": variant_errs[(k, f"B1_{hw}sq_{name}")],
+                "ms": row[f"{k}_ms"],
+                "plain_ms": row["plain_ms"],
+                **({"dsplit_plain_ms": row["dsplit_plain_ms"]}
+                   if k == "dsplit" else {}),
+                "bound_ms": row[f"{k}_bound_ms"],
+                "bound_by": row[f"{k}_bound_by"],
+                "library_ms": row["library_ms"],
+                "shape_BNPD": row["shape_BNPD"], "dtype": name,
+                "peaks_assumed": part, **card})
+    for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
         row = bwd_times[(8, dt)]       # the training path's shapes
-        for k, src_line in (("dq", 262), ("dkdv", 304)):
+        split = switch_launches["SKETCHEDIT_SPLIT_DKDV" + (
+            "" if dt == torch.float32 else "[bf16]")]
+        for k, src_line in (("dq", 262), ("dkdv", 304), ("dv", 350),
+                            ("dk", 383)):
             kernels.append({
                 "name": f"contextual_attention_{k}"
                         + ("" if dt == torch.float32 else "[bf16]"),
                 "route": "cuda",
                 "source": "sketchedit_tpu_torch/csrc/contextual_attention_bwd.cu",
                 "replaces": f"sketchedit_tpu/ops/attention_pallas.py:{src_line}",
-                "launches": train_launches[name][k],
+                "launches": (split if k in ("dv", "dk")
+                             else train_launches[name])[k],
                 "max_abs_err": bwd_errs[f"B8_64sq_{name}"][k],
                 "ms": row[f"{k}_ms"], "plain_ms": row[f"{k}_plain_ms"],
                 "bound_ms": row[f"{k}_bound_ms"],
@@ -789,6 +1555,8 @@ def main():
               "plain_ms": cuda_ms(lambda: attention_core_reference(
                   Q, V, V, keep, out_dtype=torch.float32, kscale=ksc), 10)})
         attention_cuda.LAUNCHES = n0
+    assert all(k["launches"] > 0 for k in kernels), [
+        k["name"] for k in kernels if not k["launches"]]
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1),
           **card})

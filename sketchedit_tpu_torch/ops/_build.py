@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` has a plain C interface and is compiled by ``nvcc`` into
 its own shared library under ``build/sketchedit_tpu_torch/`` at the root of
 the checkout, then loaded with ``ctypes``. Nothing includes PyTorch's
 headers, so a build takes seconds. The library's file name carries a hash
-of its source and flags, so an unchanged source is built once and reused.
+of its source, the shared ``csrc/*.cuh`` headers and the flags, so an
+unchanged source is built once and reused.
 All sources are compiled in parallel on first use. A failed build raises.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -47,6 +48,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

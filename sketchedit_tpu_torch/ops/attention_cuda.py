@@ -6,12 +6,26 @@ splitcam gating quirk (a gated key gets logit 0). A CUDA tensor launches the
 hand-written kernel ``csrc/contextual_attention_fwd.cu``, which replaces
 ``attention_pallas.py::_attn_kernel``, or the call raises; a CPU tensor takes
 ``attention_core_reference``, the plain PyTorch version. Nothing falls back
-from one to the other. The flash-style backward comes in the same two
-forms: ``attention_core_dq`` and ``attention_core_dkdv`` launch the kernels
-of ``csrc/contextual_attention_bwd.cu`` (replacing ``_dq_kernel`` and
+from one to the other. The same file holds two more forwards of the same
+function: ``attention_core_shared`` (``_attn_shared_kernel``: queries, keys
+and values are one tensor, one pointer) and ``attention_core_dsplit``
+(``_attn_kernel_dsplit``: each block owns one half of D of the output;
+inference only). The flash-style backward comes in the same two forms:
+``attention_core_dq`` and ``attention_core_dkdv`` launch the kernels of
+``csrc/contextual_attention_bwd.cu`` (replacing ``_dq_kernel`` and
 ``_dkdv_kernel``) on CUDA tensors and take their plain versions on CPU
-ones; ``attention_core_bwd`` runs both. ``ContextualAttentionCore`` ties
-forward and backward together for autograd.
+ones, as do the single-output ``attention_core_dv`` and
+``attention_core_dk`` (``_dv_kernel``, ``_dk_kernel``);
+``attention_core_bwd`` runs dQ and then the fused kernel or the split pair.
+``ContextualAttentionCore`` ties forward and backward together for
+autograd.
+
+Three environment variables, read on every call as in the JAX package,
+choose among the kernels: ``SKETCHEDIT_SHARED_ATTN=1`` (the shared forward,
+where foreground and background are one tensor) and
+``SKETCHEDIT_DSPLIT_ATTN=1`` (the D-split forward) in
+``contextual_attention_fused``; ``SKETCHEDIT_SPLIT_DKDV=1`` (dV and dK
+kernels in place of the fused one) in ``attention_core_bwd``.
 
 The kernel keeps the whole (TQ, D) float32 accumulator of a query tile in
 shared memory and streams K and V tiles through it with an online softmax,
@@ -20,16 +34,22 @@ is arithmetic-bound (5.67 GFLOP against 11.8 MB); the source file says more.
 Given ``kscale``, the keys are ``K * kscale`` per channel, applied in
 float32 inside the kernel (as ``attention_pallas.py::_attn_shared_kernel``
 derives its keys): the main path passes K = V and the background's inverse
-norm, so no rounded K tensor is ever made.
+norm, so no rounded K tensor is ever made. The JAX package's shared
+backward materialises K = V * kscale in the input type, bfloat16 included;
+here the keys stay float32 in every kernel, a documented difference of
+rounding.
 
-``LAUNCHES`` counts forward launches (``LAUNCHES_LSE`` those of them that
-also wrote the logsumexp), ``LAUNCHES_DQ`` and ``LAUNCHES_DKDV`` the two
-backward kernels', so a run can show that its main path went through them.
+``LAUNCHES``, ``LAUNCHES_SHARED`` and ``LAUNCHES_DSPLIT`` count the three
+forward kernels' launches (``LAUNCHES_LSE`` those of any of them that also
+wrote the logsumexp), ``LAUNCHES_DQ``, ``LAUNCHES_DKDV``, ``LAUNCHES_DV``
+and ``LAUNCHES_DK`` the backward kernels', so a run can show that its main
+path went through them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -37,38 +57,44 @@ from sketchedit_tpu_torch.ops.attention import (
     background_norm, extract_patches, fold_patches, keep_gate)
 
 LAUNCHES = 0
+LAUNCHES_SHARED = 0
+LAUNCHES_DSPLIT = 0
 LAUNCHES_LSE = 0
 LAUNCHES_DQ = 0
 LAUNCHES_DKDV = 0
+LAUNCHES_DV = 0
+LAUNCHES_DK = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _fns: dict = {}
+# C entry point -> (library, leading dtype ints, pointers, dimension ints);
+# every signature ends with the float scale and the stream
+_ENTRY_POINTS = {
+    "fwd": ("contextual_attention_fwd", 2, 7, 4),
+    "fwd_dsplit": ("contextual_attention_fwd", 2, 7, 4),
+    "fwd_shared": ("contextual_attention_fwd", 2, 5, 3),
+    "dq": ("contextual_attention_bwd", 1, 9, 4),
+    "dkdv": ("contextual_attention_bwd", 1, 10, 4),
+    "dv": ("contextual_attention_bwd", 1, 7, 4),
+    "dk": ("contextual_attention_bwd", 1, 9, 4),
+}
 
 
 def _kernel(name: str = "fwd"):
-    """The bound C entry point ``name`` (fwd, dq or dkdv) and the library's
-    error-string function, built on first use."""
+    """The bound C entry point ``name`` (a key of ``_ENTRY_POINTS``) and its
+    library's error-string function, built on first use."""
     if not _fns:
         from sketchedit_tpu_torch.ops import _build
         libs = _build.load()
-        fwd_lib = libs["contextual_attention_fwd"]
-        bwd_lib = libs["contextual_attention_bwd"]
-        fwd = fwd_lib.sketchedit_contextual_attention_fwd
-        fwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
-        # dq: Q K V keep kscale dO lse delta dQ; dkdv: ... dK dV
-        dq = bwd_lib.sketchedit_contextual_attention_dq
-        dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
-        dkdv = bwd_lib.sketchedit_contextual_attention_dkdv
-        dkdv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                         + [ctypes.c_int] * 4
-                         + [ctypes.c_float, ctypes.c_void_p])
-        for lib in (fwd_lib, bwd_lib):
+        for name_, (stem, n_dtypes, n_ptrs, n_dims) in _ENTRY_POINTS.items():
+            lib = libs[stem]
             lib.sketchedit_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sketchedit_cuda_error_string.restype = ctypes.c_char_p
-        for name_, fn, lib in (("fwd", fwd, fwd_lib), ("dq", dq, bwd_lib),
-                               ("dkdv", dkdv, bwd_lib)):
+            fn = getattr(lib, f"sketchedit_contextual_attention_{name_}")
+            fn.argtypes = ([ctypes.c_int] * n_dtypes
+                           + [ctypes.c_void_p] * n_ptrs
+                           + [ctypes.c_int] * n_dims
+                           + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _fns[name_] = (fn, lib.sketchedit_cuda_error_string)
     return _fns[name]
@@ -121,6 +147,34 @@ def _check(Q, K, V, keep, out_dtype, kscale):
             raise ValueError(f"{name} is on {t.device}, Q on {Q.device}")
 
 
+def _forward_on_device(name, Q, K, V, keep, softmax_scale, return_lse,
+                       out_dtype, kscale):
+    """Launch the forward kernel ``name`` (fwd, fwd_dsplit or fwd_shared; the
+    last takes V alone) on checked CUDA tensors; returns (out, lse or None)."""
+    global LAUNCHES_LSE
+    fn, err_str = _kernel(name)
+    B, N, D = Q.shape
+    P = K.shape[1]
+    out = torch.empty(Q.shape, dtype=out_dtype, device=Q.device)
+    kscale = _kscale_or_ones(Q, kscale)
+    lse = (torch.empty((B, N), dtype=torch.float32, device=Q.device)
+           if return_lse else None)
+    tensors = (V,) if name == "fwd_shared" else (Q, K, V)
+    dims = (B, N, D) if name == "fwd_shared" else (B, N, P, D)
+    rc = fn(_DTYPE_CODES[Q.dtype], _DTYPE_CODES[out_dtype],
+            *(t.data_ptr() for t in tensors), keep.data_ptr(),
+            kscale.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), *dims,
+            float(softmax_scale),
+            torch.cuda.current_stream(Q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"contextual_attention_{name} launch failed "
+                           f"(B={B}, N={N}, P={P}, D={D}, {Q.dtype}): "
+                           f"{err_str(rc).decode()}")
+    LAUNCHES_LSE += return_lse
+    return out, lse
+
+
 def attention_core(Q, K, V, keep, softmax_scale: float = 10.0,
                    return_lse: bool = False, out_dtype=None, kscale=None):
     """softmax((Q (K * kscale)^T) * keep * scale) V.
@@ -130,32 +184,96 @@ def attention_core(Q, K, V, keep, softmax_scale: float = 10.0,
     ``out_dtype`` (Q's dtype by default, or float32), and the (B,N)
     float32 logsumexp when ``return_lse``.
     """
-    global LAUNCHES, LAUNCHES_LSE
+    global LAUNCHES
     out_dtype = out_dtype or Q.dtype
     _check(Q, K, V, keep, out_dtype, kscale)
     if not _on_device(Q, "attention_core"):
         return attention_core_reference(Q, K, V, keep, softmax_scale,
                                         return_lse, out_dtype, kscale)
-    fn, err_str = _kernel("fwd")
-    B, N, D = Q.shape
-    P = K.shape[1]
-    out = torch.empty(Q.shape, dtype=out_dtype, device=Q.device)
-    if kscale is None:
-        kscale = torch.ones((B, D), dtype=torch.float32, device=Q.device)
-    lse = (torch.empty((B, N), dtype=torch.float32, device=Q.device)
-           if return_lse else None)
-    stream = torch.cuda.current_stream(Q.device).cuda_stream
-    rc = fn(_DTYPE_CODES[Q.dtype], _DTYPE_CODES[out_dtype], Q.data_ptr(),
-            K.data_ptr(), V.data_ptr(), keep.data_ptr(), kscale.data_ptr(),
-            out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            B, N, P, D, float(softmax_scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"contextual_attention_fwd launch failed "
-                           f"(B={B}, N={N}, P={P}, D={D}, {Q.dtype}): "
-                           f"{err_str(rc).decode()}")
+    out, lse = _forward_on_device("fwd", Q, K, V, keep, softmax_scale,
+                                  return_lse, out_dtype, kscale)
     LAUNCHES += 1
-    LAUNCHES_LSE += return_lse
+    return (out, lse) if return_lse else out
+
+
+def attention_core_shared_reference(V, kscale, keep,
+                                    softmax_scale: float = 10.0,
+                                    return_lse: bool = False, out_dtype=None):
+    """Plain version of the shared-tensor forward: queries and values are
+    V, the keys V * kscale, in float32."""
+    return attention_core_reference(V, V, V, keep, softmax_scale, return_lse,
+                                    out_dtype, kscale)
+
+
+def attention_core_shared(V, kscale, keep, softmax_scale: float = 10.0,
+                          return_lse: bool = False, out_dtype=None):
+    """``attention_core(V, V, V, keep, kscale=kscale)`` from one tensor: V
+    (B,N,D) is queries and values, the keys are V * kscale (kscale (B,D)
+    float32), keep (B,N). A CUDA tensor launches the shared-tensor kernel,
+    which takes the one pointer; a CPU tensor takes the plain version."""
+    global LAUNCHES_SHARED
+    out_dtype = out_dtype or V.dtype
+    _check(V, V, V, keep, out_dtype, kscale)
+    if kscale is None:
+        raise ValueError("attention_core_shared needs kscale")
+    if not _on_device(V, "attention_core_shared"):
+        return attention_core_shared_reference(V, kscale, keep, softmax_scale,
+                                               return_lse, out_dtype)
+    out, lse = _forward_on_device("fwd_shared", V, V, V, keep, softmax_scale,
+                                  return_lse, out_dtype, kscale)
+    LAUNCHES_SHARED += 1
+    return (out, lse) if return_lse else out
+
+
+def dsplit_cut(D: int) -> int:
+    """Width of the D-split's first half: ceil(D / 2), rounded up to 4."""
+    return ((D + 1) // 2 + 3) // 4 * 4
+
+
+def attention_core_dsplit_reference(Q, K, V, keep, softmax_scale: float = 10.0,
+                                    return_lse: bool = False, out_dtype=None,
+                                    kscale=None):
+    """Plain version of the D-split forward: each half of the output's
+    columns from its own pass (S over the full D recomputed, that half of V
+    alone), the halves concatenated; the lse is the first half's."""
+    cut = dsplit_cut(Q.shape[2])
+    halves, lse = [], None
+    for lo, hi in ((0, cut), (cut, Q.shape[2])):
+        if lo >= hi:
+            continue
+        Kf = K.float() if kscale is None else K.float() * kscale[:, None, :]
+        logits = torch.bmm(Q.float(), Kf.transpose(1, 2))
+        logits = logits * keep.float()[:, None, :] * softmax_scale
+        halves.append(torch.bmm(torch.softmax(logits, dim=-1),
+                                V[..., lo:hi].float()))
+        if lse is None:
+            lse = torch.logsumexp(logits, dim=-1)
+    out = torch.cat(halves, dim=-1).to(out_dtype or Q.dtype)
+    return (out, lse) if return_lse else out
+
+
+def attention_core_dsplit(Q, K, V, keep, softmax_scale: float = 10.0,
+                          return_lse: bool = False, out_dtype=None,
+                          kscale=None):
+    """``attention_core`` through the D-split kernel (each block owns one
+    half of D of the output and recomputes S; for large canvases). No
+    backward: it raises where autograd would need one. A CUDA tensor
+    launches the kernel; a CPU tensor takes the plain version."""
+    global LAUNCHES_DSPLIT
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (Q, K, V, kscale)):
+        raise RuntimeError(
+            "the D-split attention kernel (SKETCHEDIT_DSPLIT_ATTN=1) is "
+            "inference only: it has no backward. Unset the variable to "
+            "train, or call it under torch.no_grad()")
+    out_dtype = out_dtype or Q.dtype
+    _check(Q, K, V, keep, out_dtype, kscale)
+    if not _on_device(Q, "attention_core_dsplit"):
+        return attention_core_dsplit_reference(Q, K, V, keep, softmax_scale,
+                                               return_lse, out_dtype, kscale)
+    out, lse = _forward_on_device("fwd_dsplit", Q, K, V, keep, softmax_scale,
+                                  return_lse, out_dtype, kscale)
+    LAUNCHES_DSPLIT += 1
     return (out, lse) if return_lse else out
 
 
@@ -188,6 +306,26 @@ def attention_core_dkdv_reference(Q, K, V, keep, lse, delta, dO,
     return torch.bmm(dS.transpose(1, 2), Qf), torch.bmm(P.transpose(1, 2), dO)
 
 
+def attention_core_dv_reference(Q, K, keep, lse, dO,
+                                softmax_scale: float = 10.0, kscale=None):
+    """Plain version of the dV kernel, in float32: dV = P^T dO with
+    P = exp((Q K_eff^T) g - lse); reads neither V nor delta."""
+    Kf = K.float() if kscale is None else K.float() * kscale[:, None, :]
+    gmul = (keep.float() * softmax_scale)[:, None, :]
+    P = torch.exp(torch.bmm(Q.float(), Kf.transpose(1, 2)) * gmul
+                  - lse[..., None])
+    return torch.bmm(P.transpose(1, 2), dO)
+
+
+def attention_core_dk_reference(Q, K, V, keep, lse, delta, dO,
+                                softmax_scale: float = 10.0, kscale=None):
+    """Plain version of the dK kernel, in float32: dK_eff = dS^T Q, the
+    terms as in ``attention_core_dq_reference``."""
+    _, dS, Qf, _ = _bwd_terms(Q, K, V, keep, lse, delta, dO, softmax_scale,
+                              kscale)
+    return torch.bmm(dS.transpose(1, 2), Qf)
+
+
 def attention_core_bwd_reference(Q, K, V, keep, out, lse, dO,
                                  softmax_scale: float = 10.0, kscale=None):
     """Plain version of the backward: delta = rowsum(dO O), then the two
@@ -210,17 +348,23 @@ def _check_bwd(Q, K, V, keep, lse, delta, dO, kscale):
             raise ValueError(f"{name} must be contiguous on {Q.device}")
 
 
-def _launch_bwd(name, Q, K, V, keep, lse, delta, dO, softmax_scale, kscale,
-                outs):
+def _kscale_or_ones(Q, kscale):
+    if kscale is not None:
+        return kscale
+    return torch.ones((Q.shape[0], Q.shape[2]), dtype=torch.float32,
+                      device=Q.device)
+
+
+def _launch_bwd(name, Q, K, tensors, softmax_scale):
+    """Launch the backward kernel ``name`` with Q's dtype code, the data
+    pointers of ``tensors`` in the C signature's order, and the
+    dimensions."""
     B, N, D = Q.shape
     P = K.shape[1]
-    if kscale is None:
-        kscale = torch.ones((B, D), dtype=torch.float32, device=Q.device)
     fn, err_str = _kernel(name)
-    rc = fn(_DTYPE_CODES[Q.dtype], Q.data_ptr(), K.data_ptr(), V.data_ptr(),
-            keep.data_ptr(), kscale.data_ptr(), dO.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(t.data_ptr() for t in outs), B, N, P, D,
-            float(softmax_scale), torch.cuda.current_stream(Q.device).cuda_stream)
+    rc = fn(_DTYPE_CODES[Q.dtype], *(t.data_ptr() for t in tensors),
+            B, N, P, D, float(softmax_scale),
+            torch.cuda.current_stream(Q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"contextual_attention_{name} launch failed "
                            f"(B={B}, N={N}, P={P}, D={D}, {Q.dtype}): "
@@ -244,8 +388,8 @@ def attention_core_dq(Q, K, V, keep, lse, delta, dO,
         return attention_core_dq_reference(Q, K, V, keep, lse, delta, dO,
                                            softmax_scale, kscale)
     dQ = torch.empty(Q.shape, dtype=torch.float32, device=Q.device)
-    _launch_bwd("dq", Q, K, V, keep, lse, delta, dO, softmax_scale, kscale,
-                (dQ,))
+    _launch_bwd("dq", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
+                             lse, delta, dQ), softmax_scale)
     LAUNCHES_DQ += 1
     return dQ
 
@@ -262,10 +406,45 @@ def attention_core_dkdv(Q, K, V, keep, lse, delta, dO,
                                              softmax_scale, kscale)
     dK, dV = (torch.empty(K.shape, dtype=torch.float32, device=K.device)
               for _ in range(2))
-    _launch_bwd("dkdv", Q, K, V, keep, lse, delta, dO, softmax_scale, kscale,
-                (dK, dV))
+    _launch_bwd("dkdv", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
+                               lse, delta, dK, dV), softmax_scale)
     LAUNCHES_DKDV += 1
     return dK, dV
+
+
+def attention_core_dv(Q, K, keep, lse, dO, softmax_scale: float = 10.0,
+                      kscale=None):
+    """dV (float32) of ``attention_core`` alone: it needs neither V nor
+    delta. A CUDA tensor launches the dV kernel; a CPU tensor takes the
+    plain version."""
+    global LAUNCHES_DV
+    # V and delta are not read: K and lse stand in for them in the checks
+    _check_bwd(Q, K, K, keep, lse, lse, dO, kscale)
+    if not _on_device(Q, "attention_core_dv"):
+        return attention_core_dv_reference(Q, K, keep, lse, dO, softmax_scale,
+                                           kscale)
+    dV = torch.empty(K.shape, dtype=torch.float32, device=K.device)
+    _launch_bwd("dv", Q, K, (Q, K, keep, _kscale_or_ones(Q, kscale), dO, lse,
+                             dV), softmax_scale)
+    LAUNCHES_DV += 1
+    return dV
+
+
+def attention_core_dk(Q, K, V, keep, lse, delta, dO,
+                      softmax_scale: float = 10.0, kscale=None):
+    """dK_eff (float32) of ``attention_core`` alone, the gradient of the
+    keys K * kscale. A CUDA tensor launches the dK kernel; a CPU tensor
+    takes the plain version."""
+    global LAUNCHES_DK
+    _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
+    if not _on_device(Q, "attention_core_dk"):
+        return attention_core_dk_reference(Q, K, V, keep, lse, delta, dO,
+                                           softmax_scale, kscale)
+    dK = torch.empty(K.shape, dtype=torch.float32, device=K.device)
+    _launch_bwd("dk", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
+                             lse, delta, dK), softmax_scale)
+    LAUNCHES_DK += 1
+    return dK
 
 
 def attention_core_bwd(Q, K, V, keep, out, lse, dO,
@@ -273,14 +452,19 @@ def attention_core_bwd(Q, K, V, keep, out, lse, dO,
     """Gradients of ``attention_core`` given its float32 output ``out``, its
     logsumexp ``lse`` and the float32 output gradient ``dO``: (dQ, dK_eff,
     dV), float32. delta = rowsum(dO O) is a plain reduction, as in the JAX
-    package; then the dQ kernel and the fused dK/dV kernel (on the CPU,
-    their plain versions)."""
+    package; then the dQ kernel and the fused dK/dV kernel or, under
+    ``SKETCHEDIT_SPLIT_DKDV=1``, the dV and dK kernels (on the CPU, their
+    plain versions)."""
     if out.dtype != torch.float32 or out.shape != dO.shape:
         raise ValueError(f"out must be float32 {tuple(dO.shape)}, got "
                          f"{out.dtype} {tuple(out.shape)}")
     delta = (dO * out).sum(-1)
     args = (Q, K, V, keep, lse, delta, dO, softmax_scale, kscale)
-    return (attention_core_dq(*args), *attention_core_dkdv(*args))
+    dQ = attention_core_dq(*args)
+    if os.environ.get("SKETCHEDIT_SPLIT_DKDV") == "1":
+        dV = attention_core_dv(Q, K, keep, lse, dO, softmax_scale, kscale)
+        return dQ, attention_core_dk(*args), dV
+    return (dQ, *attention_core_dkdv(*args))
 
 
 class ContextualAttentionCore(torch.autograd.Function):
@@ -290,15 +474,24 @@ class ContextualAttentionCore(torch.autograd.Function):
     ``attention_core_bwd`` and folds dK_eff back onto K and kscale in
     float32: dK = dK_eff * kscale, dkscale = sum_P dK_eff * K. keep gets no
     gradient (a threshold). When Q, K and V are one tensor (the main path),
-    the three gradients are summed in float32 and returned once."""
+    the three gradients are summed in float32 and returned once, which is
+    the JAX package's ``_core_shared_bwd``; ``shared_kernel`` then sends the
+    forward through ``attention_core_shared``."""
 
     @staticmethod
-    def forward(ctx, Q, K, V, keep, kscale, softmax_scale):
-        out, lse = attention_core(Q, K, V, keep, softmax_scale,
-                                  return_lse=True, out_dtype=torch.float32,
-                                  kscale=kscale)
+    def forward(ctx, Q, K, V, keep, kscale, softmax_scale,
+                shared_kernel=False):
         ctx.softmax_scale = softmax_scale
         ctx.shared = Q is K and K is V
+        if shared_kernel:
+            assert ctx.shared, "the shared kernel takes one tensor"
+            out, lse = attention_core_shared(
+                V, kscale, keep, softmax_scale, return_lse=True,
+                out_dtype=torch.float32)
+        else:
+            out, lse = attention_core(
+                Q, K, V, keep, softmax_scale, return_lse=True,
+                out_dtype=torch.float32, kscale=kscale)
         ctx.save_for_backward(Q, K, V, keep, kscale, out, lse)
         return out
 
@@ -312,23 +505,27 @@ class ContextualAttentionCore(torch.autograd.Function):
         dkscale = ((dK_eff * K.float()).sum(1) if ctx.needs_input_grad[4]
                    else None)
         if ctx.shared:
-            return (dQ + dK + dV).to(V.dtype), None, None, None, dkscale, None
+            return ((dQ + dK + dV).to(V.dtype), None, None, None, dkscale,
+                    None, None)
         return (dQ.to(Q.dtype), dK.to(K.dtype), dV.to(V.dtype), None,
-                dkscale, None)
+                dkscale, None, None)
 
 
 def attention_core_differentiable(Q, K, V, keep, softmax_scale: float = 10.0,
-                                  kscale=None):
+                                  kscale=None, shared_kernel: bool = False):
     """``attention_core`` with a float32 output through
     ``ContextualAttentionCore`` when autograd needs it; otherwise the plain
-    call, which skips the logsumexp and saves nothing."""
-    if kscale is None:
-        kscale = torch.ones((Q.shape[0], Q.shape[2]), dtype=torch.float32,
-                            device=Q.device)
+    call, which skips the logsumexp and saves nothing. ``shared_kernel``
+    (Q, K and V are one tensor) takes ``attention_core_shared`` for the
+    forward."""
+    kscale = _kscale_or_ones(Q, kscale)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (Q, K, V, kscale)):
         return ContextualAttentionCore.apply(Q, K, V, keep, kscale,
-                                             softmax_scale)
+                                             softmax_scale, shared_kernel)
+    if shared_kernel:
+        return attention_core_shared(V, kscale, keep, softmax_scale,
+                                     out_dtype=torch.float32)
     return attention_core(Q, K, V, keep, softmax_scale,
                           out_dtype=torch.float32, kscale=kscale)
 
@@ -358,10 +555,21 @@ def contextual_attention_fused(f, b, mask, *, patch_size: int = 4,
     backward kernels. NCHW in and out. As in the dense version, the keys
     are formed in float32 and the kernel's float32 output is folded in
     float32 and rounded once to the input dtype (the JAX package's Pallas
-    path rounds K and the output to bfloat16)."""
+    path rounds K and the output to bfloat16).
+
+    The forward kernel is chosen on every call as in the JAX package:
+    ``SKETCHEDIT_SHARED_ATTN=1`` takes the shared-tensor kernel where
+    ``f is b``; otherwise ``SKETCHEDIT_DSPLIT_ATTN=1`` takes the D-split
+    kernel (inference only); otherwise the default kernel."""
     H, W = b.shape[2:]
     Q, V, keep, kscale = attention_inputs(f, b, mask, patch_size=patch_size,
                                           stride=stride, th=th)
-    out = attention_core_differentiable(Q, V, V, keep, softmax_scale,
-                                        kscale=kscale)
+    shared = f is b and os.environ.get("SKETCHEDIT_SHARED_ATTN", "0") == "1"
+    if not shared and os.environ.get("SKETCHEDIT_DSPLIT_ATTN", "0") == "1":
+        out = attention_core_dsplit(Q, V, V, keep, softmax_scale,
+                                    out_dtype=torch.float32, kscale=kscale)
+    else:
+        out = attention_core_differentiable(Q, V, V, keep, softmax_scale,
+                                            kscale=kscale,
+                                            shared_kernel=shared)
     return fold_patches(out, (H, W), patch_size, stride).to(f.dtype)

@@ -1,9 +1,16 @@
 """Pipeline runner: options -> model (checkpoint or fresh init) -> a
 callable that edits numpy batches (counterpart of ``sketchedit_tpu/runner.py``).
+
+The callable may be used from any thread (the serving executor calls it
+from its dispatcher thread): it makes the pipeline's GPU the thread's
+current device, so the kernels launch on that device's current stream;
+inference mode is entered per call; the TF32 switches that
+``build_pipeline`` sets are process-wide.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,7 +49,10 @@ def set_precision(precision: str | None):
 
 
 def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(x))
+    x = np.ascontiguousarray(x)
+    if not x.flags.writeable:       # e.g. a view of a PIL image's buffer
+        x = x.copy()
+    t = torch.from_numpy(x)
     if device.type == "cuda":
         # pinned host buffer -> asynchronous copy on the current stream
         return t.pin_memory().to(device, non_blocking=True)
@@ -61,15 +71,19 @@ class EditPipeline:
         uint8 inputs take ``edit_u8`` (uint8 out); float inputs in [-1, 1]
         take ``edit`` (float32 out).
         """
-        image = _to_device(image_nhwc, self.device)
-        sketch = _to_device(sketch_nhw1, self.device)
-        with torch.inference_mode():
+        # the current CUDA device is per thread and starts at 0
+        on_device = (torch.cuda.device(self.device)
+                     if self.device.type == "cuda"
+                     else contextlib.nullcontext())
+        with on_device, torch.inference_mode():
+            image = _to_device(image_nhwc, self.device)
+            sketch = _to_device(sketch_nhw1, self.device)
             if image.dtype == torch.uint8:
                 composed, mask = editline2.edit_u8(self.model, image, sketch)
             else:
                 composed, mask = editline2.edit(self.model, image, sketch)
                 composed, mask = composed.float(), mask.float()
-        return composed.cpu().numpy(), mask.cpu().numpy()
+            return composed.cpu().numpy(), mask.cpu().numpy()
 
 
 def build_pipeline(opt, *, require_checkpoint: bool = False,

@@ -29,7 +29,9 @@ from sketchedit_tpu_torch.models.deepfill_c2 import (
 from sketchedit_tpu_torch.ops import attention_cuda
 from sketchedit_tpu_torch.ops.attention_cuda import (
     attention_core_bwd, attention_core_bwd_reference,
-    attention_core_differentiable, contextual_attention_fused)
+    attention_core_differentiable, attention_core_dk,
+    attention_core_dk_reference, attention_core_dv,
+    attention_core_dv_reference, contextual_attention_fused)
 from sketchedit_tpu_torch.params.convert import jax_params_to_state_dict
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -215,3 +217,88 @@ def test_netg_gradients_reach_pmconv_through_the_kernel_path():
         assert k.abs().max() > 0
         torch.testing.assert_close(k, d, rtol=1e-4,
                                    atol=1e-4 * d.abs().max().item())
+
+
+@pytest.mark.parametrize("keep_p", [0.7, 0.0], ids=["gated", "all_gated"])
+def test_dv_dk_references_match_pallas_split_kernels(monkeypatch, keep_p):
+    """Unaligned 2 x 130 x 150 x 70: the dV and dK plain versions against
+    the Pallas single-output kernels (SKETCHEDIT_SPLIT_DKDV=1, interpret
+    mode), each within 2e-4 of the gradient's max |value|."""
+    monkeypatch.setenv("SKETCHEDIT_SPLIT_DKDV", "1")
+    Q, K, V, keep, dO, _ = _core_inputs(5, 2, 130, 150, 70, keep_p)
+    jq, jk, jv, jkeep, jdo = map(jnp.asarray, (Q, K, V, keep, dO))
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = _attention_core_raw(jq, jk, jv, jkeep, return_lse=True,
+                                       out_dtype=jnp.float32)
+        _, want_dk, want_dv = _attention_core_bwd_pallas(
+            jq, jk, jv, jkeep, out, lse, jdo, 10.0)
+    t = torch.from_numpy
+    out_t, lse_t = t(np.array(out)), t(np.array(lse))
+    delta = (t(dO) * out_t).sum(-1)
+    got_dv = attention_core_dv_reference(t(Q), t(K), t(keep), lse_t, t(dO))
+    got_dk = attention_core_dk_reference(t(Q), t(K), t(V), t(keep), lse_t,
+                                         delta, t(dO))
+    _close_rel(got_dv.numpy(), want_dv, 2e-4, "dV")
+    if keep_p == 0.0:           # all gated: S is multiplied by 0, so no dK
+        assert not got_dk.any() and not np.asarray(want_dk).any()
+    else:
+        _close_rel(got_dk.numpy(), want_dk, 2e-4, "dK")
+    # the CPU wrappers are the plain versions and launch nothing; under the
+    # switch attention_core_bwd takes them
+    before = (attention_cuda.LAUNCHES_DV, attention_cuda.LAUNCHES_DK)
+    torch.testing.assert_close(
+        attention_core_dv(t(Q), t(K), t(keep), lse_t, t(dO)), got_dv,
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        attention_core_dk(t(Q), t(K), t(V), t(keep), lse_t, delta, t(dO)),
+        got_dk, rtol=0, atol=0)
+    assert (attention_cuda.LAUNCHES_DV, attention_cuda.LAUNCHES_DK) == before
+    calls = []
+    for name in ("attention_core_dv", "attention_core_dk",
+                 "attention_core_dkdv"):
+        def spy(*a, _fn=getattr(attention_cuda, name), _n=name, **k):
+            calls.append(_n)
+            return _fn(*a, **k)
+        monkeypatch.setattr(attention_cuda, name, spy)
+    split = attention_core_bwd(t(Q), t(K), t(V), t(keep), out_t, lse_t, t(dO))
+    assert calls == ["attention_core_dv", "attention_core_dk"]
+    monkeypatch.delenv("SKETCHEDIT_SPLIT_DKDV")
+    fused = attention_core_bwd(t(Q), t(K), t(V), t(keep), out_t, lse_t, t(dO))
+    assert calls[2:] == ["attention_core_dkdv"]
+    for a, b in zip(split, fused):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("switch", ["SKETCHEDIT_SHARED_ATTN",
+                                    "SKETCHEDIT_SPLIT_DKDV"])
+def test_fused_gradient_under_switch_matches_jax(monkeypatch, switch):
+    """The gradient of contextual_attention_fused under each differentiable
+    switch against jax.grad of contextual_attention_pallas under the same
+    switch (2e-4 of the gradient's max), and against itself without."""
+    rs = np.random.RandomState(31)
+    H, C = 16, 12
+    f = np.maximum(rs.randn(2, H, H, C), 0).astype(np.float32)
+    mask = (rs.rand(2, H, H, 1) > 0.5).astype(np.float32)
+    mask[1, : H // 2] = 1.0
+    cot = rs.randn(2, H, H, C).astype(np.float32)
+    mt = torch.from_numpy(np.ascontiguousarray(mask.transpose(0, 3, 1, 2)))
+    cot_t = torch.from_numpy(np.ascontiguousarray(cot.transpose(0, 3, 1, 2)))
+
+    def port_grad():
+        ft = torch.from_numpy(np.ascontiguousarray(f.transpose(0, 3, 1, 2))
+                              ).requires_grad_()
+        out = contextual_attention_fused(ft, ft, mt)
+        return torch.autograd.grad((out * cot_t).sum(), ft)[0].numpy(
+            ).transpose(0, 2, 3, 1)
+
+    default = port_grad()
+    monkeypatch.setenv(switch, "1")
+
+    def loss(x):
+        return jnp.sum(contextual_attention_pallas(x, x, jnp.asarray(mask))
+                       * cot)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss)(jnp.asarray(f))
+    got = port_grad()
+    _close_rel(got, want, 2e-4, switch)
+    _close_rel(got, default, 1e-5, switch + " vs default")

@@ -32,6 +32,19 @@ def test_scan_covers_the_port():
     assert (ROOT / "chip_smoke.py").exists()
 
 
+@pytest.mark.parametrize("rel", [
+    "server/__init__.py", "server/rawproto.py", "server/letterbox.py",
+    "server/executor.py", "server/composite.py", "server/face_localizer.py",
+    "server/demo_server.py", "cli/serve.py", "cli/demo.py",
+    "utils/procutil.py"])
+def test_scan_covers_the_serving_modules(rel):
+    """The serving slice's modules are among the files that the two
+    parametrised checks below walk."""
+    assert ROOT / "sketchedit_tpu_torch" / rel in PORT_FILES
+    assert ROOT / "sketchedit_tpu_torch" / rel in SCANNED
+    assert ROOT / "chip_smoke.py" in SCANNED
+
+
 @pytest.mark.parametrize("path", SCANNED, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]

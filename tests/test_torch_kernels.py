@@ -1,6 +1,6 @@
-"""The contextual-attention CUDA kernels (forward, dQ and dK/dV) against
-their plain PyTorch versions, and the kernel path's gradient against dense
-autograd.
+"""The contextual-attention CUDA kernels (the default, shared-tensor and
+D-split forwards, dQ, fused dK/dV, dV and dK) against their plain PyTorch
+versions, and the kernel path's gradient against dense autograd.
 
 These need an NVIDIA GPU and nvcc, so they carry the ``gpu`` marker and
 skip elsewhere; chip_smoke.py holds the kernel to the same plain version on
@@ -23,8 +23,12 @@ import torch
 from sketchedit_tpu_torch.ops import attention_cuda
 from sketchedit_tpu_torch.ops.attention import contextual_attention
 from sketchedit_tpu_torch.ops.attention_cuda import (
-    attention_core, attention_core_dkdv, attention_core_dkdv_reference,
-    attention_core_dq, attention_core_dq_reference, attention_core_reference,
+    attention_core, attention_core_dk, attention_core_dk_reference,
+    attention_core_dkdv, attention_core_dkdv_reference, attention_core_dq,
+    attention_core_dq_reference, attention_core_dsplit,
+    attention_core_dsplit_reference, attention_core_dv,
+    attention_core_dv_reference, attention_core_reference,
+    attention_core_shared, attention_core_shared_reference,
     contextual_attention_fused)
 
 pytestmark = pytest.mark.gpu
@@ -91,6 +95,75 @@ def test_kernel_kscale_float32_out(cuda, dtype):
     torch.testing.assert_close(out, want, **TOL[torch.float32])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,keep_p", [
+    ((2, 130, 150, 70), 0.7),         # ragged; the cut at 36 of 70 columns
+    ((1, 17, 65, 33), 0.5),
+    ((1, 40, 64, 1536), 0.0),         # all gated, 8-row tiles
+    ((3, 300, 200, 600), 0.9),        # 16-row tiles
+    ((9, 500, 200, 1536), 0.9),       # 32-row tiles at the model's D
+    ((1, 9, 9, 3), 0.9),              # D below the cut: one half is empty
+])
+def test_dsplit_kernel_matches_plain_and_default(cuda, dtype, shape, keep_p):
+    Q, K, V, keep = _inputs(sum(shape), *shape, keep_p, dtype, cuda)
+    kscale = (torch.rand(shape[0], shape[3], generator=torch.Generator(
+        ).manual_seed(3)) + 0.5).to(cuda)
+    before = attention_cuda.LAUNCHES_DSPLIT
+    out, lse = attention_core_dsplit(Q, K, V, keep, return_lse=True,
+                                     kscale=kscale)
+    torch.cuda.synchronize()
+    assert attention_cuda.LAUNCHES_DSPLIT == before + 1
+    want, want_lse = attention_core_dsplit_reference(
+        Q, K, V, keep, return_lse=True, kscale=kscale)
+    assert out.dtype == dtype and out.shape == Q.shape
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    sib, sib_lse = attention_core(Q, K, V, keep, return_lse=True,
+                                  kscale=kscale)
+    torch.testing.assert_close(out.float(), sib.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, sib_lse, rtol=1e-4, atol=1e-4)
+
+
+def test_dsplit_kernel_refuses_a_gradient(cuda):
+    Q, K, V, keep = _inputs(0, 1, 8, 8, 8, 1.0, torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="SKETCHEDIT_DSPLIT_ATTN"):
+        attention_core_dsplit(Q.requires_grad_(), K, V, keep)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,keep_p", [
+    ((2, 150, 150, 70), 0.7),         # ragged N and D
+    ((1, 65, 65, 33), 0.5),
+    ((1, 64, 64, 1536), 0.0),         # all gated: the uniform mean of V
+    ((3, 300, 300, 600), 0.9),
+    ((9, 260, 260, 1536), 0.9),       # 16-row tiles at the model's D
+])
+def test_shared_kernel_matches_plain_and_default(cuda, dtype, shape, keep_p):
+    B, N, _, D = shape
+    _, _, V, keep = _inputs(sum(shape), *shape, keep_p, dtype, cuda)
+    # 1/sqrt(D) on the keys keeps the logits spread as in the model
+    kscale = ((torch.rand(B, D, generator=torch.Generator().manual_seed(4))
+               + 0.5) * D ** -0.5).to(cuda)
+    before = attention_cuda.LAUNCHES_SHARED, attention_cuda.LAUNCHES
+    out, lse = attention_core_shared(V, kscale, keep, return_lse=True,
+                                     out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (attention_cuda.LAUNCHES_SHARED, attention_cuda.LAUNCHES) == (
+        before[0] + 1, before[1])
+    want, want_lse = attention_core_shared_reference(
+        V, kscale, keep, return_lse=True, out_dtype=torch.float32)
+    assert out.dtype == torch.float32 and out.shape == V.shape
+    torch.testing.assert_close(out, want, **TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    sib = attention_core(V, V, V, keep, out_dtype=torch.float32,
+                         kscale=kscale)
+    torch.testing.assert_close(out, sib, **TOL[torch.float32])
+    if dtype == torch.bfloat16:        # the bf16 output path
+        out_b = attention_core_shared(V, kscale, keep)
+        assert out_b.dtype == dtype
+        torch.testing.assert_close(out_b.float(), want, **TOL[dtype])
+
+
 SHAPES = [
     ((2, 130, 150, 70), 0.7),         # ragged N, P and D
     ((1, 17, 65, 33), 0.5),           # one key past a tile, odd D
@@ -124,6 +197,85 @@ def test_bwd_kernels_match_plain(cuda, dtype, shape, keep_p):
         scale = max(w.abs().max().item(), 1e-6)
         torch.testing.assert_close(g, w, rtol=0, atol=2e-4 * scale,
                                    msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,keep_p", SHAPES + [
+    ((9, 130, 500, 1536), 0.8),       # 32-key tiles at the model's D
+])
+def test_dv_dk_kernels_match_plain_and_fused(cuda, dtype, shape, keep_p):
+    Q, K, V, keep = _inputs(sum(shape) + 2, *shape, keep_p, dtype, cuda)
+    rs = np.random.RandomState(sum(shape))
+    B, N, _, D = shape
+    dO = torch.from_numpy(rs.randn(B, N, D).astype(np.float32)).to(cuda)
+    kscale = torch.from_numpy((0.5 + rs.rand(B, D)).astype(np.float32)
+                              ).to(cuda)
+    out, lse = attention_core(Q, K, V, keep, return_lse=True,
+                              out_dtype=torch.float32, kscale=kscale)
+    args = (Q, K, V, keep, lse, (dO * out).sum(-1), dO, 10.0, kscale)
+    before = (attention_cuda.LAUNCHES_DV, attention_cuda.LAUNCHES_DK)
+    dV = attention_core_dv(Q, K, keep, lse, dO, 10.0, kscale)
+    dK = attention_core_dk(*args)
+    torch.cuda.synchronize()
+    assert (attention_cuda.LAUNCHES_DV, attention_cuda.LAUNCHES_DK) == (
+        before[0] + 1, before[1] + 1)
+    fused = attention_core_dkdv(*args)
+    for name, g, w, sib in (
+            ("dV", dV, attention_core_dv_reference(Q, K, keep, lse, dO, 10.0,
+                                                   kscale), fused[1]),
+            ("dK_eff", dK, attention_core_dk_reference(*args), fused[0])):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        scale = max(w.abs().max().item(), 1e-6)
+        for other in (w, sib):
+            torch.testing.assert_close(g, other, rtol=0, atol=2e-4 * scale,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.parametrize("switch", ["SKETCHEDIT_SHARED_ATTN",
+                                    "SKETCHEDIT_SPLIT_DKDV"])
+def test_switched_gradient_matches_default(cuda, monkeypatch, switch):
+    """contextual_attention_fused under each differentiable switch: the
+    kernels it names are the ones launched, and output and gradient equal
+    the default kernels' (1e-4; 2e-4 of the gradient's max)."""
+    rs = np.random.RandomState(2)
+    f = torch.from_numpy(np.maximum(rs.randn(2, 96, 32, 32), 0).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy((rs.rand(2, 1, 32, 32) > 0.5).astype(np.float32)
+                            ).to(cuda)
+
+    def run():
+        x = f.clone().requires_grad_()
+        out = contextual_attention_fused(x, x, mask)
+        return out.detach(), torch.autograd.grad((out ** 2).sum(), x)[0]
+
+    want = run()
+    names = ("LAUNCHES", "LAUNCHES_SHARED", "LAUNCHES_DQ", "LAUNCHES_DKDV",
+             "LAUNCHES_DV", "LAUNCHES_DK")
+    before = [getattr(attention_cuda, n) for n in names]
+    monkeypatch.setenv(switch, "1")
+    got = run()
+    used = [getattr(attention_cuda, n) - b for n, b in zip(names, before)]
+    assert used == ([0, 1, 1, 1, 0, 0] if switch.endswith("SHARED_ATTN")
+                    else [1, 0, 1, 0, 1, 1]), used
+    torch.testing.assert_close(got[0], want[0], **TOL[torch.float32])
+    torch.testing.assert_close(got[1], want[1], rtol=0,
+                               atol=2e-4 * want[1].abs().max().item())
+
+
+def test_dsplit_switch_takes_the_dsplit_kernel(cuda, monkeypatch):
+    rs = np.random.RandomState(3)
+    f = torch.from_numpy(rs.randn(2, 96, 32, 32).astype(np.float32)).to(cuda)
+    mask = torch.from_numpy((rs.rand(2, 1, 32, 32) > 0.5).astype(np.float32)
+                            ).to(cuda)
+    want = contextual_attention_fused(f, f, mask)
+    monkeypatch.setenv("SKETCHEDIT_DSPLIT_ATTN", "1")
+    before = attention_cuda.LAUNCHES_DSPLIT, attention_cuda.LAUNCHES
+    got = contextual_attention_fused(f, f, mask)
+    assert (attention_cuda.LAUNCHES_DSPLIT, attention_cuda.LAUNCHES) == (
+        before[0] + 1, before[1])
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    with pytest.raises(RuntimeError, match="SKETCHEDIT_DSPLIT_ATTN"):
+        contextual_attention_fused(f.requires_grad_(), f, mask)
 
 
 def test_fused_gradient_matches_dense_autograd(cuda):
