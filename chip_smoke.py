@@ -12,9 +12,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    main paths' shapes (inference 256^2 B = 1 and 4, training 256^2 B = 1
    and 8), float32 and bfloat16, plus a ragged and an all-gated case; the
    shared-tensor and D-split forwards (256^2 B = 1 and 8, 512^2 and 1024^2
-   B = 1) and the dV and dK kernels the same way, each also against the
-   kernel that computes the same function (the default forward, the fused
-   dK/dV);
+   B = 1; a `dsplit_plan` line gives the D-split's tile rows, cluster shape
+   and resident clusters at each) and the dV and dK kernels the same way,
+   each also against the kernel that computes the same function (the
+   default forward, the fused dK/dV);
 4. inference path: the runner's EditPipeline on uint8 batches at 256^2
    (B = 1 and 4, float32 and bfloat16) and 252^2, one forward launch per
    netG forward, checked against the same pipeline with dense attention
@@ -280,7 +281,7 @@ def main():
         attention_core_dsplit, attention_core_dsplit_reference,
         attention_core_dv, attention_core_dv_reference,
         attention_core_reference, attention_core_shared,
-        attention_core_shared_reference, attention_inputs)
+        attention_core_shared_reference, attention_inputs, dsplit_plan)
     from sketchedit_tpu_torch.options import parse_argv
     from sketchedit_tpu_torch.options.test_options import TestOptions
     from sketchedit_tpu_torch.runner import build_pipeline
@@ -419,6 +420,13 @@ def main():
             fd = f.to(dt)
             Q, V, keep, ksc = attention_inputs(fd, fd, m)
             tag = f"B{B}_{hw}sq_{str(dt).split('.')[-1]}"
+            # how the D-split kernel runs this shape: tile rows, cluster
+            # shape, clusters resident at once, against the grid's clusters
+            emit({"phase": "dsplit_plan", "image_hw": [4 * hw, 4 * hw],
+                  "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
+                  "dtype": str(dt).split(".")[-1], "cluster_dims": [1, 2, 1],
+                  **dsplit_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt),
+                  **card})
             for variant in ("shared", "dsplit"):
                 check_variant(tag, variant, Q, V, V, keep, ksc)
             if hw < 256:
@@ -1432,6 +1440,11 @@ def main():
         for k in ("fwd", "shared", "dsplit"):
             row[f"{k}_bound_ms"] = max(t_ops, t_bytes)
             row[f"{k}_bound_by"] = "bytes" if t_bytes > t_ops else "operations"
+        # the D-split's loss to the library call, its multiple of the
+        # bound, and its time against the default forward's
+        row["dsplit_x_library"] = row["dsplit_ms"] / row["library_ms"]
+        row["dsplit_x_bound"] = row["dsplit_ms"] / row["dsplit_bound_ms"]
+        row["dsplit_x_fwd"] = row["dsplit_ms"] / row["fwd_ms"]
         fwd_times[(B, hw, dt)] = row
         emit(row)
     set_counts(attention_cuda, saved)        # timing launches do not count

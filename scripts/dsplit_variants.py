@@ -1,0 +1,267 @@
+#!/usr/bin/env python3
+"""Time design choices of the D-split attention forward against each other on
+one GPU, in one run, in turns.
+
+    python3 scripts/dsplit_variants.py [--variants committed chunk64 ...]
+        [--parent DIR]
+
+Each variant is this checkout's sketchedit_tpu_torch with a few textual
+edits to csrc/contextual_attention_fwd.cu (an edit whose anchor is missing
+fails the run), copied to results/dsplit_variants/<name>/, where it builds
+its own kernels. ``--parent`` adds another checkout as it is (an unpacked
+parent commit, say) as the variant ``parent``. All variants build in
+parallel; then each is timed in its own process, in the order given and
+then in reverse. Variants:
+
+  committed  the kernel as committed: a 32-row tile stages 128-wide
+             D-chunks and unrolls its accumulation 8 streamed rows deep;
+             16-row tiles where 8-row clusters would take two waves
+  chunk64    32-row tiles stage 64-wide chunks
+  unroll2    32-row tiles unroll the accumulation 2 deep (the shared rule)
+  first      32-wide chunks, unroll 2 and the old tile rule (8 rows
+             wherever 16 leave SMs idle): the cluster kernel as first
+             written
+  small8     the old tile rule alone
+  rows16     no 32-row tiles: 16 rows where they fill the SMs
+  wide16     16-row tiles stage 64-wide chunks too
+  clocks     the committed kernel with clock64() counters read back after
+             one call each of the D-split and the default forward: thread
+             0's cycles per key tile in the partial S, the cluster barrier,
+             the exchange, the softmax and P V (the default forward: S,
+             softmax, P V)
+
+One JSON line per variant, shape and dtype: the D-split's and the default
+forward's ms (CUDA events after warm-up), their ratio, the largest
+|difference| between the two outputs, and the card's name and power limit;
+a `ptxas` line per D-split instantiation gives registers and spills.
+Shapes as on the main path (chip_smoke.py's inputs): 256^2 (B = 1 and 8),
+512^2 and 1024^2, D = 1536, float32, and 512^2 in bfloat16. Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(ROOT, "results", "dsplit_variants")
+FWD = os.path.join("sketchedit_tpu_torch", "csrc", "contextual_attention_fwd.cu")
+
+CHUNK = ("static constexpr int kDC = TQ == 32 ? 128 : Tile<TQ>::kDC;",
+         "static constexpr int kDC = TQ == 32 ? {} : Tile<TQ>::kDC;")
+UNROLL = ("TQ == 32 ? 8 : accumulate_unroll<TQ, kSplitNC>();",
+          "TQ == 32 ? {} : accumulate_unroll<TQ, kSplitNC>();")
+RULE8 = ("    if (2 * blocks(16) >= sm_count() || 2 * blocks(8) > sm_count())",
+         "    if (2 * blocks(16) >= sm_count())")
+CLOCKS = [
+    ("namespace {\n", "namespace {\n__device__ unsigned long long g_clk[16];\n"),
+    # the default forward: S, softmax, P V
+    ("""  for (int k0 = 0; k0 < P; k0 += kT) {
+    s_tile<T, TQ, 1>(Qb, q0, N, Kb, k0, P, kscale_b, D, blk.as, blk.bs);
+    softmax_tile<TQ>(blk.bs, keep_b, k0, P, scale, blk.m_run, blk.l_run,
+                     blk.ps, blk.alpha_s);
+    accumulate<T, TQ, Tile<TQ>::kNC, true>(
+        blk.acc, D, D, Vb + (size_t)k0 * D, D, min(kT, P - k0), blk.ps,
+        blk.alpha_s);
+  }
+""", """  unsigned long long ph[4] = {0, 0, 0, 0};
+  for (int k0 = 0; k0 < P; k0 += kT) {
+    const long long c0 = clock64();
+    s_tile<T, TQ, 1>(Qb, q0, N, Kb, k0, P, kscale_b, D, blk.as, blk.bs);
+    const long long c1 = clock64();
+    softmax_tile<TQ>(blk.bs, keep_b, k0, P, scale, blk.m_run, blk.l_run,
+                     blk.ps, blk.alpha_s);
+    const long long c2 = clock64();
+    accumulate<T, TQ, Tile<TQ>::kNC, true>(
+        blk.acc, D, D, Vb + (size_t)k0 * D, D, min(kT, P - k0), blk.ps,
+        blk.alpha_s);
+    ph[0] += c1 - c0; ph[1] += c2 - c1; ph[2] += clock64() - c2; ph[3] += 1;
+  }
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 4; ++i) atomicAdd(&g_clk[i], ph[i]);
+"""),
+    # the D-split: partial S, cluster barrier, exchange, softmax, P V
+    ("""  for (int k0 = 0, t = 0; k0 < P; k0 += kT, t ^= 1) {
+    float s[RPT][kCPT];
+""", """  unsigned long long ph[6] = {0, 0, 0, 0, 0, 0};
+  for (int k0 = 0, t = 0; k0 < P; k0 += kT, t ^= 1) {
+    const long long c0 = clock64();
+    float s[RPT][kCPT];
+"""),
+    ("""    float* mine = part + t * kPart;
+""", """    const long long c1 = clock64();
+    float* mine = part + t * kPart;
+"""),
+    ("""    cluster.sync();
+    const float4* own4""", """    cluster.sync();
+    const long long c2 = clock64();
+    const float4* own4"""),
+    ("""    __syncthreads();
+    softmax_tile<TQ>(blk.bs, keep_b, k0, P, scale, blk.m_run, blk.l_run,
+                     blk.ps, blk.alpha_s);
+    if (c_hi > c_lo)
+""", """    __syncthreads();
+    const long long c3 = clock64();
+    softmax_tile<TQ>(blk.bs, keep_b, k0, P, scale, blk.m_run, blk.l_run,
+                     blk.ps, blk.alpha_s);
+    const long long c4 = clock64();
+    if (c_hi > c_lo)
+"""),
+    ("""          min(kT, P - k0), blk.ps, blk.alpha_s);
+  }
+  cluster.sync();""", """          min(kT, P - k0), blk.ps, blk.alpha_s);
+    ph[0] += c1 - c0; ph[1] += c2 - c1; ph[2] += c3 - c2; ph[3] += c4 - c3;
+    ph[4] += clock64() - c4; ph[5] += 1;
+  }
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 6; ++i) atomicAdd(&g_clk[8 + i], ph[i]);
+  cluster.sync();"""),
+    ("const char* sketchedit_cuda_error_string(int code) {",
+     """int sketchedit_clock_read(unsigned long long* out) {
+  const unsigned long long zero[16] = {0};
+  int err = (int)cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk));
+  return err ? err : (int)cudaMemcpyToSymbol(g_clk, zero, sizeof(zero));
+}
+
+const char* sketchedit_cuda_error_string(int code) {"""),
+]
+VARIANTS = {
+    "committed": [],
+    "chunk64": [(CHUNK[0], CHUNK[1].format(64))],
+    "unroll2": [(UNROLL[0], UNROLL[1].format(2))],
+    "first": [(CHUNK[0], CHUNK[1].format(32)),
+              (UNROLL[0], UNROLL[1].format(2)), RULE8],
+    "small8": [RULE8],
+    "rows16": [("    if (2 * blocks(32) >= sm_count()) return "
+                "launch_dsplit<T, TO, 32>(a);\n", "")],
+    "wide16": [(CHUNK[0], "static constexpr int kDC = TQ == 8 ? 64 : 128 "
+                          "/ (32 / TQ);")],
+    "clocks": CLOCKS,
+}
+SHAPES = ((1, 64, "float32"), (8, 64, "float32"), (1, 128, "float32"),
+          (1, 128, "bfloat16"), (1, 256, "float32"))
+
+
+def make(name: str) -> str:
+    dst = os.path.join(OUT, name)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "sketchedit_tpu_torch"),
+                    os.path.join(dst, "sketchedit_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(dst, FWD)
+    with open(path) as fh:
+        src = fh.read()
+    for old, new in VARIANTS[name]:
+        if src.count(old) != 1:
+            raise SystemExit(f"dsplit_variants: {name}: anchor not found "
+                             f"once in {FWD}: {old[:60]!r}")
+        src = src.replace(old, new)
+    with open(path, "w") as fh:
+        fh.write(src)
+    return dst
+
+
+def build(root: str, name: str):
+    """Build one variant's kernels; print its D-split instantiations'
+    registers and spills."""
+    sys.path.insert(0, root)
+    from sketchedit_tpu_torch.ops import _build
+    _build.load()
+    entry, spill = None, ""
+    for ln in _build.build_log.get("contextual_attention_fwd", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = m.group(1)
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and entry and "dsplit" in entry:
+            args = re.search(r"dsplit_kernelI(\w+?)EEv", entry)
+            print(json.dumps({"ptxas": name, "template": args and args.group(1),
+                              "registers": ln.split(":", 1)[1].strip(),
+                              "spills": spill}), flush=True)
+
+
+def time_variant(root: str, name: str):
+    sys.path[:0] = [root, ROOT]
+    import numpy as np
+    import torch
+
+    from chip_smoke import cuda_ms, features, hole_mask
+    from sketchedit_tpu_torch.ops import _build
+    from sketchedit_tpu_torch.ops.attention_cuda import (
+        attention_core, attention_core_dsplit, attention_inputs)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    rs = np.random.RandomState(0)
+    f32 = torch.float32
+    for B, hw, dtype in SHAPES:
+        f = features(rs, B, hw, hw).cuda().to(getattr(torch, dtype))
+        Q, V, keep, ksc = attention_inputs(f, f, hole_mask(B, hw, hw).cuda())
+        fwd = lambda: attention_core(Q, V, V, keep, out_dtype=f32, kscale=ksc)
+        dsplit = lambda: attention_core_dsplit(Q, V, V, keep, out_dtype=f32,
+                                               kscale=ksc)
+        reps = 2 if hw == 256 else 5
+        row = {"variant": name, "image_hw": [4 * hw, 4 * hw],
+               "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
+               "dtype": dtype, "card": card,
+               "fwd_ms": cuda_ms(fwd, reps, warmup=1),
+               "dsplit_ms": cuda_ms(dsplit, reps, warmup=1)}
+        row["dsplit_x_fwd"] = row["dsplit_ms"] / row["fwd_ms"]
+        row["max_abs_diff"] = (dsplit() - fwd()).abs().max().item()
+        if name == "clocks":
+            read = _build.load()["contextual_attention_fwd"].sketchedit_clock_read
+            read.argtypes = [ctypes.c_void_p]
+            clk = (ctypes.c_ulonglong * 16)()
+            for fn, key, lo, names in (
+                    (dsplit, "dsplit_cycles_per_tile", 8,
+                     ("partial_S", "cluster_sync", "exchange", "softmax",
+                      "PV")),
+                    (fwd, "fwd_cycles_per_tile", 0, ("S", "softmax", "PV"))):
+                torch.cuda.synchronize()
+                assert read(ctypes.addressof(clk)) == 0      # zeroes them
+                fn()
+                torch.cuda.synchronize()
+                assert read(ctypes.addressof(clk)) == 0
+                tiles = clk[lo + len(names)]
+                row[key] = {k: clk[lo + i] / tiles for i, k in enumerate(names)}
+        print(json.dumps(row), flush=True)
+        del f, Q, V
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
+                    choices=list(VARIANTS))
+    ap.add_argument("--parent", help="another checkout, timed as it is")
+    ap.add_argument("--build", nargs=2, metavar=("ROOT", "NAME"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--time", nargs=2, metavar=("ROOT", "NAME"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.build:
+        return build(*args.build)
+    if args.time:
+        return time_variant(*args.time)
+    roots = {name: make(name) for name in args.variants}
+    if args.parent:
+        roots["parent"] = os.path.abspath(args.parent)
+    procs = [subprocess.Popen([sys.executable, __file__, "--build", root,
+                               name]) for name, root in roots.items()]
+    if any([p.wait() for p in procs]):
+        raise SystemExit("dsplit_variants: a build failed")
+    for name in list(roots) + list(roots)[::-1]:
+        subprocess.run([sys.executable, __file__, "--time", roots[name],
+                        name], check=True)
+
+
+if __name__ == "__main__":
+    main()

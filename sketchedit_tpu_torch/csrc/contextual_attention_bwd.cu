@@ -126,8 +126,9 @@ ca_dq_kernel(const T* Q, const T* K, const T* V, const float* keep,
 
   for (int k0 = 0; k0 < P; k0 += kT) {
     float s[RPT][kCPT], dp[RPT][kCPT];
-    tile_dot<T, T, TQ, 1>(Qb, q0, N, Kb, k0, P, ks_b, D, as, bs, s);
-    tile_dot<float, T, TQ, 0>(dOb, q0, N, Vb, k0, P, nullptr, D, as, bs, dp);
+    tile_dot<T, T, TQ, 1>(Qb, q0, N, Kb, k0, P, ks_b, D, 0, D, as, bs, s);
+    tile_dot<float, T, TQ, 0>(dOb, q0, N, Vb, k0, P, nullptr, D, 0, D, as, bs,
+                              dp);
     if (g == 0) {
 #pragma unroll
       for (int a = 0; a < RPT; ++a)
@@ -206,8 +207,9 @@ ca_dkdv_kernel(const T* Q, const T* K, const T* V, const float* keep,
       delta_s[tid] = in ? delta[(size_t)b * N + i] : 0.f;
     }
     float s[RPT][kCPT], dp[RPT][kCPT];
-    tile_dot<T, T, R, 2>(Kb, j0, P, Qb, i0, N, ks_b, D, as, bs, s);
-    tile_dot<T, float, R, 0>(Vb, j0, P, dOb, i0, N, nullptr, D, as, bs, dp);
+    tile_dot<T, T, R, 2>(Kb, j0, P, Qb, i0, N, ks_b, D, 0, D, as, bs, s);
+    tile_dot<T, float, R, 0>(Vb, j0, P, dOb, i0, N, nullptr, D, 0, D, as, bs,
+                             dp);
     if (g == 0) {
 #pragma unroll
       for (int a = 0; a < RPT; ++a)
@@ -340,10 +342,10 @@ ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
       if constexpr (kDK) delta_s[tid] = in ? delta[(size_t)b * N + i] : 0.f;
     }
     float s[RPT][kCPT], dp[RPT][kCPT];
-    tile_dot<T, T, R, 2>(Kb, j0, P, Qb, i0, N, ks_b, D, as, bs, s);
+    tile_dot<T, T, R, 2>(Kb, j0, P, Qb, i0, N, ks_b, D, 0, D, as, bs, s);
     if constexpr (kDK)
       tile_dot<T, float, R, 0>(V + (size_t)b * P * D, j0, P, dOb, i0, N,
-                               nullptr, D, as, bs, dp);
+                               nullptr, D, 0, D, as, bs, dp);
     if (g == 0) {
 #pragma unroll
       for (int a = 0; a < RPT; ++a)

@@ -49,29 +49,35 @@ template <int R> struct Tile {
   static constexpr int kMinBlocks = R == 16 ? 2 : 1;
 };
 
-// Shared-memory floats of the staging areas as [R][kSD] and bs [kT][kSD];
-// bs doubles as the S tile [R][kSS] of the forward kernels.
-template <int R> constexpr size_t stage_floats() {
-  return (size_t)(R + kT) * Tile<R>::kSD;
+// Shared-memory floats of the staging areas as [R][kDC + 4] and bs
+// [kT][kDC + 4] for kDC-wide chunks; bs doubles as the S tile [R][kSS] of
+// the forward kernels.
+template <int R, int kDC = Tile<R>::kDC> constexpr size_t stage_floats() {
+  return (size_t)(R + kT) * (kDC + 4);
 }
 
-// s[a][c] = sum_d A[a0 + rg*RPT + a][d] * B[b0 + kg + 16 c][d], with the
-// per-channel scale sc on the A rows (kScaled == 1), on the B rows
-// (kScaled == 2) or nowhere (0). Rows at or past na (nb) read as 0. A warp
-// pair owns RPT = R/4 rows and all kT columns; each thread sums an RPT x 4
-// micro-tile over its D-group's quarter of every staged chunk, and the four
-// D-groups are summed with shuffles, so every lane ends with the totals.
+// s[a][c] = sum_d A[a0 + rg*RPT + a][d] * B[b0 + kg + 16 c][d] over the
+// contraction window d_lo <= d < d_hi, with the per-channel scale sc on the
+// A rows (kScaled == 1), on the B rows (kScaled == 2) or nowhere (0). A and
+// B have row stride D and sc has D entries; every caller but the D-split
+// forward contracts the whole row, [0, D). Rows at or past na (nb) read as
+// 0, and an empty window gives 0 with no barrier. A warp pair owns RPT =
+// R/4 rows and all kT columns; each thread sums an RPT x 4 micro-tile over
+// its D-group's quarter of every staged chunk, and the four D-groups are
+// summed with shuffles, so every lane ends with the totals.
 // The next chunk is loaded raw into registers while the current one is
 // multiplied: no arithmetic waits on these loads. as [R][kSD] and bs
-// [kT][kSD] are the staging areas; the function begins each chunk with a
-// barrier, so two calls may follow each other.
-template <typename TA, typename TB, int R, int kScaled>
+// [kT][kSD], kSD = kDC + 4, are the staging areas; the function begins each
+// chunk with a barrier, so two calls may follow each other. Chunks are
+// Tile<R>::kDC wide unless the caller says otherwise.
+template <typename TA, typename TB, int R, int kScaled,
+          int kDC = Tile<R>::kDC>
 __device__ __forceinline__ void tile_dot(const TA* A, int a0, int na,
                                          const TB* B, int b0, int nb,
-                                         const float* sc, int D, float* as,
-                                         float* bs, float (&s)[R / 4][kCPT]) {
-  constexpr int kDC = Tile<R>::kDC;
-  constexpr int kSD = Tile<R>::kSD;
+                                         const float* sc, int D, int d_lo,
+                                         int d_hi, float* as, float* bs,
+                                         float (&s)[R / 4][kCPT]) {
+  constexpr int kSD = kDC + 4;
   constexpr int RPT = R / 4;
   constexpr int ALD = R * kDC / kThreads;
   constexpr int BLD = kT * kDC / kThreads;
@@ -89,26 +95,26 @@ __device__ __forceinline__ void tile_dot(const TA* A, int a0, int na,
 #pragma unroll
     for (int n = 0; n < ALD; ++n) {
       const int i = tid + n * kThreads, r = a0 + i / kDC, d = c0 + i % kDC;
-      const bool in = r < na && d < D;
+      const bool in = r < na && d < d_hi;
       araw[n] = in ? A[(size_t)r * D + d] : zero<TA>();
       if constexpr (kScaled == 1) asc[n] = in ? sc[d] : 0.f;
     }
 #pragma unroll
     for (int n = 0; n < BLD; ++n) {
       const int i = tid + n * kThreads, r = b0 + i / kDC, d = c0 + i % kDC;
-      const bool in = r < nb && d < D;
+      const bool in = r < nb && d < d_hi;
       braw[n] = in ? B[(size_t)r * D + d] : zero<TB>();
       if constexpr (kScaled == 2) bsc[n] = in ? sc[d] : 0.f;
     }
   };
-  load_chunk(0);
+  load_chunk(d_lo);
 
 #pragma unroll
   for (int a = 0; a < RPT; ++a)
 #pragma unroll
     for (int c = 0; c < kCPT; ++c) s[a][c] = 0.f;
 
-  for (int d0 = 0; d0 < D; d0 += kDC) {
+  for (int d0 = d_lo; d0 < d_hi; d0 += kDC) {
     __syncthreads();  // the previous chunk (or call) is done with as and bs
 #pragma unroll
     for (int n = 0; n < ALD; ++n) {
@@ -125,7 +131,7 @@ __device__ __forceinline__ void tile_dot(const TA* A, int a0, int na,
       bs[(i / kDC) * kSD + i % kDC] = x;
     }
     __syncthreads();
-    if (d0 + kDC < D) load_chunk(d0 + kDC);  // next chunk, while this one runs
+    if (d0 + kDC < d_hi) load_chunk(d0 + kDC);  // next chunk, while this runs
 #pragma unroll
     for (int dd = 0; dd < kDC / kDG; dd += 4) {
       const int d = g * (kDC / kDG) + dd;
@@ -170,7 +176,7 @@ __device__ __forceinline__ void s_tile(const T* Qb, int q0, int N, const T* Kb,
   const int rg = (tid >> 5) >> 1;
   const int kg = (((tid >> 5) & 1) << 3) | (lane & 7);
   float s[RPT][kCPT];
-  tile_dot<T, T, TQ, kScaled>(Qb, q0, N, Kb, k0, P, sc, D, as, bs, s);
+  tile_dot<T, T, TQ, kScaled>(Qb, q0, N, Kb, k0, P, sc, D, 0, D, as, bs, s);
   __syncthreads();  // every thread is done reading bs: reuse it for S
   if (g == 0) {
 #pragma unroll
@@ -235,12 +241,17 @@ __device__ __forceinline__ void softmax_tile(const float* ss,
 // memory; w is [kT][R] in shared memory. Each thread owns columns
 // tid + kThreads * c of every row, kNC at a time, so the accumulator is
 // private to its owner and only w and alpha need a barrier before the call.
-template <typename TS, int R, int kNC, bool kRescale>
+// The loop over streamed rows is unrolled kUnroll deep.
+template <int R, int kNC> constexpr int accumulate_unroll() {
+  return R * kNC >= 64 ? 2 : 4;
+}
+
+template <typename TS, int R, int kNC, bool kRescale,
+          int kUnroll = accumulate_unroll<R, kNC>()>
 __device__ __forceinline__ void accumulate(float* acc, int ld, int ncols,
                                            const TS* src, int src_ld, int n,
                                            const float* w,
                                            const float* alpha) {
-  constexpr int kUnroll = R * kNC >= 64 ? 2 : 4;
   const int tid = threadIdx.x;
   for (int c0 = tid; c0 < ncols; c0 += kNC * kThreads) {
     float a[kNC][R];

@@ -9,8 +9,10 @@ hand-written kernel ``csrc/contextual_attention_fwd.cu``, which replaces
 from one to the other. The same file holds two more forwards of the same
 function: ``attention_core_shared`` (``_attn_shared_kernel``: queries, keys
 and values are one tensor, one pointer) and ``attention_core_dsplit``
-(``_attn_kernel_dsplit``: each block owns one half of D of the output;
-inference only). The flash-style backward comes in the same two forms:
+(``_attn_kernel_dsplit``: a query tile is a cluster of two blocks, each
+owning one half of D, which share their partial S tiles through
+distributed shared memory; inference only; ``dsplit_plan`` says how it
+runs a shape). The flash-style backward comes in the same two forms:
 ``attention_core_dq`` and ``attention_core_dkdv`` launch the kernels of
 ``csrc/contextual_attention_bwd.cu`` (replacing ``_dq_kernel`` and
 ``_dkdv_kernel``) on CUDA tensors and take their plain versions on CPU
@@ -255,10 +257,13 @@ def attention_core_dsplit_reference(Q, K, V, keep, softmax_scale: float = 10.0,
 def attention_core_dsplit(Q, K, V, keep, softmax_scale: float = 10.0,
                           return_lse: bool = False, out_dtype=None,
                           kscale=None):
-    """``attention_core`` through the D-split kernel (each block owns one
-    half of D of the output and recomputes S; for large canvases). No
-    backward: it raises where autograd would need one. A CUDA tensor
-    launches the kernel; a CPU tensor takes the plain version."""
+    """``attention_core`` through the D-split kernel (a query tile is a
+    cluster of two blocks, each owning one half of D: each contracts its
+    half for a partial S, the two sum their partials through distributed
+    shared memory, and each accumulates its half of the output; for large
+    canvases; needs sm_90). No backward: it raises where autograd would
+    need one. A CUDA tensor launches the kernel; a CPU tensor takes the
+    plain version."""
     global LAUNCHES_DSPLIT
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (Q, K, V, kscale)):
@@ -275,6 +280,33 @@ def attention_core_dsplit(Q, K, V, keep, softmax_scale: float = 10.0,
                                   return_lse, out_dtype, kscale)
     LAUNCHES_DSPLIT += 1
     return (out, lse) if return_lse else out
+
+
+_PLAN_KEYS = ("tile_rows", "cluster_blocks", "max_active_clusters",
+              "smem_bytes", "grid_clusters")
+
+
+def dsplit_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
+                out_dtype=torch.float32) -> dict:
+    """How the D-split kernel runs these shapes on the current CUDA device,
+    without launching it: the query tile's rows, the blocks of a cluster,
+    the most clusters resident at once (``cudaOccupancyMaxActiveClusters``),
+    each block's dynamic shared memory in bytes, and the clusters of the
+    grid."""
+    from sketchedit_tpu_torch.ops import _build
+    _, err_str = _kernel("fwd_dsplit")
+    lib = _build.load()["contextual_attention_fwd"]
+    fn = lib.sketchedit_contextual_attention_fwd_dsplit_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    rc = fn(_DTYPE_CODES[dtype], _DTYPE_CODES[out_dtype], B, N, P, D,
+            ctypes.addressof(plan))
+    if rc != 0:
+        raise RuntimeError(f"contextual_attention_fwd_dsplit_plan failed "
+                           f"(B={B}, N={N}, P={P}, D={D}, {dtype}): "
+                           f"{err_str(rc).decode()}")
+    return dict(zip(_PLAN_KEYS, plan))
 
 
 def _bwd_terms(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):

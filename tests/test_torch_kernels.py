@@ -29,7 +29,7 @@ from sketchedit_tpu_torch.ops.attention_cuda import (
     attention_core_dsplit_reference, attention_core_dv,
     attention_core_dv_reference, attention_core_reference,
     attention_core_shared, attention_core_shared_reference,
-    contextual_attention_fused)
+    contextual_attention_fused, dsplit_cut, dsplit_plan)
 
 pytestmark = pytest.mark.gpu
 
@@ -106,8 +106,14 @@ def test_kernel_kscale_float32_out(cuda, dtype):
 ])
 def test_dsplit_kernel_matches_plain_and_default(cuda, dtype, shape, keep_p):
     Q, K, V, keep = _inputs(sum(shape), *shape, keep_p, dtype, cuda)
-    kscale = (torch.rand(shape[0], shape[3], generator=torch.Generator(
-        ).manual_seed(3)) + 0.5).to(cuda)
+    _check_dsplit(Q, K, V, keep, dtype)
+
+
+def _check_dsplit(Q, K, V, keep, dtype):
+    """One D-split launch against its plain version and the default kernel;
+    returns its output and lse."""
+    kscale = (torch.rand(Q.shape[0], Q.shape[2], generator=torch.Generator(
+        ).manual_seed(3)) + 0.5).to(Q.device)
     before = attention_cuda.LAUNCHES_DSPLIT
     out, lse = attention_core_dsplit(Q, K, V, keep, return_lse=True,
                                      kscale=kscale)
@@ -122,6 +128,57 @@ def test_dsplit_kernel_matches_plain_and_default(cuda, dtype, shape, keep_p):
                                   kscale=kscale)
     torch.testing.assert_close(out.float(), sib.float(), **TOL[dtype])
     torch.testing.assert_close(lse, sib_lse, rtol=1e-4, atol=1e-4)
+    # shown with -rP: the largest differences of each case
+    print("dsplit", list(Q.shape[:2]) + list(K.shape[1:]), str(dtype),
+          "max|out - plain|", (out.float() - want.float()).abs().max().item(),
+          "max|out - default|", (out.float() - sib.float()).abs().max().item(),
+          "max|lse - plain|", (lse - want_lse).abs().max().item())
+    return out, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_rows,rows_per_sm_pair", [
+    (32, 32),     # 32-row clusters fill the SMs
+    (16, 16),     # 16-row clusters fill them, 32-row ones do not
+    (16, 8),      # neither does; 8-row clusters would take two waves
+    (8, 0),       # few enough 8-row clusters to fit at once
+])
+def test_dsplit_kernel_ragged_at_each_tile_height(cuda, dtype, tile_rows,
+                                                  rows_per_sm_pair):
+    """N not a multiple of the tile, P not a multiple of 64, at the model's
+    D. The launch rule picks the tile height from the SM count, so N is
+    sized from the card's: rows_per_sm_pair rows for every pair of SMs, and
+    5 more (77 rows when 0)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B, P, D = 1, 150, 1536
+    N = sms // 2 * rows_per_sm_pair + 5 if rows_per_sm_pair else 77
+    plan = dsplit_plan(B, N, P, D, dtype)
+    assert (plan["tile_rows"], plan["cluster_blocks"]) == (tile_rows, 2), plan
+    assert plan["max_active_clusters"] > 0, plan
+    Q, K, V, keep = _inputs(N + tile_rows, B, N, P, D, 0.8, dtype, cuda)
+    _check_dsplit(Q, K, V, keep, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dsplit_kernel_halves_normalise_alike(cuda, dtype):
+    """V's second half of columns is a copy of its first, so the two blocks
+    of a cluster accumulate the same values with the same weights: their
+    output halves are equal bit for bit only if both built the same S from
+    the exchanged partials and so divide by the same running sum."""
+    Q, K, V, keep = _inputs(11, 2, 300, 200, 1536, 0.8, dtype, cuda)
+    cut = dsplit_cut(1536)
+    V = torch.cat([V[..., :cut], V[..., :cut]], dim=-1).contiguous()
+    out, _ = _check_dsplit(Q, K, V, keep, dtype)
+    assert torch.equal(out[..., :cut], out[..., cut:])
+
+
+def test_dsplit_kernel_repeats_bit_for_bit(cuda):
+    """Two calls on the same inputs give the same bits: no sum depends on
+    which block of a cluster gets there first."""
+    Q, K, V, keep = _inputs(12, 9, 500, 200, 1536, 0.9, torch.float32, cuda)
+    first = attention_core_dsplit(Q, K, V, keep, return_lse=True)
+    second = attention_core_dsplit(Q, K, V, keep, return_lse=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_dsplit_kernel_refuses_a_gradient(cuda):
