@@ -15,7 +15,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    B = 1; a `dsplit_plan` line gives the D-split's tile rows, cluster shape
    and resident clusters at each) and the dV and dK kernels the same way,
    each also against the kernel that computes the same function (the
-   default forward, the fused dK/dV);
+   default forward, the fused dK/dV); a `dkdv_plan` line gives the fused
+   dK/dV kernel's key tile, cluster shape and resident clusters at each
+   training shape;
 4. inference path: the runner's EditPipeline on uint8 batches at 256^2
    (B = 1 and 4, float32 and bfloat16) and 252^2, one forward launch per
    netG forward, checked against the same pipeline with dense attention
@@ -281,7 +283,8 @@ def main():
         attention_core_dsplit, attention_core_dsplit_reference,
         attention_core_dv, attention_core_dv_reference,
         attention_core_reference, attention_core_shared,
-        attention_core_shared_reference, attention_inputs, dsplit_plan)
+        attention_core_shared_reference, attention_inputs, dkdv_plan,
+        dsplit_plan)
     from sketchedit_tpu_torch.options import parse_argv
     from sketchedit_tpu_torch.options.test_options import TestOptions
     from sketchedit_tpu_torch.runner import build_pipeline
@@ -509,6 +512,13 @@ def main():
         for dt in (torch.float32, torch.bfloat16):
             fd = f.to(dt)
             Q, V, keep, ksc = attention_inputs(fd, fd, m)
+            # how the fused dK/dV kernel runs this shape: key tile, cluster
+            # shape, clusters resident at once, against the grid's clusters
+            emit({"phase": "dkdv_plan", "image_hw": [256, 256],
+                  "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
+                  "dtype": str(dt).split(".")[-1], "cluster_dims": [1, 2, 1],
+                  **dkdv_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt),
+                  **card})
             bwd_inputs[(B, dt)] = check_bwd(
                 f"B{B}_64sq_{str(dt).split('.')[-1]}", Q, V, V, keep, ksc)
     check_bwd("unaligned_2x130x150x70", Qr, Kr, Vr, keep_r,
@@ -1394,6 +1404,11 @@ def main():
             row[f"{k}_bound_ms"] = max(t_ops, t_bytes)
             row[f"{k}_bound_by"] = "bytes" if t_bytes > t_ops else "operations"
             row[f"{k}_gflop"] = flops[k] / 1e9
+        # the fused dK/dV kernel's loss to the library call, its multiple
+        # of the bound, and its time against the split dV + dK pair
+        row["dkdv_x_library"] = row["dkdv_ms"] / row["library_ms"]
+        row["dkdv_x_bound"] = row["dkdv_ms"] / row["dkdv_bound_ms"]
+        row["dkdv_x_split"] = row["dkdv_ms"] / (row["dv_ms"] + row["dk_ms"])
         bwd_times[(B, dt)] = row
         emit(row)
 

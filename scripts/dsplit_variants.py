@@ -36,6 +36,9 @@ forward's ms (CUDA events after warm-up), their ratio, the largest
 a `ptxas` line per D-split instantiation gives registers and spills.
 Shapes as on the main path (chip_smoke.py's inputs): 256^2 (B = 1 and 8),
 512^2 and 1024^2, D = 1536, float32, and 512^2 in bfloat16. Needs a GPU.
+
+The build-and-time harness (`make`, `report_ptxas`, `card`, `drive`) also
+serves scripts/dkdv_variants.py.
 """
 
 from __future__ import annotations
@@ -148,43 +151,67 @@ SHAPES = ((1, 64, "float32"), (8, 64, "float32"), (1, 128, "float32"),
           (1, 128, "bfloat16"), (1, 256, "float32"))
 
 
-def make(name: str) -> str:
-    dst = os.path.join(OUT, name)
+def make(name: str, edits, source: str = FWD, base: str = ROOT,
+         out: str = OUT) -> str:
+    """Copy ``base``'s sketchedit_tpu_torch to ``out/name`` and apply the
+    textual ``edits`` (old, new) to ``source``; an anchor found other than
+    once fails the run. Returns the copy's root."""
+    dst = os.path.join(out, name)
     shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(os.path.join(ROOT, "sketchedit_tpu_torch"),
+    shutil.copytree(os.path.join(base, "sketchedit_tpu_torch"),
                     os.path.join(dst, "sketchedit_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = os.path.join(dst, FWD)
+    path = os.path.join(dst, source)
     with open(path) as fh:
         src = fh.read()
-    for old, new in VARIANTS[name]:
+    for old, new in edits:
         if src.count(old) != 1:
-            raise SystemExit(f"dsplit_variants: {name}: anchor not found "
-                             f"once in {FWD}: {old[:60]!r}")
+            raise SystemExit(f"{name}: anchor not found once in {source}: "
+                             f"{old[:60]!r}")
         src = src.replace(old, new)
     with open(path, "w") as fh:
         fh.write(src)
     return dst
 
 
-def build(root: str, name: str):
-    """Build one variant's kernels; print its D-split instantiations'
-    registers and spills."""
+def report_ptxas(root: str, name: str, stem: str, kernel: str):
+    """Build the kernels of the checkout at ``root``; print registers and
+    spills of every instantiation of ``kernel`` in the library ``stem``."""
     sys.path.insert(0, root)
     from sketchedit_tpu_torch.ops import _build
     _build.load()
     entry, spill = None, ""
-    for ln in _build.build_log.get("contextual_attention_fwd", "").splitlines():
+    for ln in _build.build_log.get(stem, "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             entry = m.group(1)
         elif "spill" in ln:
             spill = ln.strip()
-        elif "Used" in ln and entry and "dsplit" in entry:
-            args = re.search(r"dsplit_kernelI(\w+?)EEv", entry)
+        elif "Used" in ln and entry and kernel in entry:
+            args = re.search(kernel + r"I(\w+?)EEv", entry)
             print(json.dumps({"ptxas": name, "template": args and args.group(1),
                               "registers": ln.split(":", 1)[1].strip(),
                               "spills": spill}), flush=True)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def drive(script: str, roots: dict):
+    """Build every variant ``{name: root}`` in parallel (``script --build
+    ROOT NAME``), then time each in its own process (``script --time ROOT
+    NAME``), in the order given and then in reverse."""
+    procs = [subprocess.Popen([sys.executable, script, "--build", root,
+                               name]) for name, root in roots.items()]
+    if any([p.wait() for p in procs]):
+        raise SystemExit(f"{os.path.basename(script)}: a build failed")
+    for name in list(roots) + list(roots)[::-1]:
+        subprocess.run([sys.executable, script, "--time", roots[name], name],
+                       check=True)
 
 
 def time_variant(root: str, name: str):
@@ -198,9 +225,7 @@ def time_variant(root: str, name: str):
         attention_core, attention_core_dsplit, attention_inputs)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card_ = card()
     rs = np.random.RandomState(0)
     f32 = torch.float32
     for B, hw, dtype in SHAPES:
@@ -212,7 +237,7 @@ def time_variant(root: str, name: str):
         reps = 2 if hw == 256 else 5
         row = {"variant": name, "image_hw": [4 * hw, 4 * hw],
                "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
-               "dtype": dtype, "card": card,
+               "dtype": dtype, "card": card_,
                "fwd_ms": cuda_ms(fwd, reps, warmup=1),
                "dsplit_ms": cuda_ms(dsplit, reps, warmup=1)}
         row["dsplit_x_fwd"] = row["dsplit_ms"] / row["fwd_ms"]
@@ -248,19 +273,14 @@ def main():
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.build:
-        return build(*args.build)
+        return report_ptxas(*args.build, "contextual_attention_fwd",
+                            "dsplit_kernel")
     if args.time:
         return time_variant(*args.time)
-    roots = {name: make(name) for name in args.variants}
+    roots = {name: make(name, VARIANTS[name]) for name in args.variants}
     if args.parent:
         roots["parent"] = os.path.abspath(args.parent)
-    procs = [subprocess.Popen([sys.executable, __file__, "--build", root,
-                               name]) for name, root in roots.items()]
-    if any([p.wait() for p in procs]):
-        raise SystemExit("dsplit_variants: a build failed")
-    for name in list(roots) + list(roots)[::-1]:
-        subprocess.run([sys.executable, __file__, "--time", roots[name],
-                        name], check=True)
+    drive(__file__, roots)
 
 
 if __name__ == "__main__":

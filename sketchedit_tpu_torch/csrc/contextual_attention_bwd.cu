@@ -42,26 +42,42 @@
 //   dS are formed in registers and only dS^T goes to shared memory; then
 //   dQ += dS K streams K from global memory (one image's K and V stay in
 //   the 50 MB L2). kscale is applied to dQ once, at the end.
-// - dkdv: one block per (image, R-key tile), R = 16, or 8 when 16-key tiles
-//   would leave SMs idle, with two (R, D) float32 accumulators, dK_eff and
-//   dV, in shared memory (2 x 96 KB at R = 16, D = 1536), walking the
-//   queries in tiles of 64: S^T and dP^T by the same tile product (kscale
-//   on the staged Q chunk), P^T and dS^T to shared memory, then
-//   dV += P^T dO and dK_eff += dS^T Q in one pass over dO and Q.
-//   Every key tile reads all of Q and dO twice, from L2, so
-//   the taller tile halves that traffic and gives the tile product twice
-//   the multiply-adds per shared-memory load: 16-key tiles took the kernel
-//   from 11.0 to 7.8 ms at 256^2, B = 8, float32 on an H100 SXM.
-// - dv and dk: the dkdv block with one (R, D) accumulator, which is what
-//   the split buys: R = 32 keys fit where the fused kernel holds 16
-//   (192 KB at D = 1536), so Q (and dO) are re-read half as often again;
-//   16 and 8 keys when taller tiles would leave SMs idle. One weight tile
+// - dkdv: one cluster of two blocks per (image, R-key tile). The block of
+//   rank h owns columns [h Dh, min(D, (h + 1) Dh)) of D, Dh = ceil(D / 2)
+//   rounded up to 4, and holds that half of the two float32 accumulators,
+//   dK_eff and dV, in shared memory (2 x 32 x 768 x 4 = 192 KB at R = 32,
+//   D = 1536). Per tile of 64 queries each block contracts its half of D by
+//   the tile product (kscale on the staged K chunk, R rows where the Q
+//   chunk has 64) into partial S^T and dP^T; the pair sums them through
+//   distributed shared memory, so every logit is still computed once and
+//   both blocks form the same P^T and dS^T; each accumulates
+//   dV += P^T dO and dK_eff += dS^T Q over its own columns, streaming them
+//   from L2. A cluster reads all of Q and dO once per 32 keys where a
+//   full-D block of 16 keys (the design this replaced) read them twice per
+//   16, and the 32-key tile gives the tile product an 8 x 4 register
+//   micro-tile. Beside the accumulators there is room for one more area
+//   (the block uses 223,232 of the 232,448 bytes it may): the tile
+//   products stage 64-wide D-chunks there, then the partials go there with
+//   a cluster barrier before the peer reads them, then P^T and dS^T after
+//   a second one, once the peer is done reading. R = 32 where those
+//   clusters give every SM a block, else 16, else 8 (the D-split forward's
+//   rule). Each block owns its output columns outright, so the result
+//   repeats bit for bit. With one 8-warp block per SM, the tile products
+//   run at about a quarter of the FMA rate and the accumulation at about
+//   half (256^2, B = 8; scripts/dkdv_variants.py clocks each phase).
+// - dv and dk: one block per (image, R-key tile), all of D, with one
+//   (R, D) accumulator, which is what the split buys: R = 32 keys fit in
+//   one block (192 KB at D = 1536) without a cluster; 16 and 8 keys when
+//   taller tiles would leave SMs idle. One weight tile
 //   (P^T for dv, dS^T for dk) goes to shared memory, and one tensor (dO for
 //   dv, Q for dk) is streamed in the accumulation.
-// A dkdv block (8 warps, ~212 KB of shared memory at R = 16) runs alone on
+// A dkdv block (8 warps, 218 KB of shared memory at R = 32) runs alone on
 // its SM, as a 32-key dv or dk block does; the dq blocks at TQ = 16 fit
-// two. The first design is simple and right; making it fast (tensor cores,
-// more warps per SM) is later work.
+// two. The dkdv cluster needs sm_90. The other three kernels are the first
+// design, simple and right; making them fast (tensor cores, more warps per
+// SM) is later work.
+
+#include <cooperative_groups.h>
 
 #include "contextual_attention_common.cuh"
 
@@ -71,12 +87,6 @@ template <int TQ>
 size_t dq_smem_bytes(int D) {
   return sizeof(float) *
          ((size_t)TQ * D + stage_floats<TQ>() + kT * TQ + 2 * TQ);
-}
-
-template <int R>
-size_t dkdv_smem_bytes(int D) {
-  return sizeof(float) *
-         (2 * (size_t)R * D + stage_floats<R>() + 2 * kT * R + 2 * kT);
 }
 
 template <int R>
@@ -159,139 +169,199 @@ ca_dq_kernel(const T* Q, const T* K, const T* V, const float* keep,
   }
 }
 
-// One block: R key rows of one image, all queries, all of D.
+// The fused dK/dV kernel's tile: 64-wide D-chunks, which fit beside a
+// 32-key tile's accumulators because P^T and dS^T share the staging area;
+// each accumulation covers kNC = 3 columns a thread, a whole half of
+// D = 1536 in one pass, unrolled 8 streamed rows deep; P^T and dS^T rows
+// padded to kWLd = R + 4 floats, so the float4 rows that eight neighbouring
+// lanes store fall on distinct banks. scripts/dkdv_variants.py times each
+// choice against the others.
+template <int R> struct DkdvTile {
+  static constexpr int kDC = 64;
+  static constexpr int kSD = kDC + 4;
+  static constexpr int kNC = 3;
+  static constexpr int kUnroll = 8;
+  static constexpr int kWLd = R + 4;
+  // floats of the area where the tile products stage their chunks and
+  // P^T and dS^T (the partials first) go afterwards
+  static constexpr int kArea = (R + kT) * kSD > 2 * kT * kWLd
+                                   ? (R + kT) * kSD : 2 * kT * kWLd;
+};
+
+// A dK/dV block's shared memory, for its half of Dh columns: the two
+// accumulators, the shared area, lse and delta.
+template <int R>
+size_t dkdv_smem_bytes(int Dh) {
+  return sizeof(float) * (2 * (size_t)R * Dh + DkdvTile<R>::kArea + 2 * kT);
+}
+
+// kCPT register columns of a micro-tile row, one picked by the lane's
+// D-group g: no divergence, no local memory.
+__device__ __forceinline__ float pick(const float (&v)[kCPT], int g) {
+  return g == 0 ? v[0] : g == 1 ? v[1] : g == 2 ? v[2] : v[3];
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q)
+      reinterpret_cast<float4*>(dst)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int a = 0; a < N; ++a) dst[a] = v[a];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_row(const float* src, float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 x = reinterpret_cast<const float4*>(src)[q];
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < N; ++a) v[a] = src[a];
+  }
+}
+
+// One cluster of two blocks: R key rows of one image, all queries. The
+// block of rank `half` contracts columns [c_lo, c_hi) of D for partial S^T
+// and dP^T, sums them with its peer's through distributed shared memory,
+// and accumulates those columns of dV and dK_eff.
 template <typename T, int R>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(kThreads, 1)
 ca_dkdv_kernel(const T* Q, const T* K, const T* V, const float* keep,
                const float* kscale, const float* dO, const float* lse,
                const float* delta, float* dK, float* dV, int N, int P, int D,
-               float scale) {
-  constexpr int kSD = Tile<R>::kSD;
-  constexpr int kNC = Tile<R>::kNC;
+               int Dh, float scale) {
+  using Tl = DkdvTile<R>;
   constexpr int RPT = R / 4;
+  constexpr int kWLd = Tl::kWLd;
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int half = blockIdx.y;              // == cluster.block_rank()
+  const int c_lo = half * Dh;
+  const int nc = max(0, min(D, c_lo + Dh) - c_lo);  // 0 when D <= Dh (half 1)
 
   extern __shared__ __align__(16) float smem[];
-  float* dk_acc = smem;                     // [R][D]
-  float* dv_acc = dk_acc + (size_t)R * D;   // [R][D]
-  float* as = dv_acc + (size_t)R * D;       // [R][kSD]
-  float* bs = as + R * kSD;                 // [kT][kSD]
-  float* p_s = bs + kT * kSD;               // [kT][R]  (P transposed)
-  float* ds_s = p_s + kT * R;               // [kT][R]  (dS transposed)
-  float* lse_s = ds_s + kT * R;             // [kT]
+  float* dk_acc = smem;                     // [R][Dh]
+  float* dv_acc = dk_acc + (size_t)R * Dh;  // [R][Dh]
+  float* as = dv_acc + (size_t)R * Dh;      // [R][kSD]
+  float* bs = as + R * Tl::kSD;             // [kT][kSD]
+  float* p_s = as;                // [kT][kWLd]: P^T, the partial S^T first
+  float* ds_s = p_s + kT * kWLd;  // [kT][kWLd]: dS^T, the partial dP^T first
+  float* lse_s = as + Tl::kArea;            // [kT]
   float* delta_s = lse_s + kT;              // [kT]
+  const float* peer_p = cluster.map_shared_rank(p_s, half ^ 1);
+  const float* peer_ds = cluster.map_shared_rank(ds_s, half ^ 1);
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.y;
+  const int b = blockIdx.z;
   const int j0 = blockIdx.x * R;
   const T* Qb = Q + (size_t)b * N * D;
   const T* Kb = K + (size_t)b * P * D;
   const T* Vb = V + (size_t)b * P * D;
   const float* dOb = dO + (size_t)b * N * D;
-  const float* keep_b = keep + (size_t)b * P;
   const float* ks_b = kscale + (size_t)b * D;
 
-  for (int i = tid; i < 2 * R * D; i += kThreads) dk_acc[i] = 0.f;
+  for (int i = tid; i < 2 * R * Dh; i += kThreads) dk_acc[i] = 0.f;
 
   const int lane = tid & 31;
   const int g = lane >> 3;
   const int rg = (tid >> 5) >> 1;
   const int kg = (((tid >> 5) & 1) << 3) | (lane & 7);
+  // Every lane of a D-group ends tile_dot with the same sums, so the lanes
+  // of group g take column c = g of the micro-tile: query ii, keys
+  // rg * RPT + a. Their gates (keep * scale; keys past P are out) are fixed
+  // for the block.
+  const int ii = kg + 16 * g;
+  const int off = ii * kWLd + rg * RPT;
+  float gm[RPT];
+  bool key_in[RPT];
+#pragma unroll
+  for (int a = 0; a < RPT; ++a) {
+    const int j = j0 + rg * RPT + a;
+    key_in[a] = j < P;
+    gm[a] = key_in[a] ? keep[(size_t)b * P + j] * scale : 0.f;
+  }
 
   for (int i0 = 0; i0 < N; i0 += kT) {
-    // visible after the first barrier of tile_dot; the previous tile's
-    // readers passed the barrier before its accumulation
+    // read after the barrier that ends the tile products; the previous
+    // tile's readers passed its second cluster barrier
     if (tid < kT) {
       const int i = i0 + tid;
       const bool in = i < N;
       lse_s[tid] = in ? lse[(size_t)b * N + i] : 0.f;
       delta_s[tid] = in ? delta[(size_t)b * N + i] : 0.f;
     }
+    // tile_dot begins each chunk with a barrier, so the last tile's
+    // accumulation is done with P^T and dS^T before chunks are staged over
+    // them (an empty half stages nothing)
     float s[RPT][kCPT], dp[RPT][kCPT];
-    tile_dot<T, T, R, 2>(Kb, j0, P, Qb, i0, N, ks_b, D, 0, D, as, bs, s);
-    tile_dot<T, float, R, 0>(Vb, j0, P, dOb, i0, N, nullptr, D, 0, D, as, bs,
-                             dp);
-    if (g == 0) {
+    tile_dot<T, T, R, 1, Tl::kDC>(Kb, j0, P, Qb, i0, N, ks_b, D, c_lo,
+                                  c_lo + nc, as, bs, s);
+    tile_dot<T, float, R, 0, Tl::kDC>(Vb, j0, P, dOb, i0, N, nullptr, D, c_lo,
+                                      c_lo + nc, as, bs, dp);
+    __syncthreads();  // every thread is done with the last chunk
+    // the partials go where P^T and dS^T will
+    float sp[RPT], dpp[RPT], peer_sp[RPT], peer_dpp[RPT];
 #pragma unroll
-      for (int a = 0; a < RPT; ++a)
-#pragma unroll
-        for (int c = 0; c < kCPT; ++c) {
-          const int r = rg * RPT + a, j = j0 + r;     // key
-          const int ii = kg + 16 * c, i = i0 + ii;    // query
-          float p = 0.f, ds = 0.f;
-          if (j < P && i < N) {
-            const float gm = keep_b[j] * scale;
-            p = expf(s[a][c] * gm - lse_s[ii]);
-            ds = p * (dp[a][c] - delta_s[ii]) * gm;
-          }
-          p_s[ii * R + r] = p;
-          ds_s[ii * R + r] = ds;
-        }
+    for (int a = 0; a < RPT; ++a) {
+      sp[a] = pick(s[a], g);
+      dpp[a] = pick(dp[a], g);
     }
+    store_row(p_s + off, sp);
+    store_row(ds_s + off, dpp);
+    cluster.sync();  // both blocks' partials are written
+    load_row(peer_p + off, peer_sp);
+    load_row(peer_ds + off, peer_dpp);
+    // S = own + peer and dP = own + peer: the same bits in both blocks,
+    // since float addition commutes, so both form the same P and dS
+    const int i = i0 + ii;
+    float p[RPT], ds[RPT];
+#pragma unroll
+    for (int a = 0; a < RPT; ++a) {
+      p[a] = 0.f;
+      ds[a] = 0.f;
+      if (key_in[a] && i < N) {
+        p[a] = expf((sp[a] + peer_sp[a]) * gm[a] - lse_s[ii]);
+        ds[a] = p[a] * (dpp[a] + peer_dpp[a] - delta_s[ii]) * gm[a];
+      }
+    }
+    // The peer has read this block's partials: overwrite them. This also
+    // keeps each block's shared memory alive until its peer is done with
+    // it, so nothing after the last tile needs another barrier.
+    cluster.sync();
+    store_row(p_s + off, p);
+    store_row(ds_s + off, ds);
     __syncthreads();
-
-    // dV += P^T dO and dK_eff += dS^T Q, one pass over this tile's queries.
-    const int qn = min(kT, N - i0);
-    for (int c0 = tid; c0 < D; c0 += kNC * kThreads) {
-      float av[kNC][R], ak[kNC][R];
-      bool has[kNC];
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) {
-        const int col = c0 + c * kThreads;
-        has[c] = col < D;
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-          av[c][rr] = has[c] ? dv_acc[rr * D + col] : 0.f;
-          ak[c][rr] = has[c] ? dk_acc[rr * D + col] : 0.f;
-        }
-      }
-      const float* orow = dOb + (size_t)i0 * D + c0;
-      const T* qrow = Qb + (size_t)i0 * D + c0;
-#pragma unroll 2
-      for (int ii = 0; ii < qn; ++ii) {
-        float o[kNC], q[kNC];
-#pragma unroll
-        for (int c = 0; c < kNC; ++c) {
-          o[c] = has[c] ? orow[(size_t)ii * D + c * kThreads] : 0.f;
-          q[c] = has[c] ? to_f(qrow[(size_t)ii * D + c * kThreads]) : 0.f;
-        }
-        const float4* p4 = reinterpret_cast<const float4*>(p_s + ii * R);
-        const float4* d4 = reinterpret_cast<const float4*>(ds_s + ii * R);
-#pragma unroll
-        for (int r4 = 0; r4 < R / 4; ++r4) {
-          const float4 pw = p4[r4];
-          const float4 dw = d4[r4];
-#pragma unroll
-          for (int c = 0; c < kNC; ++c) {
-            av[c][4 * r4 + 0] = fmaf(pw.x, o[c], av[c][4 * r4 + 0]);
-            av[c][4 * r4 + 1] = fmaf(pw.y, o[c], av[c][4 * r4 + 1]);
-            av[c][4 * r4 + 2] = fmaf(pw.z, o[c], av[c][4 * r4 + 2]);
-            av[c][4 * r4 + 3] = fmaf(pw.w, o[c], av[c][4 * r4 + 3]);
-            ak[c][4 * r4 + 0] = fmaf(dw.x, q[c], ak[c][4 * r4 + 0]);
-            ak[c][4 * r4 + 1] = fmaf(dw.y, q[c], ak[c][4 * r4 + 1]);
-            ak[c][4 * r4 + 2] = fmaf(dw.z, q[c], ak[c][4 * r4 + 2]);
-            ak[c][4 * r4 + 3] = fmaf(dw.w, q[c], ak[c][4 * r4 + 3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kNC; ++c)
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr)
-          if (has[c]) {
-            dv_acc[rr * D + c0 + c * kThreads] = av[c][rr];
-            dk_acc[rr * D + c0 + c * kThreads] = ak[c][rr];
-          }
+    if (nc > 0) {
+      const int qn = min(kT, N - i0);
+      const size_t row0 = (size_t)i0 * D + c_lo;
+      // dV += P^T dO and dK_eff += dS^T Q over this block's columns
+      accumulate<float, R, Tl::kNC, false, Tl::kUnroll, kWLd>(
+          dv_acc, Dh, nc, dOb + row0, D, qn, p_s, nullptr);
+      accumulate<T, R, Tl::kNC, false, Tl::kUnroll, kWLd>(
+          dk_acc, Dh, nc, Qb + row0, D, qn, ds_s, nullptr);
     }
   }
 
+  // each thread writes the columns it accumulated
   for (int rr = 0; rr < R; ++rr) {
     const int j = j0 + rr;
     if (j >= P) break;
-    float* krow = dK + ((size_t)b * P + j) * D;
-    float* vrow = dV + ((size_t)b * P + j) * D;
-    for (int c = tid; c < D; c += kThreads) {
-      krow[c] = dk_acc[rr * D + c];
-      vrow[c] = dv_acc[rr * D + c];
+    float* krow = dK + ((size_t)b * P + j) * D + c_lo;
+    float* vrow = dV + ((size_t)b * P + j) * D + c_lo;
+    for (int c = tid; c < nc; c += kThreads) {
+      krow[c] = dk_acc[rr * Dh + c];
+      vrow[c] = dv_acc[rr * Dh + c];
     }
   }
 }
@@ -380,13 +450,6 @@ ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
   }
 }
 
-template <typename Kernel>
-int opt_in_smem(Kernel kernel, size_t smem) {
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 struct Args {
   const void *q, *k, *v;
   const float *keep, *kscale, *dO, *lse, *delta;
@@ -394,6 +457,7 @@ struct Args {
   int B, N, P, D;
   float scale;
   cudaStream_t stream;
+  int* plan = nullptr;  // dK/dV only: fill the launch plan, do not launch
 };
 
 template <typename T, int TQ>
@@ -410,13 +474,16 @@ int launch_dq_tq(const Args& a) {
 
 template <typename T, int R>
 int launch_dkdv_r(const Args& a) {
-  const size_t smem = dkdv_smem_bytes<R>(a.D);
-  if (int err = opt_in_smem(ca_dkdv_kernel<T, R>, smem)) return err;
-  const dim3 grid((a.P + R - 1) / R, a.B);
-  ca_dkdv_kernel<T, R><<<grid, kThreads, smem, a.stream>>>(
+  const int Dh = half_cut(a.D);
+  const size_t smem = dkdv_smem_bytes<R>(Dh);
+  const auto kernel = ca_dkdv_kernel<T, R>;
+  if (int err = opt_in_smem(kernel, smem)) return err;
+  const dim3 grid((a.P + R - 1) / R, 2, a.B);
+  if (a.plan != nullptr) return cluster_plan(kernel, grid, smem, R, a.plan);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.keep, a.kscale, a.dO, a.lse, a.delta,
-      a.out, a.out2, a.N, a.P, a.D, a.scale);
+      a.out, a.out2, a.N, a.P, a.D, Dh, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -434,10 +501,14 @@ int launch_single_r(const Args& a) {
 
 // which: 0 dq, 1 dkdv, 2 dv, 3 dk.
 // dq: 16-row tiles, or 8-row tiles when 16-row ones would leave SMs idle
-// (the forward kernel's rule). dkdv: 16-key tiles, which read Q and dO half
-// as often as 8-key ones, when they fill every SM and their accumulators
-// fit; 8-key tiles otherwise. dv and dk: the tallest of 32, 16 and 8 keys
-// that fills every SM and fits.
+// (the forward kernel's rule). dkdv, whose blocks come in clusters of two
+// and run one per SM: 32-key tiles, which read Q and dO half as often as
+// 16-key ones, where their clusters give every SM a block and their
+// accumulators fit; then 16 keys where those do, or where 8-key clusters
+// would not all fit at once (at 256^2, B = 1: 61 clusters of 16 keys in one
+// wave, not 121 of 8 in two); 8 keys otherwise (the D-split forward's
+// rule). dv and dk: the tallest of 32, 16 and 8 keys that fills every SM
+// and fits.
 template <typename T>
 int launch(int which, const Args& a) {
   if (a.B <= 0 || a.N <= 0 || a.P <= 0 || a.D <= 0)
@@ -448,10 +519,19 @@ int launch(int which, const Args& a) {
   switch (which) {
     case 0:
       return fills(a.N, 16) ? launch_dq_tq<T, 16>(a) : launch_dq_tq<T, 8>(a);
-    case 1:
-      if (fills(a.P, 16) && dkdv_smem_bytes<16>(a.D) <= kMaxSmem)
+    case 1: {
+      if (a.B > 65535) return (int)cudaErrorInvalidValue;
+      const int Dh = half_cut(a.D);
+      const auto pairs = [&](int tile) {   // blocks of the grid
+        return 2LL * a.B * ((a.P + tile - 1) / tile);
+      };
+      if (pairs(32) >= sm_count() && dkdv_smem_bytes<32>(Dh) <= kMaxSmem)
+        return launch_dkdv_r<T, 32>(a);
+      if ((pairs(16) >= sm_count() || pairs(8) > sm_count()) &&
+          dkdv_smem_bytes<16>(Dh) <= kMaxSmem)
         return launch_dkdv_r<T, 16>(a);
       return launch_dkdv_r<T, 8>(a);
+    }
     case 2:
     case 3:
       if (fills(a.P, 32) && single_smem_bytes<32>(a.D) <= kMaxSmem)
@@ -507,6 +587,18 @@ int sketchedit_contextual_attention_dkdv(int dtype, const void* q,
                       {q, k, v, f(keep), f(kscale), f(dO), f(lse), f(delta),
                        f(dk), f(dv), B, N, P, D, scale,
                        static_cast<cudaStream_t>(stream)});
+}
+
+// The fused dK/dV kernel's launch plan for these shapes on the current
+// device, without a launch: plan[0] tile keys, [1] blocks per cluster, [2]
+// the most clusters resident at once (cudaOccupancyMaxActiveClusters), [3]
+// dynamic shared-memory bytes per block, [4] clusters in the grid.
+int sketchedit_contextual_attention_dkdv_plan(int dtype, int B, int N, int P,
+                                              int D, int* plan) {
+  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         nullptr, nullptr, nullptr, B,       N,       P,       D,
+         0.f,     nullptr, plan};
+  return launch_typed(1, dtype, a);
 }
 
 // dV alone: no V, no delta.

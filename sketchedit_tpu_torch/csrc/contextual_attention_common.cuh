@@ -238,16 +238,17 @@ __device__ __forceinline__ void softmax_tile(const float* ss,
 // for r < R and col < ncols (alpha is left out when kRescale is false). acc
 // is a shared-memory accumulator of row stride ld; src points at the first
 // streamed row and the first column, with row stride src_ld, in global
-// memory; w is [kT][R] in shared memory. Each thread owns columns
-// tid + kThreads * c of every row, kNC at a time, so the accumulator is
-// private to its owner and only w and alpha need a barrier before the call.
-// The loop over streamed rows is unrolled kUnroll deep.
+// memory; w is [kT][kWLd] in shared memory (kWLd >= R, a multiple of 4).
+// Each thread owns columns tid + kThreads * c of every row, kNC at a time,
+// so the accumulator is private to its owner and only w and alpha need a
+// barrier before the call. The loop over streamed rows is unrolled kUnroll
+// deep.
 template <int R, int kNC> constexpr int accumulate_unroll() {
   return R * kNC >= 64 ? 2 : 4;
 }
 
 template <typename TS, int R, int kNC, bool kRescale,
-          int kUnroll = accumulate_unroll<R, kNC>()>
+          int kUnroll = accumulate_unroll<R, kNC>(), int kWLd = R>
 __device__ __forceinline__ void accumulate(float* acc, int ld, int ncols,
                                            const TS* src, int src_ld, int n,
                                            const float* w,
@@ -273,7 +274,7 @@ __device__ __forceinline__ void accumulate(float* acc, int ld, int ncols,
 #pragma unroll
       for (int c = 0; c < kNC; ++c)
         v[c] = has[c] ? to_f(row[(size_t)jj * src_ld + c * kThreads]) : 0.f;
-      const float4* w4 = reinterpret_cast<const float4*>(w + jj * R);
+      const float4* w4 = reinterpret_cast<const float4*>(w + jj * kWLd);
 #pragma unroll
       for (int r4 = 0; r4 < R / 4; ++r4) {
         const float4 x = w4[r4];
@@ -294,16 +295,56 @@ __device__ __forceinline__ void accumulate(float* acc, int ld, int ncols,
   }
 }
 
+// The SM count of the current device, which is the device a launch runs
+// on: looked up on every call (a host-side attribute read), so a process
+// that launches on two cards gets each card's own count.
 int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      count = 1;
-  }
+  int dev = 0, count = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || count < 1)
+    return 1;
   return count;
+}
+
+// The width of the first half of D in the kernels whose clusters split D:
+// ceil(D / 2), rounded up to 4 (float4 rows).
+int half_cut(int D) { return ((D + 1) / 2 + 3) / 4 * 4; }
+
+template <typename Kernel>
+int opt_in_smem(Kernel kernel, size_t smem) {
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The launch plan of a kernel whose blocks come in clusters of two along y,
+// without a launch: plan[0] tile rows, [1] blocks per cluster, [2] the most
+// clusters resident at once on the current device
+// (cudaOccupancyMaxActiveClusters), [3] dynamic shared-memory bytes per
+// block, [4] clusters in the grid.
+template <typename Kernel>
+int cluster_plan(Kernel kernel, dim3 grid, size_t smem, int rows, int* plan) {
+  cudaLaunchAttribute cluster = {};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 2;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (int err = (int)cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg))
+    return err;
+  plan[0] = rows;
+  plan[1] = 2;
+  plan[2] = clusters;
+  plan[3] = (int)smem;
+  plan[4] = (int)(grid.x * grid.z);
+  return 0;
 }
 
 }  // namespace

@@ -293,13 +293,6 @@ ca_fwd_dsplit_kernel(const T* Q, const T* K, const T* V, const float* keep,
                c_hi - c_lo);
 }
 
-template <typename Kernel>
-int opt_in_smem(Kernel kernel, size_t smem) {
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 struct Args {
   const void *q, *k, *v;
   const float *keep, *kscale;
@@ -336,34 +329,12 @@ int launch_shared(const Args& a) {
 
 template <typename T, typename TO, int TQ>
 int launch_dsplit(const Args& a) {
-  const int Dh = ((a.D + 1) / 2 + 3) / 4 * 4;
+  const int Dh = half_cut(a.D);
   const size_t smem = dsplit_smem_bytes<TQ>(Dh);
   const auto kernel = ca_fwd_dsplit_kernel<T, TO, TQ>;
   if (int err = opt_in_smem(kernel, smem)) return err;
   const dim3 grid((a.N + TQ - 1) / TQ, 2, a.B);
-  if (a.plan != nullptr) {
-    cudaLaunchAttribute cluster = {};
-    cluster.id = cudaLaunchAttributeClusterDimension;
-    cluster.val.clusterDim.x = 1;
-    cluster.val.clusterDim.y = 2;
-    cluster.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = a.stream;
-    cfg.attrs = &cluster;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    if (int err = (int)cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg))
-      return err;
-    a.plan[0] = TQ;
-    a.plan[1] = 2;
-    a.plan[2] = clusters;
-    a.plan[3] = (int)smem;
-    a.plan[4] = (int)(grid.x * grid.z);
-    return 0;
-  }
+  if (a.plan != nullptr) return cluster_plan(kernel, grid, smem, TQ, a.plan);
   ca_fwd_dsplit_kernel<T, TO, TQ><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.keep, a.kscale, static_cast<TO*>(a.o),

@@ -15,8 +15,10 @@ distributed shared memory; inference only; ``dsplit_plan`` says how it
 runs a shape). The flash-style backward comes in the same two forms:
 ``attention_core_dq`` and ``attention_core_dkdv`` launch the kernels of
 ``csrc/contextual_attention_bwd.cu`` (replacing ``_dq_kernel`` and
-``_dkdv_kernel``) on CUDA tensors and take their plain versions on CPU
-ones, as do the single-output ``attention_core_dv`` and
+``_dkdv_kernel``; the dK/dV kernel is a two-block cluster over D, like the
+D-split forward, and ``dkdv_plan`` says how it runs a shape) on CUDA
+tensors and take their plain versions on CPU ones, as do the single-output
+``attention_core_dv`` and
 ``attention_core_dk`` (``_dv_kernel``, ``_dk_kernel``);
 ``attention_core_bwd`` runs dQ and then the fused kernel or the split pair.
 ``ContextualAttentionCore`` ties forward and backward together for
@@ -45,7 +47,8 @@ rounding.
 forward kernels' launches (``LAUNCHES_LSE`` those of any of them that also
 wrote the logsumexp), ``LAUNCHES_DQ``, ``LAUNCHES_DKDV``, ``LAUNCHES_DV``
 and ``LAUNCHES_DK`` the backward kernels', so a run can show that its main
-path went through them.
+path went through them. Every launch runs with its tensors' device
+current, whichever device the caller has current.
 """
 
 from __future__ import annotations
@@ -163,12 +166,13 @@ def _forward_on_device(name, Q, K, V, keep, softmax_scale, return_lse,
            if return_lse else None)
     tensors = (V,) if name == "fwd_shared" else (Q, K, V)
     dims = (B, N, D) if name == "fwd_shared" else (B, N, P, D)
-    rc = fn(_DTYPE_CODES[Q.dtype], _DTYPE_CODES[out_dtype],
-            *(t.data_ptr() for t in tensors), keep.data_ptr(),
-            kscale.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), *dims,
-            float(softmax_scale),
-            torch.cuda.current_stream(Q.device).cuda_stream)
+    with torch.cuda.device(Q.device):  # a launch runs on the current device
+        rc = fn(_DTYPE_CODES[Q.dtype], _DTYPE_CODES[out_dtype],
+                *(t.data_ptr() for t in tensors), keep.data_ptr(),
+                kscale.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), *dims,
+                float(softmax_scale),
+                torch.cuda.current_stream(Q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"contextual_attention_{name} launch failed "
                            f"(B={B}, N={N}, P={P}, D={D}, {Q.dtype}): "
@@ -286,6 +290,25 @@ _PLAN_KEYS = ("tile_rows", "cluster_blocks", "max_active_clusters",
               "smem_bytes", "grid_clusters")
 
 
+def _cluster_plan(name: str, codes: tuple, B: int, N: int, P: int,
+                  D: int) -> dict:
+    """The launch plan of the cluster kernel ``name`` (fwd_dsplit or dkdv)
+    on the current CUDA device, from its C ``..._plan`` entry point."""
+    from sketchedit_tpu_torch.ops import _build
+    _, err_str = _kernel(name)
+    lib = _build.load()[_ENTRY_POINTS[name][0]]
+    fn = getattr(lib, f"sketchedit_contextual_attention_{name}_plan")
+    fn.argtypes = [ctypes.c_int] * (len(codes) + 4) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    rc = fn(*codes, B, N, P, D, ctypes.addressof(plan))
+    if rc != 0:
+        raise RuntimeError(f"contextual_attention_{name}_plan failed "
+                           f"(B={B}, N={N}, P={P}, D={D}): "
+                           f"{err_str(rc).decode()}")
+    return dict(zip(_PLAN_KEYS, plan))
+
+
 def dsplit_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
                 out_dtype=torch.float32) -> dict:
     """How the D-split kernel runs these shapes on the current CUDA device,
@@ -293,20 +316,18 @@ def dsplit_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
     the most clusters resident at once (``cudaOccupancyMaxActiveClusters``),
     each block's dynamic shared memory in bytes, and the clusters of the
     grid."""
-    from sketchedit_tpu_torch.ops import _build
-    _, err_str = _kernel("fwd_dsplit")
-    lib = _build.load()["contextual_attention_fwd"]
-    fn = lib.sketchedit_contextual_attention_fwd_dsplit_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    plan = (ctypes.c_int * len(_PLAN_KEYS))()
-    rc = fn(_DTYPE_CODES[dtype], _DTYPE_CODES[out_dtype], B, N, P, D,
-            ctypes.addressof(plan))
-    if rc != 0:
-        raise RuntimeError(f"contextual_attention_fwd_dsplit_plan failed "
-                           f"(B={B}, N={N}, P={P}, D={D}, {dtype}): "
-                           f"{err_str(rc).decode()}")
-    return dict(zip(_PLAN_KEYS, plan))
+    return _cluster_plan("fwd_dsplit",
+                         (_DTYPE_CODES[dtype], _DTYPE_CODES[out_dtype]),
+                         B, N, P, D)
+
+
+def dkdv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32) -> dict:
+    """How the fused dK/dV kernel runs these shapes on the current CUDA
+    device, without launching it, in ``dsplit_plan``'s keys: the key tile's
+    rows (``tile_rows``), the blocks of a cluster, the most clusters
+    resident at once, each block's dynamic shared memory in bytes, and the
+    clusters of the grid."""
+    return _cluster_plan("dkdv", (_DTYPE_CODES[dtype],), B, N, P, D)
 
 
 def _bwd_terms(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
@@ -394,9 +415,10 @@ def _launch_bwd(name, Q, K, tensors, softmax_scale):
     B, N, D = Q.shape
     P = K.shape[1]
     fn, err_str = _kernel(name)
-    rc = fn(_DTYPE_CODES[Q.dtype], *(t.data_ptr() for t in tensors),
-            B, N, P, D, float(softmax_scale),
-            torch.cuda.current_stream(Q.device).cuda_stream)
+    with torch.cuda.device(Q.device):  # a launch runs on the current device
+        rc = fn(_DTYPE_CODES[Q.dtype], *(t.data_ptr() for t in tensors),
+                B, N, P, D, float(softmax_scale),
+                torch.cuda.current_stream(Q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"contextual_attention_{name} launch failed "
                            f"(B={B}, N={N}, P={P}, D={D}, {Q.dtype}): "
@@ -429,8 +451,11 @@ def attention_core_dq(Q, K, V, keep, lse, delta, dO,
 def attention_core_dkdv(Q, K, V, keep, lse, delta, dO,
                         softmax_scale: float = 10.0, kscale=None):
     """(dK_eff, dV), float32, of ``attention_core``: dK_eff is the gradient
-    of the keys K * kscale. A CUDA tensor launches the fused dK/dV kernel;
-    a CPU tensor takes the plain version."""
+    of the keys K * kscale. A CUDA tensor launches the fused dK/dV kernel
+    (a key tile is a cluster of two blocks, each owning one half of D, which
+    sum their partial S^T and dP^T through distributed shared memory; needs
+    sm_90; ``dkdv_plan`` says how it runs a shape); a CPU tensor takes the
+    plain version."""
     global LAUNCHES_DKDV
     _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
     if not _on_device(Q, "attention_core_dkdv"):

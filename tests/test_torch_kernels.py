@@ -29,7 +29,7 @@ from sketchedit_tpu_torch.ops.attention_cuda import (
     attention_core_dsplit_reference, attention_core_dv,
     attention_core_dv_reference, attention_core_reference,
     attention_core_shared, attention_core_shared_reference,
-    contextual_attention_fused, dsplit_cut, dsplit_plan)
+    contextual_attention_fused, dkdv_plan, dsplit_cut, dsplit_plan)
 
 pytestmark = pytest.mark.gpu
 
@@ -254,6 +254,182 @@ def test_bwd_kernels_match_plain(cuda, dtype, shape, keep_p):
         scale = max(w.abs().max().item(), 1e-6)
         torch.testing.assert_close(g, w, rtol=0, atol=2e-4 * scale,
                                    msg=lambda m, n=name: f"{n}: {m}")
+
+
+def _bwd_args(Q, K, V, keep, dO, kscale):
+    """The backward kernels' arguments: the forward kernel's lse and
+    delta = rowsum(dO O) for these inputs."""
+    out, lse = attention_core(Q, K, V, keep, return_lse=True,
+                              out_dtype=torch.float32, kscale=kscale)
+    return (Q, K, V, keep, lse, (dO * out).sum(-1), dO, 10.0, kscale)
+
+
+def _check_dkdv(args, tag):
+    """One fused dK/dV launch against its plain version (2e-4 of each
+    gradient's max); prints the largest differences; returns (dK_eff,
+    dV)."""
+    before = attention_cuda.LAUNCHES_DKDV
+    got = attention_core_dkdv(*args)
+    torch.cuda.synchronize()
+    assert attention_cuda.LAUNCHES_DKDV == before + 1
+    want = attention_core_dkdv_reference(*args)
+    diffs = []
+    for name, g, w in zip(("dK_eff", "dV"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        scale = max(w.abs().max().item(), 1e-6)
+        diffs.append((g - w).abs().max().item())
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-4 * scale,
+                                   msg=lambda m, n=name: f"{tag} {n}: {m}")
+    # shown with -rP: the largest differences of each case
+    print("dkdv", tag, list(args[0].shape[:2]) + list(args[1].shape[1:]),
+          str(args[0].dtype), "max|dK_eff - plain|", diffs[0],
+          "max|dV - plain|", diffs[1])
+    return got
+
+
+def _bwd_case(seed, B, N, P, D, keep_p, dtype, device):
+    Q, K, V, keep = _inputs(seed, B, N, P, D, keep_p, dtype, device)
+    rs = np.random.RandomState(seed + 7)
+    dO = torch.from_numpy(rs.randn(B, N, D).astype(np.float32)).to(device)
+    kscale = torch.from_numpy((0.5 + rs.rand(B, D)).astype(np.float32)
+                              ).to(device)
+    return _bwd_args(Q, K, V, keep, dO, kscale)
+
+
+def _dkdv_tile(sms, B, P):
+    """The key tile the launch rule picks on a card with ``sms`` SMs."""
+    pairs = lambda r: 2 * B * -(-P // r)
+    if pairs(32) >= sms:
+        return 32
+    return 16 if pairs(16) >= sms or pairs(8) > sms else 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_rows,keys_per_sm_pair", [
+    (32, 32),     # 32-key clusters fill the SMs
+    (16, 16),     # 16-key clusters fill them, 32-key ones do not
+    (16, 8),      # neither does; 8-key clusters would take two waves
+    (8, 0),       # few enough 8-key clusters to fit at once
+])
+def test_dkdv_kernel_ragged_at_each_tile_height(cuda, dtype, tile_rows,
+                                                keys_per_sm_pair):
+    """P not a multiple of the key tile, N not a multiple of 64, at the
+    model's D. The launch rule picks the tile from the SM count, so P is
+    sized from the card's: keys_per_sm_pair keys for every pair of SMs, and
+    5 more (77 keys when 0)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B, N, D = 1, 150, 1536
+    P = sms // 2 * keys_per_sm_pair + 5 if keys_per_sm_pair else 77
+    plan = dkdv_plan(B, N, P, D, dtype)
+    assert (plan["tile_rows"], plan["cluster_blocks"]) == (tile_rows, 2), plan
+    assert plan["max_active_clusters"] > 0, plan
+    assert plan["grid_clusters"] == B * -(-P // tile_rows), plan
+    args = _bwd_case(P + tile_rows, B, N, P, D, 0.8, dtype, cuda)
+    _check_dkdv(args, f"tile{tile_rows}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 9, 9, 3), (2, 70, 90, 3)])
+def test_dkdv_kernel_empty_second_half(cuda, dtype, shape):
+    """D = 3 is below the cut (4): the second block of every cluster owns
+    no columns, takes every cluster barrier with zero partials and writes
+    nothing; a block that returned early would hang its peer."""
+    assert dsplit_cut(shape[3]) >= shape[3]
+    _check_dkdv(_bwd_case(sum(shape), *shape, 0.8, dtype, cuda), "D3")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dkdv_kernel_halves_form_the_same_weights(cuda, dtype):
+    """Q, K, V, dO and kscale repeat their first half of columns in their
+    second, so both blocks of a cluster contract the same partials and
+    accumulate the same values: dK_eff's and dV's two halves are equal bit
+    for bit only if both blocks formed P^T and dS^T from the same sums."""
+    B, N, P, D = 9, 130, 500, 1536          # 32-key tiles
+    cut = dsplit_cut(D)
+    assert 2 * cut == D
+    Q, K, V, keep = _inputs(21, B, N, P, D, 0.8, dtype, cuda)
+    rs = np.random.RandomState(21)
+    dO = torch.from_numpy(rs.randn(B, N, D).astype(np.float32)).to(cuda)
+    kscale = torch.from_numpy((0.5 + rs.rand(B, D)).astype(np.float32)
+                              ).to(cuda)
+    Q, K, V, dO, kscale = (torch.cat([t[..., :cut], t[..., :cut]], -1
+                                     ).contiguous()
+                           for t in (Q, K, V, dO, kscale))
+    dK, dV = _check_dkdv(_bwd_args(Q, K, V, keep, dO, kscale), "halves")
+    assert torch.equal(dK[..., :cut], dK[..., cut:])
+    assert torch.equal(dV[..., :cut], dV[..., cut:])
+
+
+def test_dkdv_kernel_repeats_bit_for_bit(cuda):
+    """Two calls on the same inputs give the same bits: each block owns its
+    output columns, and no sum depends on which block gets there first."""
+    args = _bwd_case(22, 9, 130, 500, 1536, 0.9, torch.float32, cuda)
+    first = attention_core_dkdv(*args)
+    second = attention_core_dkdv(*args)
+    print("dkdv repeat max|first - second|",
+          [(a - b).abs().max().item() for a, b in zip(first, second)])
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dkdv_kernel_all_keys_gated(cuda, dtype):
+    """Every key gated, at 32-key tiles: logits 0, so P is uniform and dV
+    the column sums of dO over P; the dS multiplier is 0, so dK_eff is 0."""
+    args = _bwd_case(23, 9, 130, 500, 1536, 0.0, dtype, cuda)
+    assert not args[3].any()
+    dK, _ = _check_dkdv(args, "all_gated")
+    assert not dK.any()
+
+
+@pytest.mark.parametrize("B,tile_rows_132", [(1, 16), (8, 32)])
+def test_dkdv_plan_at_the_main_path_shapes(cuda, B, tile_rows_132):
+    """256^2 training (N = P = 961, D = 1536): 32-key clusters at B = 8,
+    16-key ones at B = 1 (on a 132-SM card; the rule's pick elsewhere),
+    every block within the shared memory a block may opt into."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = dkdv_plan(B, 961, 961, 1536, dtype)
+        print("dkdv_plan", B, str(dtype), plan)
+        want = _dkdv_tile(sms, B, 961)
+        assert sms != 132 or want == tile_rows_132
+        assert plan["tile_rows"] == want and plan["cluster_blocks"] == 2
+        assert plan["grid_clusters"] == B * -(-961 // want)
+        assert 0 < plan["smem_bytes"] <= 232448
+        assert plan["max_active_clusters"] > 0
+
+
+def test_launches_run_on_the_tensors_device(cuda):
+    """Tensors on the second card, the first card current: every forward
+    and backward kernel launches on the tensors' card and matches its plain
+    version there, and the first card is current again after each call."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    args = _bwd_case(24, 2, 130, 150, 70, 0.8, torch.float32, dev)
+    Q, K, V, keep, lse, delta, dO, _, ks = args
+    tol = TOL[torch.float32]
+    for got, want in (
+            (attention_core(Q, K, V, keep, kscale=ks),
+             attention_core_reference(Q, K, V, keep, kscale=ks)),
+            (attention_core_dsplit(Q, K, V, keep, kscale=ks),
+             attention_core_dsplit_reference(Q, K, V, keep, kscale=ks)),
+            (attention_core_shared(V, ks, keep),
+             attention_core_shared_reference(V, ks, keep))):
+        torch.cuda.synchronize(dev)
+        assert got.device == dev and torch.cuda.current_device() == 0
+        torch.testing.assert_close(got, want, **tol)
+    for got, want in (
+            (attention_core_dq(*args), attention_core_dq_reference(*args)),
+            (attention_core_dkdv(*args)[0],
+             attention_core_dkdv_reference(*args)[0]),
+            (attention_core_dv(Q, K, keep, lse, dO, 10.0, ks),
+             attention_core_dv_reference(Q, K, keep, lse, dO, 10.0, ks)),
+            (attention_core_dk(*args), attention_core_dk_reference(*args))):
+        torch.cuda.synchronize(dev)
+        assert got.device == dev and torch.cuda.current_device() == 0
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=2e-4 * want.abs().max().item())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
