@@ -44,9 +44,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    and without --face_crop) and over HTTP;
 9. times: CUDA events after warm-up (inference and train step, each
    kernel, its plain version and one PyTorch call computing the same
-   function, the three forwards at 512^2 and 1024^2, served throughput per
-   --max_batch and client count); one JSON line per item, and the `kernels`
-   line.
+   function, the three forwards at 256^2 (B = 1 and 8), 512^2 and 1024^2
+   with a `fwd_plan` line each (the default forward's rows per block,
+   column slabs, resident blocks per SM and shared memory), served
+   throughput per --max_batch and client count); one JSON line per item,
+   and the `kernels` line. A float32 operations bound counts split TF32
+   (three tensor-core passes) where that is faster than the CUDA cores.
 
 The weights are random, drawn from --seed: kaiming init scaled by 1.8
 (netM) and 1.5 (netG), since kaiming alone lets the gated activations
@@ -90,11 +93,14 @@ SERVE_FLAGS = ["--name", "celeb", "--joint_train_inp", "--model", "editline2",
                "--which_epoch", "latest"]
 SERVER_UP_S = 300       # a server subprocess must answer /healthz by then
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
-# cores and bfloat16 on them, FLOP/s; memory, bytes/s.
+# cores, TF32 and bfloat16 on them, FLOP/s; memory, bytes/s.
 PEAKS = {
-    "PCIe": {"float32": 51.2e12, "bfloat16": 756e12, "bytes": 2.0e12},
-    "NVL": {"float32": 60e12, "bfloat16": 835e12, "bytes": 3.9e12},
-    "SXM": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
+    "PCIe": {"float32": 51.2e12, "tf32": 378e12, "bfloat16": 756e12,
+             "bytes": 2.0e12},
+    "NVL": {"float32": 60e12, "tf32": 417.5e12, "bfloat16": 835e12,
+            "bytes": 3.9e12},
+    "SXM": {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12,
+            "bytes": 3.35e12},
 }
 # by the kernel's output dtype: float32 differs from the plain version by
 # summation order only; a bfloat16 output adds its own rounding
@@ -129,6 +135,16 @@ def card_peaks(name: str):
         if key in name:
             return key, PEAKS[key]
     return "SXM", PEAKS["SXM"]
+
+
+def ops_ms(flops: float, dtype: str, peaks: dict) -> float:
+    """The least milliseconds the card's arithmetic needs for ``flops`` on
+    inputs of ``dtype``: bfloat16 at the tensor cores' bfloat16 rate;
+    float32 at the CUDA cores' rate or as split TF32 (three tensor-core
+    passes for a float32-accurate product), whichever is faster."""
+    if dtype != "float32":
+        return flops / peaks[dtype] * 1e3
+    return min(flops / peaks["float32"], 3 * flops / peaks["tf32"]) * 1e3
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -284,7 +300,7 @@ def main():
         attention_core_dv, attention_core_dv_reference,
         attention_core_reference, attention_core_shared,
         attention_core_shared_reference, attention_inputs, dkdv_plan,
-        dsplit_plan)
+        dsplit_plan, fwd_plan)
     from sketchedit_tpu_torch.options import parse_argv
     from sketchedit_tpu_torch.options.test_options import TestOptions
     from sketchedit_tpu_torch.runner import build_pipeline
@@ -1397,9 +1413,8 @@ def main():
         nbytes = {"dq": inputs + 4 * B * N * D, "dkdv": inputs + 8 * B * P * D,
                   "dv": inputs - 4 * B * N + 4 * B * P * D,
                   "dk": inputs + 4 * B * P * D}
-        peak = peaks[str(dt).split(".")[-1]]
         for k in ("dq", "dkdv", "dv", "dk"):
-            t_ops = flops[k] / peak * 1e3
+            t_ops = ops_ms(flops[k], str(dt).split(".")[-1], peaks)
             t_bytes = nbytes[k] / peaks["bytes"] * 1e3
             row[f"{k}_bound_ms"] = max(t_ops, t_bytes)
             row[f"{k}_bound_by"] = "bytes" if t_bytes > t_ops else "operations"
@@ -1426,6 +1441,14 @@ def main():
         N, D = Q.shape[1:]
         reps = 10 if hw < 128 else (5 if hw == 128 else 2)
         f32 = torch.float32
+        # how the default (and shared) forward runs this shape: query rows
+        # per block, column slabs, blocks resident per SM, shared memory,
+        # against the grid's blocks
+        plan = fwd_plan(B, N, N, D, dt)
+        emit({"phase": "fwd_plan", "image_hw": [4 * hw, 4 * hw],
+              "shape_BNPD": [B, N, N, D], "dtype": str(dt).split(".")[-1],
+              **plan, "shared_blocks_per_sm": fwd_plan(
+                  B, N, N, D, dt, shared=True)["blocks_per_sm"], **card})
         row = {"phase": "time_forwards", "image_hw": [4 * hw, 4 * hw],
                "shape_BNPD": [B, N, N, D], "dtype": str(dt).split(".")[-1],
                **card}
@@ -1451,7 +1474,7 @@ def main():
         # work the function needs.
         nbytes = B * (Q.element_size() * N * D + 4 * (N * D + N + D))
         t_bytes = nbytes / peaks["bytes"] * 1e3
-        t_ops = 4.0 * B * N * N * D / peaks[row["dtype"]] * 1e3
+        t_ops = ops_ms(4.0 * B * N * N * D, row["dtype"], peaks)
         for k in ("fwd", "shared", "dsplit"):
             row[f"{k}_bound_ms"] = max(t_ops, t_bytes)
             row[f"{k}_bound_by"] = "bytes" if t_bytes > t_ops else "operations"
@@ -1511,7 +1534,7 @@ def main():
         nbytes = B * (Q.element_size() * P * D + 4 * (N * D + P + D))
         flops = 4.0 * B * N * P * D
         t_bytes = nbytes / peaks["bytes"] * 1e3
-        t_ops = flops / peaks[str(dt).split(".")[-1]] * 1e3
+        t_ops = ops_ms(flops, str(dt).split(".")[-1], peaks)
         tag = f"B1_64sq_{str(dt).split('.')[-1]}"
         kernels.append({
             "name": "contextual_attention_fwd"

@@ -25,10 +25,9 @@ then in reverse. Variants:
   rows16     no 32-row tiles: 16 rows where they fill the SMs
   wide16     16-row tiles stage 64-wide chunks too
   clocks     the committed kernel with clock64() counters read back after
-             one call each of the D-split and the default forward: thread
-             0's cycles per key tile in the partial S, the cluster barrier,
-             the exchange, the softmax and P V (the default forward: S,
-             softmax, P V)
+             one call of the D-split: thread 0's cycles per key tile in the
+             partial S, the cluster barrier, the exchange, the softmax and
+             P V (scripts/fwd_variants.py clocks the default forward)
 
 One JSON line per variant, shape and dtype: the D-split's and the default
 forward's ms (CUDA events after warm-up), their ratio, the largest
@@ -64,31 +63,6 @@ RULE8 = ("    if (2 * blocks(16) >= sm_count() || 2 * blocks(8) > sm_count())",
          "    if (2 * blocks(16) >= sm_count())")
 CLOCKS = [
     ("namespace {\n", "namespace {\n__device__ unsigned long long g_clk[16];\n"),
-    # the default forward: S, softmax, P V
-    ("""  for (int k0 = 0; k0 < P; k0 += kT) {
-    s_tile<T, TQ, 1>(Qb, q0, N, Kb, k0, P, kscale_b, D, blk.as, blk.bs);
-    softmax_tile<TQ>(blk.bs, keep_b, k0, P, scale, blk.m_run, blk.l_run,
-                     blk.ps, blk.alpha_s);
-    accumulate<T, TQ, Tile<TQ>::kNC, true>(
-        blk.acc, D, D, Vb + (size_t)k0 * D, D, min(kT, P - k0), blk.ps,
-        blk.alpha_s);
-  }
-""", """  unsigned long long ph[4] = {0, 0, 0, 0};
-  for (int k0 = 0; k0 < P; k0 += kT) {
-    const long long c0 = clock64();
-    s_tile<T, TQ, 1>(Qb, q0, N, Kb, k0, P, kscale_b, D, blk.as, blk.bs);
-    const long long c1 = clock64();
-    softmax_tile<TQ>(blk.bs, keep_b, k0, P, scale, blk.m_run, blk.l_run,
-                     blk.ps, blk.alpha_s);
-    const long long c2 = clock64();
-    accumulate<T, TQ, Tile<TQ>::kNC, true>(
-        blk.acc, D, D, Vb + (size_t)k0 * D, D, min(kT, P - k0), blk.ps,
-        blk.alpha_s);
-    ph[0] += c1 - c0; ph[1] += c2 - c1; ph[2] += clock64() - c2; ph[3] += 1;
-  }
-  if (threadIdx.x == 0)
-    for (int i = 0; i < 4; ++i) atomicAdd(&g_clk[i], ph[i]);
-"""),
     # the D-split: partial S, cluster barrier, exchange, softmax, P V
     ("""  for (int k0 = 0, t = 0; k0 < P; k0 += kT, t ^= 1) {
     float s[RPT][kCPT];
@@ -249,8 +223,7 @@ def time_variant(root: str, name: str):
             for fn, key, lo, names in (
                     (dsplit, "dsplit_cycles_per_tile", 8,
                      ("partial_S", "cluster_sync", "exchange", "softmax",
-                      "PV")),
-                    (fwd, "fwd_cycles_per_tile", 0, ("S", "softmax", "PV"))):
+                      "PV")),):
                 torch.cuda.synchronize()
                 assert read(ctypes.addressof(clk)) == 0      # zeroes them
                 fn()

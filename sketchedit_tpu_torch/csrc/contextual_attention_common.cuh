@@ -1,9 +1,11 @@
 // Device code shared by the contextual-attention kernels for Hopper
 // (contextual_attention_fwd.cu and contextual_attention_bwd.cu): the tile
 // product, the online softmax over one key tile, and the accumulation of a
-// weighted sum of streamed rows into a shared-memory accumulator. All
-// arithmetic is float32 on the CUDA cores. Every kernel runs kThreads = 256
-// threads a block and walks its streamed axis in tiles of kT = 64.
+// weighted sum of streamed rows into a shared-memory accumulator, all float32
+// on the CUDA cores; and the float32-accurate tensor-core product (split
+// TF32 on mma.sync) that the two full-width forwards are built on. Every
+// kernel runs kThreads = 256 threads a block and walks its streamed axis in
+// tiles of kT = 64.
 
 #pragma once
 
@@ -11,6 +13,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -162,32 +165,6 @@ __device__ __forceinline__ void tile_dot(const TA* A, int a0, int na,
     }
 }
 
-// The forward's S tile: s = Q_tile K_tile^T by tile_dot (scale placement as
-// kScaled says), written to ss [TQ][kSS], which takes the place of bs.
-// Ends with a barrier: ss is ready to read.
-template <typename T, int TQ, int kScaled>
-__device__ __forceinline__ void s_tile(const T* Qb, int q0, int N, const T* Kb,
-                                       int k0, int P, const float* sc, int D,
-                                       float* as, float* bs) {
-  constexpr int RPT = TQ / 4;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 3;
-  const int rg = (tid >> 5) >> 1;
-  const int kg = (((tid >> 5) & 1) << 3) | (lane & 7);
-  float s[RPT][kCPT];
-  tile_dot<T, T, TQ, kScaled>(Qb, q0, N, Kb, k0, P, sc, D, 0, D, as, bs, s);
-  __syncthreads();  // every thread is done reading bs: reuse it for S
-  if (g == 0) {
-#pragma unroll
-    for (int a = 0; a < RPT; ++a)
-#pragma unroll
-      for (int c = 0; c < kCPT; ++c)
-        bs[(rg * RPT + a) * kSS + kg + 16 * c] = s[a][c];
-  }
-  __syncthreads();
-}
-
 // Online softmax over one key tile: TPR = 256/TQ consecutive lanes share a
 // row of ss [TQ][kSS]. A gated key (keep = 0) gets logit 0; padded keys
 // (j >= P) get -inf, and a tile always holds at least one real key, so the
@@ -293,6 +270,72 @@ __device__ __forceinline__ void accumulate(float* acc, int ld, int ncols,
       for (int rr = 0; rr < R; ++rr)
         if (has[c]) acc[rr * ld + c0 + c * kThreads] = a[c][rr];
   }
+}
+
+// Split TF32 on the tensor cores. mma.sync's TF32 operands are float32
+// registers whose low 13 mantissa bits the hardware ignores (it drops them,
+// it does not round), so an operand is rounded first: hi = rna(x) keeps 10
+// mantissa bits, lo = rna(x - hi) the next 11, and x = hi + lo to within
+// 2^-22 |x|. A product of two float32 operands is then three passes,
+// a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo is below float32's last
+// bit), accumulated in float32: about 22 bits, where one pass keeps 11. A
+// bfloat16 value (8 exponent bits, 7 mantissa bits) is exact in TF32, so an
+// operand that holds one enters whole and its product takes two passes.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as a TF32 operand: (hi, lo) when kSplit, else x whole (exact in TF32).
+template <bool kSplit>
+__device__ __forceinline__ void to_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kSplit) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0;
+  }
+}
+
+// c += a b for one m16n8k8 tile: a row-major 16 x 8, b column-major 8 x 8,
+// c 16 x 8 in float32. Fragments (g = lane / 4, t = lane % 4): a = {(g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4)}, b = {(t, g), (t + 4, g)}, c =
+// {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}. Volatile, so the
+// mma run in the order written: the compiler does not interleave
+// more independent tiles than the caller does, each holding its own
+// operands in registers.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// mma_tile: c[n] += a[n % kA] b[n] to float32 accuracy for kN independent
+// tiles (kA A fragments, shared round-robin), from operands made by
+// to_tf32: pass by pass (the small split terms first), each pass over the
+// kN tiles, so consecutive mma are independent and the next pass finds the
+// previous one done. A pass is left out where its operand is whole.
+template <bool kSplitA, bool kSplitB, int kN, int kA>
+__device__ __forceinline__ void mma_tile(float (&c)[kN][4],
+                                         const uint32_t (&ah)[kA][4],
+                                         const uint32_t (&al)[kA][4],
+                                         const uint32_t (&bh)[kN][2],
+                                         const uint32_t (&bl)[kN][2]) {
+  if constexpr (kSplitA) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) mma_tf32(c[n], al[n % kA], bh[n]);
+  }
+  if constexpr (kSplitB) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) mma_tf32(c[n], ah[n % kA], bl[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) mma_tf32(c[n], ah[n % kA], bh[n]);
 }
 
 // The SM count of the current device, which is the device a launch runs

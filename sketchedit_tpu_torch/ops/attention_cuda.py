@@ -31,10 +31,14 @@ where foreground and background are one tensor) and
 ``contextual_attention_fused``; ``SKETCHEDIT_SPLIT_DKDV=1`` (dV and dK
 kernels in place of the fused one) in ``attention_core_bwd``.
 
-The kernel keeps the whole (TQ, D) float32 accumulator of a query tile in
-shared memory and streams K and V tiles through it with an online softmax,
-so the (B, N, P) similarity never reaches device memory. At 256^2 the work
-is arithmetic-bound (5.67 GFLOP against 11.8 MB); the source file says more.
+The default and shared forwards run both products on the tensor cores in
+split TF32 (float32-accurate: three mma passes for float32 operands, two
+where one operand holds bfloat16 data), with a query tile's (16, D) float32
+accumulator spread over its eight warps' registers; K and V tiles stream
+through it with an online softmax, so the (B, N, P) similarity never
+reaches device memory (``fwd_plan`` says how they run a shape). At 256^2
+the work is arithmetic-bound (5.67 GFLOP against 11.8 MB); the source file
+says more.
 Given ``kscale``, the keys are ``K * kscale`` per channel, applied in
 float32 inside the kernel (as ``attention_pallas.py::_attn_shared_kernel``
 derives its keys): the main path passes K = V and the background's inverse
@@ -319,6 +323,33 @@ def dsplit_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
     return _cluster_plan("fwd_dsplit",
                          (_DTYPE_CODES[dtype], _DTYPE_CODES[out_dtype]),
                          B, N, P, D)
+
+
+_FWD_PLAN_KEYS = ("tile_rows", "column_slabs", "blocks_per_sm", "smem_bytes",
+                  "grid_blocks")
+
+
+def fwd_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
+             out_dtype=torch.float32, shared: bool = False) -> dict:
+    """How the default forward kernel (or, with ``shared``, the shared-tensor
+    one) runs these shapes on the current CUDA device, without launching
+    it: the query rows of a block, the slabs of up to 1536 output columns
+    the grid splits D into, the most blocks resident at once on an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), each block's
+    dynamic shared memory in bytes, and the blocks of the grid."""
+    from sketchedit_tpu_torch.ops import _build
+    _, err_str = _kernel("fwd")
+    fn = _build.load()[_ENTRY_POINTS["fwd"][0]] \
+        .sketchedit_contextual_attention_fwd_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_int * len(_FWD_PLAN_KEYS))()
+    rc = fn(int(shared), _DTYPE_CODES[dtype], _DTYPE_CODES[out_dtype], B, N,
+            P, D, ctypes.addressof(plan))
+    if rc != 0:
+        raise RuntimeError(f"contextual_attention_fwd_plan failed (B={B}, "
+                           f"N={N}, P={P}, D={D}): {err_str(rc).decode()}")
+    return dict(zip(_FWD_PLAN_KEYS, plan))
 
 
 def dkdv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32) -> dict:

@@ -107,6 +107,16 @@ async function nextExample() {{
 MAX_NUM_EXAMPLES = 200
 
 
+def _save_png(image, path: str):
+    """Write a PNG so that a concurrent reader sees the old file or the new
+    one, never a partial one: write beside it, then rename over it. Handler
+    threads render images that other threads' edits are writing (two edits
+    can draw the same random result name)."""
+    tmp = f"{path}.{threading.get_ident()}.tmp"
+    image.save(tmp, format="PNG")
+    os.replace(tmp, path)
+
+
 class DemoApp:
     """Holds the pipeline, the example list and the lock that serializes
     device access."""
@@ -171,9 +181,9 @@ class DemoApp:
                 result_u8 = ((np.clip(result_u8.astype(np.float32), -1, 1)
                               + 1) / 2 * 255).astype(np.uint8)
         out = Image.fromarray(result_u8).resize((w_raw, h_raw))
-        out.save(os.path.join(self.static_root, "results", name))
+        _save_png(out, os.path.join(self.static_root, "results", name))
         if save_to_input:
-            out.save(os.path.join(self.static_root, "images", name))
+            _save_png(out, os.path.join(self.static_root, "images", name))
         return name
 
     # -- request handling ----------------------------------------------

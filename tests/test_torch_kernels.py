@@ -8,9 +8,10 @@ the card at the main path's shapes. Run on a GPU machine with
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu -q
 
-Tolerances: forward float32 rtol = atol = 1e-4 (summation order);
-bfloat16 rtol = atol = 2e-2 against the plain version fed the same
-bf16-rounded inputs in float32 (the output is rounded to bf16). Backward:
+Tolerances: forward float32 output rtol = atol = 1e-4 (summation order,
+and split TF32 in the default and shared forwards, which keeps ~22 bits of
+each product); bfloat16 output rtol = atol = 2e-2 against the plain version
+fed the same bf16-rounded inputs in float32 (the output is rounded to bf16). Backward:
 2e-4 of each gradient's max |value|, for both input types (float32
 arithmetic and outputs on both sides, S recomputed in another order);
 the kernel path's gradient against dense autograd: 1e-3 of its max.
@@ -29,7 +30,7 @@ from sketchedit_tpu_torch.ops.attention_cuda import (
     attention_core_dsplit_reference, attention_core_dv,
     attention_core_dv_reference, attention_core_reference,
     attention_core_shared, attention_core_shared_reference,
-    contextual_attention_fused, dkdv_plan, dsplit_cut, dsplit_plan)
+    contextual_attention_fused, dkdv_plan, dsplit_cut, dsplit_plan, fwd_plan)
 
 pytestmark = pytest.mark.gpu
 
@@ -55,23 +56,82 @@ def _inputs(seed, B, N, P, D, keep_p, dtype, device):
     return Q, K, V, keep.to(device)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,keep_p", [
+# (input dtype, output dtype) of the forward kernels
+DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+          (torch.bfloat16, torch.float32)]
+# The default and shared forwards' cases: N and P off the 16- and 8-row
+# tiles, D off the 16-column step and past one 1536-column slab, all keys
+# gated, and the main path's 256^2 shape at B = 1 and 8, where the launch
+# rule takes 8-row and 16-row blocks on a 132-SM card.
+FWD_SHAPES = [
     ((2, 130, 150, 70), 0.7),         # ragged N, P and D
     ((1, 17, 65, 33), 0.5),           # one key past a tile, odd D
     ((1, 40, 64, 1536), 0.0),         # all gated: the uniform mean of V
     ((3, 300, 200, 600), 0.9),
-])
-def test_kernel_matches_plain(cuda, dtype, shape, keep_p):
+    ((2, 50, 70, 1537), 0.8),         # two column slabs, odd D
+    ((1, 961, 961, 1536), 0.6),       # 256^2, B = 1
+    ((8, 961, 961, 1536), 0.6),       # 256^2, B = 8
+]
+
+
+@pytest.mark.parametrize("dtype,out_dtype", DTYPES)
+@pytest.mark.parametrize("shape,keep_p", FWD_SHAPES)
+def test_kernel_matches_plain(cuda, dtype, out_dtype, shape, keep_p):
+    """A separate K tensor, no kscale; the tolerance follows the output's
+    dtype (the plain version is fed the same bf16-rounded inputs)."""
     Q, K, V, keep = _inputs(sum(shape), *shape, keep_p, dtype, cuda)
     before = attention_cuda.LAUNCHES
-    out, lse = attention_core(Q, K, V, keep, return_lse=True)
+    out, lse = attention_core(Q, K, V, keep, return_lse=True,
+                              out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert attention_cuda.LAUNCHES == before + 1
-    want, want_lse = attention_core_reference(Q, K, V, keep, return_lse=True)
-    assert out.dtype == dtype and out.shape == Q.shape
-    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    want, want_lse = attention_core_reference(Q, K, V, keep, return_lse=True,
+                                              out_dtype=torch.float32)
+    assert out.dtype == out_dtype and out.shape == Q.shape
+    torch.testing.assert_close(out.float(), want, **TOL[out_dtype])
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    if keep_p == 0.0:       # every logit 0: the uniform mean of V
+        torch.testing.assert_close(
+            out.float(), V.float().mean(1, keepdim=True).expand_as(out),
+            **TOL[out_dtype])
+    # shown with -rP: the largest differences of each case
+    print("fwd", list(shape), str(dtype), str(out_dtype), "max|out - plain|",
+          (out.float() - want).abs().max().item(), "max|lse - plain|",
+          (lse - want_lse).abs().max().item())
+
+
+@pytest.mark.parametrize("B,rows_132", [(1, 8), (8, 16)])
+def test_fwd_plan_at_the_main_path_shapes(cuda, B, rows_132):
+    """256^2 (N = P = 961, D = 1536): 8-row blocks at B = 1 and 16-row ones
+    at B = 8 on a 132-SM card (the rule's pick elsewhere), one column slab,
+    every block within the shared memory a block may opt into."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = 8 if B * -(-961 // 16) < sms else 16
+    assert sms != 132 or want == rows_132
+    for dtype in (torch.float32, torch.bfloat16):
+        for shared in (False, True):
+            plan = fwd_plan(B, 961, 961, 1536, dtype, shared=shared)
+            print("fwd_plan", B, str(dtype), shared, plan)
+            assert plan["tile_rows"] == want and plan["column_slabs"] == 1
+            assert plan["grid_blocks"] == B * -(-961 // want)
+            assert 0 < plan["smem_bytes"] <= 232448
+            assert plan["blocks_per_sm"] >= 1
+    assert fwd_plan(2, 50, 70, 1537)["column_slabs"] == 2
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["default", "shared"])
+def test_forward_kernels_repeat_bit_for_bit(cuda, shared):
+    """Two calls on the same inputs give the same bits: each S sums the
+    warps' partials in a fixed order."""
+    _, _, V, keep = _inputs(13, 8, 961, 961, 1536, 0.6, torch.float32, cuda)
+    kscale = torch.full((8, 1536), 1536 ** -0.5, device=cuda)
+    if shared:
+        call = lambda: attention_core_shared(V, kscale, keep, return_lse=True)
+    else:
+        call = lambda: attention_core(V, V, V, keep, return_lse=True,
+                                      kscale=kscale)
+    first, second = call(), call()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -187,6 +247,21 @@ def test_dsplit_kernel_refuses_a_gradient(cuda):
         attention_core_dsplit(Q.requires_grad_(), K, V, keep)
 
 
+def _shared_plain64(V, kscale, keep):
+    """The plain shared-tensor forward (attention_core_shared_reference's
+    function) evaluated in float64, as float32 (out, lse). The queries are
+    unscaled rows of V, so a key's similarity to itself reaches a logit of
+    ~10 sqrt(D), ~400 at D = 1536, where the float32 plain version is itself
+    ~1e-4 off the exact value (1.2e-4 at (8, 961, 961, 1536), the size of
+    the tolerance; the CUDA-core kernel of the previous design missed it
+    there too): the kernel is held to the exact value."""
+    Vd = V.double()
+    logits = torch.bmm(Vd, (Vd * kscale.double()[:, None, :]).transpose(1, 2))
+    logits = logits * keep.double()[:, None, :] * 10.0
+    out = torch.bmm(torch.softmax(logits, dim=-1), Vd)
+    return out.float(), torch.logsumexp(logits, dim=-1).float()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,keep_p", [
     ((2, 150, 150, 70), 0.7),         # ragged N and D
@@ -194,6 +269,9 @@ def test_dsplit_kernel_refuses_a_gradient(cuda):
     ((1, 64, 64, 1536), 0.0),         # all gated: the uniform mean of V
     ((3, 300, 300, 600), 0.9),
     ((9, 260, 260, 1536), 0.9),       # 16-row tiles at the model's D
+    ((2, 70, 70, 1537), 0.8),         # two column slabs, odd D
+    ((1, 961, 961, 1536), 0.6),       # 256^2, B = 1
+    ((8, 961, 961, 1536), 0.6),       # 256^2, B = 8
 ])
 def test_shared_kernel_matches_plain_and_default(cuda, dtype, shape, keep_p):
     B, N, _, D = shape
@@ -207,8 +285,7 @@ def test_shared_kernel_matches_plain_and_default(cuda, dtype, shape, keep_p):
     torch.cuda.synchronize()
     assert (attention_cuda.LAUNCHES_SHARED, attention_cuda.LAUNCHES) == (
         before[0] + 1, before[1])
-    want, want_lse = attention_core_shared_reference(
-        V, kscale, keep, return_lse=True, out_dtype=torch.float32)
+    want, want_lse = _shared_plain64(V, kscale, keep)
     assert out.dtype == torch.float32 and out.shape == V.shape
     torch.testing.assert_close(out, want, **TOL[torch.float32])
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,140 @@
+"""Split TF32, the precision scheme of the default and shared forward kernels
+(``csrc/contextual_attention_fwd.cu``), emulated in plain torch on the CPU
+and held against the JAX package's forward.
+
+mma.sync takes TF32 operands: 10 mantissa bits, rounded here to nearest
+with ties away from zero as ``cvt.rna.tf32.f32`` does. A float32 operand x
+is split into hi = rna(x) and lo = rna(x - hi); a product of two float32
+operands is three passes (lo hi + hi lo + hi hi), and one whose other
+operand holds bfloat16 data (exact in TF32) two. Each pass accumulates in
+float32 over 8-deep k steps, as an m16n8k8 tile does. The emulation runs the
+forward's S -> softmax -> P V on the main path's inputs at 64^2 features
+(256^2 images: N = P = 961, D = 1536) with kscale where each kernel puts
+it, and must agree with ``_attention_core_raw`` (interpret mode) within
+chip_smoke.py's float32 tolerance, 1e-4, for float32 and bfloat16 inputs.
+One-pass TF32 on the same inputs misses that tolerance, which is why the
+kernels split.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from sketchedit_tpu.ops.attention_pallas import _attention_core_raw
+from sketchedit_tpu_torch.ops.attention_cuda import attention_inputs
+
+TOL = 1e-4          # chip_smoke.py's TOL[float32]
+SCALE = 10.0
+
+
+def tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest, ties away from
+    zero: add half of the 13 dropped bits' range to the magnitude, then
+    clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def operand(x, split):
+    """x as (hi, lo) TF32 terms, or whole (lo None) where it is exact."""
+    if not split:
+        return x, None
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def mma(a, b, passes=3):
+    """a (B, M, K) @ b (B, K, N) from operand pairs: float32 accumulation
+    over 8-deep k steps; ``passes`` 3 for split x split, 2 where one side is
+    whole (its lo is None), 1 for hi x hi alone."""
+    (ah, al), (bh, bl) = a, b
+    terms = [(ah, bh)]
+    if passes > 1:
+        terms = ([(al, bh)] if al is not None else []) + \
+                ([(ah, bl)] if bl is not None else []) + terms
+    acc = torch.zeros(ah.shape[0], ah.shape[1], bh.shape[2])
+    for k0 in range(0, ah.shape[2], 8):
+        for x, y in terms:
+            acc = acc + torch.bmm(x[:, :, k0:k0 + 8], y[:, k0:k0 + 8])
+    return acc
+
+
+def emulated_forward(Q, V, keep, kscale, variant, one_pass=False):
+    """O of ``attention_core(Q, V, V, keep, kscale=kscale)`` (keys V *
+    kscale) as the kernel computes it: kscale on the query rows (default)
+    or on the keys (shared), both formed in float32; operands split where
+    they hold float32 values."""
+    f32 = Q.dtype == torch.float32
+    Qf, Vf = Q.float(), V.float()
+    if variant == "default":
+        A, Bk = Qf * kscale[:, None, :], Vf
+        split_a, split_b = True, f32
+    else:
+        A, Bk = Qf, Vf * kscale[:, None, :]
+        split_a, split_b = f32, True
+    passes = 1 if one_pass else 3
+    S = mma(operand(A, split_a or one_pass),
+            operand(Bk.transpose(1, 2), split_b or one_pass), passes)
+    logit = S * keep[:, None, :] * SCALE
+    p = torch.exp(logit - logit.amax(-1, keepdim=True))
+    out = mma(operand(p, True), operand(Vf, f32 or one_pass), passes)
+    return out / p.sum(-1, keepdim=True)
+
+
+@functools.lru_cache(maxsize=None)
+def case(dtype_name):
+    """The main path's attention inputs at 64^2 features (seeded numpy), in
+    the given dtype, and the JAX forward's float32 output on them."""
+    rs = np.random.RandomState(7)
+    B, C, H = 1, 96, 64
+    # non-negative gated-like pm features (pmconv6 ends in relu * sigmoid)
+    f = np.maximum(rs.randn(B, C, H, H), 0) / (1 + np.exp(-rs.randn(B, C, H, H)))
+    mask = np.zeros((B, 1, H, H), np.float32)
+    h = int(H * 0.4)                         # a hole in the middle
+    mask[:, :, (H - h) // 2:(H + h) // 2, (H - h) // 2:(H + h) // 2] = 1.0
+    feats = torch.from_numpy(f.astype(np.float32)).to(getattr(torch, dtype_name))
+    Q, V, keep, kscale = attention_inputs(feats, feats, torch.from_numpy(mask))
+    K = V.float() * kscale[:, None, :]       # the keys, float32
+    with pltpu.force_tpu_interpret_mode():
+        want = _attention_core_raw(
+            jnp.asarray(Q.float().numpy()), jnp.asarray(K.numpy()),
+            jnp.asarray(V.float().numpy()), jnp.asarray(keep.numpy()),
+            softmax_scale=SCALE, out_dtype=jnp.float32)
+    return Q, V, keep, kscale, torch.from_numpy(np.array(want))
+
+
+def test_tf32_rounding_keeps_10_mantissa_bits():
+    x = torch.from_numpy(np.random.RandomState(0).randn(4096).astype(
+        np.float32) * 1e3)
+    hi, lo = operand(x, True)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert ((hi - x).abs() <= 2.0 ** -11 * x.abs()).all()
+    assert ((hi + lo - x).abs() <= 2.0 ** -21 * x.abs()).all()
+    # ties go away from zero: 1 + 2^-11 lies halfway between TF32 neighbours
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11)])
+    assert tf32(tie).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+    # bfloat16 data is exact in TF32
+    b = x.bfloat16().float()
+    assert torch.equal(tf32(b), b)
+
+
+@pytest.mark.parametrize("variant", ["default", "shared"])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_split_tf32_forward_matches_jax(dtype_name, variant):
+    Q, V, keep, kscale, want = case(dtype_name)
+    assert Q.shape == (1, 961, 1536) and 0 < keep.sum() < 961
+    got = emulated_forward(Q, V, keep, kscale, variant)
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    # one pass on rounded operands misses the same tolerance
+    one = emulated_forward(Q, V, keep, kscale, variant, one_pass=True)
+    one_err = (one - want).abs().max().item()
+    print(dtype_name, variant, "split", err, "one pass", one_err)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(one, want, rtol=TOL, atol=TOL)
