@@ -17,7 +17,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    each also against the kernel that computes the same function (the
    default forward, the fused dK/dV); a `dkdv_plan` line gives the fused
    dK/dV kernel's key tile, cluster shape and resident clusters at each
-   training shape;
+   training shape, a `dq_plan` line the dQ kernel's rows per block, column
+   slabs, resident blocks per SM and shared memory, and a `dq_ptxas` line
+   the dQ instantiations' registers and spills;
 4. inference path: the runner's EditPipeline on uint8 batches at 256^2
    (B = 1 and 4, float32 and bfloat16) and 252^2, one forward launch per
    netG forward, checked against the same pipeline with dense attention
@@ -300,7 +302,7 @@ def main():
         attention_core_dv, attention_core_dv_reference,
         attention_core_reference, attention_core_shared,
         attention_core_shared_reference, attention_inputs, dkdv_plan,
-        dsplit_plan, fwd_plan)
+        dq_plan, dsplit_plan, fwd_plan)
     from sketchedit_tpu_torch.options import parse_argv
     from sketchedit_tpu_torch.options.test_options import TestOptions
     from sketchedit_tpu_torch.runner import build_pipeline
@@ -329,6 +331,17 @@ def main():
                 print(f"ptxas[{name}]: {ln.strip()}")
     emit({"phase": "build", "seconds": round(build_s, 3),
           "nvcc_seconds": _build.build_seconds, **card})
+    # registers and spills of each dQ instantiation (ca_dq_kernel<T, kSame,
+    # kVec>), where this run built the library
+    entry, dq_ptxas = None, []
+    for ln in _build.build_log.get("contextual_attention_bwd", "").splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "spill" in ln and entry and "ca_dq_kernel" in entry:
+            dq_ptxas.append({"entry": entry, "spills": ln.strip()})
+        elif "Used" in ln and entry and "ca_dq_kernel" in entry and dq_ptxas:
+            dq_ptxas[-1]["registers"] = ln.split(":", 1)[1].strip()
+    emit({"phase": "dq_ptxas", "instantiations": dq_ptxas})
 
     # 3. kernel vs plain --------------------------------------------------
     rs = np.random.RandomState(args.seed)
@@ -534,6 +547,13 @@ def main():
                   "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
                   "dtype": str(dt).split(".")[-1], "cluster_dims": [1, 2, 1],
                   **dkdv_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt),
+                  **card})
+            # how the dQ kernel runs it: query rows per block, column slabs,
+            # blocks resident per SM, shared memory, against the grid's blocks
+            emit({"phase": "dq_plan", "image_hw": [256, 256],
+                  "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
+                  "dtype": str(dt).split(".")[-1],
+                  **dq_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt),
                   **card})
             bwd_inputs[(B, dt)] = check_bwd(
                 f"B{B}_64sq_{str(dt).split('.')[-1]}", Q, V, V, keep, ksc)
@@ -1419,8 +1439,10 @@ def main():
             row[f"{k}_bound_ms"] = max(t_ops, t_bytes)
             row[f"{k}_bound_by"] = "bytes" if t_bytes > t_ops else "operations"
             row[f"{k}_gflop"] = flops[k] / 1e9
-        # the fused dK/dV kernel's loss to the library call, its multiple
-        # of the bound, and its time against the split dV + dK pair
+        # the dQ kernel's and the fused dK/dV kernel's loss to the library
+        # call and multiple of the bound; dK/dV against the split dV + dK
+        row["dq_x_library"] = row["dq_ms"] / row["library_ms"]
+        row["dq_x_bound"] = row["dq_ms"] / row["dq_bound_ms"]
         row["dkdv_x_library"] = row["dkdv_ms"] / row["library_ms"]
         row["dkdv_x_bound"] = row["dkdv_ms"] / row["dkdv_bound_ms"]
         row["dkdv_x_split"] = row["dkdv_ms"] / (row["dv_ms"] + row["dk_ms"])

@@ -17,14 +17,17 @@
 // The gate rules are the forward's: keep = 0 gives logit 0 (P = exp(-lse))
 // and a zero dS multiplier; keys past P contribute nothing; ragged N, P and
 // D are bounds checks, never padded copies. Q, K and V are float32 or
-// bfloat16; dO, lse, delta and every output are float32, and all arithmetic
-// is float32 on the CUDA cores. dO is not rounded to the input type (the
+// bfloat16; dO, lse, delta and every output are float32. The dq kernel's
+// products run on the tensor cores in split TF32 (float32-accurate, as the
+// forwards'); the other three kernels' arithmetic is float32 on the CUDA
+// cores. dO is not rounded to the input type (the
 // JAX package streams it in the input type to halve its DMA): these kernels
 // are bound by operations, not bytes, so the rounding would buy nothing.
 //
 // What bounds them on an H100. At 256^2 (N = P = 961, D = 1536) the dq
 // kernel runs three products of N P D multiply-adds (6 N P D = 8.5 GFLOP
-// per image, 0.127 ms at the SXM's 67 TFLOP/s of float32) and the dkdv
+// per image, 0.127 ms at the SXM's 67 TFLOP/s of float32, 0.052 ms as split
+// TF32 at three passes of 495 TFLOP/s) and the dkdv
 // kernel four (11.4 GFLOP, 0.169 ms), against ~30 MB of float32 traffic
 // (~0.009 ms): both are bound by operations. The dv kernel runs two
 // products and the dk kernel three, five together where the fused kernel
@@ -33,15 +36,43 @@
 // Design. Blocks run in parallel, so the sequential axis of each TPU grid
 // becomes a loop inside the block, and each block owns its output rows
 // outright (no atomics, no second pass):
-// - dq: one block per (image, TQ-query tile), TQ = 16, or 8 when 16-row
-//   tiles would leave SMs idle. The (TQ, D) float32 dQ accumulator lives in
-//   dynamic shared memory (96 KB at TQ = 16, D = 1536). The keys are walked
-//   in tiles of kT = 64: S and dP come from the forward's tile product
-//   (staged D-chunks, register micro-tiles, a register prefetch of the next
-//   chunk); since every lane of a D-group ends with the reduced sums, P and
-//   dS are formed in registers and only dS^T goes to shared memory; then
-//   dQ += dS K streams K from global memory (one image's K and V stay in
-//   the 50 MB L2). kscale is applied to dQ once, at the end.
+// - dq: split TF32 on the tensor cores, the default forward's block
+//   (fwd_mma in contextual_attention_fwd.cu): 8 warps over kRows = 16 query
+//   rows (8 where 16-row blocks would leave SMs idle, the lower half of
+//   every A tile then zero) of one image, all keys, a slab of up to 1536 dQ
+//   columns. Warp w owns 192 dQ columns as 24 m16n8 fragments in registers
+//   (96 floats a thread), so no accumulator sits in shared memory. All
+//   three products are mma.sync m16n8k8 TF32 through mma_tile: an operand
+//   holding float32 values is split in two TF32 terms, one holding
+//   bfloat16 data enters whole, so a product takes three passes in float32
+//   and two with bfloat16 inputs. kscale goes on the query side of S (the
+//   staged Q tile is Q kscale in float32, 99 KB at D = 1536), so K enters
+//   raw in S and in dS K and dQ is scaled once at the end. Per key tile of
+//   kT = 64:
+//     S, dP  warp w contracts its own 1/8 of D, 16 columns a step, into
+//            partial S and dP (16 x 64 each): it stages K rows, the block's
+//            dO rows (float32, re-read from L2 on every key tile since the
+//            Q tile leaves no room for a dO tile) and, where V is not K, V
+//            rows with cp.async in its own 12.8 KB area, steps ahead; where
+//            V is K (the main path) one set of K fragments feeds both
+//            products, four mma tiles (S and dP, two k8 steps) per n8 tile;
+//     dS     after a barrier warp w sums rows 2w and 2w + 1 of the eight
+//            partials in warp order (so two launches give the same bits)
+//            and writes dS = P (dP - delta) g to shared memory;
+//     dS K   after a second barrier each warp adds dS K for its columns,
+//            dS's A fragments from shared memory, K rows at its 192 columns
+//            staged with cp.async, steps ahead.
+//   The tensor cores add into an accumulator with truncation, so every k8
+//   step starts a fresh one and is added with a round-to-nearest FADD (the
+//   forward's rule: S and dP sum 192 k8 steps at D = 1536, dS K up to 121).
+//   What holds it back is each warp's own chain of fragment loads, splits,
+//   mma passes and FADDs, not L2: more steps in flight change nothing,
+//   while staging and splitting V apart from K costs a quarter more
+//   (scripts/dq_variants.py; S and dP run at ~0.29 mma a cycle per SM,
+//   dS K at ~0.25, against a TF32 peak of 1).
+//   Keys past the last real one of a tile are skipped. At D = 1536 a block
+//   takes 206 KB of shared memory and runs alone on its SM; D up to 1920
+//   fits, a wider D takes more column slabs, each recomputing S and dP.
 // - dkdv: one cluster of two blocks per (image, R-key tile). The block of
 //   rank h owns columns [h Dh, min(D, (h + 1) Dh)) of D, Dh = ceil(D / 2)
 //   rounded up to 4, and holds that half of the two float32 accumulators,
@@ -72,10 +103,10 @@
 //   (P^T for dv, dS^T for dk) goes to shared memory, and one tensor (dO for
 //   dv, Q for dk) is streamed in the accumulation.
 // A dkdv block (8 warps, 218 KB of shared memory at R = 32) runs alone on
-// its SM, as a 32-key dv or dk block does; the dq blocks at TQ = 16 fit
-// two. The dkdv cluster needs sm_90. The other three kernels are the first
-// design, simple and right; making them fast (tensor cores, more warps per
-// SM) is later work.
+// its SM, as a 32-key dv or dk block and a dq block do. The dkdv cluster
+// needs sm_90. The dv and dk kernels are the first design, simple and
+// right; moving them and the fused dK/dV onto the tensor cores is later
+// work.
 
 #include <cooperative_groups.h>
 
@@ -83,89 +114,341 @@
 
 namespace {
 
-template <int TQ>
-size_t dq_smem_bytes(int D) {
-  return sizeof(float) *
-         ((size_t)TQ * D + stage_floats<TQ>() + kT * TQ + 2 * TQ);
-}
-
 template <int R>
 size_t single_smem_bytes(int D) {
   return sizeof(float) * ((size_t)R * D + stage_floats<R>() + kT * R + 2 * kT);
 }
 
-// One block: TQ query rows of one image, all keys, all of D.
-template <typename T, int TQ>
-__global__ void __launch_bounds__(kThreads, Tile<TQ>::kMinBlocks)
+// dQ's per-warp staging area, kDqArea bytes, holds one of three things in
+// turn: kStages1 steps of the S and dP products (K rows k0 .. k0 + 63 at 16
+// columns of D in T, V's rows too where V is not K, and the block's 16 dO
+// rows at the same columns in float32), or the warp's partial S and dP
+// [2][kRows][kPartLd] floats, or kStages3 steps of dS K (8 K rows at the
+// warp's 192 columns, padded as the forward's V steps). 12,800 bytes a
+// warp keep the block at the forward's 206 KB at D = 1536 and admit D up to
+// 1920 (a 15 KB area, one more step in flight, measured no faster:
+// scripts/dq_variants.py `deep`).
+constexpr int kDqArea = 12800;
+template <typename T, bool kSame> struct DqStage {
+  static constexpr int kK = kT * 16;                    // K (or V) step, T
+  static constexpr int kO = kRows * 16;                 // dO step, floats
+  static constexpr int kOOff = (kSame ? 1 : 2) * kK * (int)sizeof(T);
+  static constexpr int kStep1 = kOOff + kO * (int)sizeof(float);  // bytes
+  static constexpr int kStages1 = kDqArea / kStep1;
+  static constexpr int kKLd = kGroups * 32 + 32 / (int)sizeof(T);
+  static constexpr int kK3 = 8 * kKLd;                  // dS K step, T
+  static constexpr int kStages3 = kDqArea / (kK3 * (int)sizeof(T));
+  static_assert(kStages1 >= 1 && kStages3 >= 1, "a step must fit");
+  static_assert(2 * kRows * kPartLd * sizeof(float) <= (size_t)kDqArea,
+                "the partials must fit");
+};
+
+// Shared-memory bytes of a dQ block: the Q tile (times kscale), the warps'
+// areas, dS [kRows][kPLd], lse and delta per row.
+size_t dq_smem_bytes(int D) {
+  return sizeof(float) * ((size_t)kRows * mma_q_ld(D) + kRows * kPLd +
+                          2 * kRows) + (size_t)kWarps * kDqArea;
+}
+
+// One block: query rows [q0, q0 + rows) of one image (rows is 16, or 8
+// with the lower half of every A tile zero), all keys, dQ columns
+// [blockIdx.y * kSlab, + kSlab). kSame: V is K (one pointer), so one staged
+// step of K rows serves S and dP. kVec: D is a multiple of 4 and every
+// pointer is 16-byte aligned.
+template <typename T, bool kSame, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
 ca_dq_kernel(const T* Q, const T* K, const T* V, const float* keep,
              const float* kscale, const float* dO, const float* lse,
-             const float* delta, float* dQ, int N, int P, int D,
+             const float* delta, float* dQ, int rows, int N, int P, int D,
              float scale) {
-  constexpr int kSD = Tile<TQ>::kSD;
-  constexpr int RPT = TQ / 4;
-
+  constexpr bool kF32 = sizeof(T) == sizeof(float);  // K and V split too
+  using St = DqStage<T, kSame>;
   extern __shared__ __align__(16) float smem[];
-  float* acc = smem;                        // [TQ][D]
-  float* as = acc + (size_t)TQ * D;         // [TQ][kSD]
-  float* bs = as + TQ * kSD;                // [kT][kSD]
-  float* ds_s = bs + kT * kSD;              // [kT][TQ]  (dS transposed)
-  float* lse_s = ds_s + kT * TQ;            // [TQ]
-  float* delta_s = lse_s + TQ;              // [TQ]
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * TQ;
+  const int Ds = mma_cols(D), ldq = mma_q_ld(D), qcols = kWarps * Ds;
+  float* qs = smem;                              // [kRows][ldq]
+  char* areas = reinterpret_cast<char*>(qs + kRows * ldq);
+  float* ds_s = reinterpret_cast<float*>(areas + kWarps * kDqArea);
+  float* lse_s = ds_s + kRows * kPLd;            // [kRows]
+  float* delta_s = lse_s + kRows;                // [kRows]
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * rows;
   const T* Qb = Q + (size_t)b * N * D;
   const T* Kb = K + (size_t)b * P * D;
   const T* Vb = V + (size_t)b * P * D;
   const float* dOb = dO + (size_t)b * N * D;
   const float* keep_b = keep + (size_t)b * P;
   const float* ks_b = kscale + (size_t)b * D;
+  char* mine = areas + w * kDqArea;              // this warp's area
+  float* part = reinterpret_cast<float*>(mine);  // [2][kRows][kPartLd]
+  T* kst3 = reinterpret_cast<T*>(mine);          // [kStages3][8][kKLd]
 
-  for (int i = tid; i < TQ * D; i += kThreads) acc[i] = 0.f;
-  if (tid < TQ) {  // rows past N: lse = delta = 0 (their dS is 0 anyway)
-    const bool in = q0 + tid < N;
+  // the Q tile times kscale in float32; rows past the tile or N and
+  // columns past D are 0
+  for (int i = tid; i < kRows * qcols; i += kThreads) {
+    const int r = i / qcols, d = i % qcols;
+    float x = 0.f;
+    if (r < rows && q0 + r < N && d < D)
+      x = to_f(Qb[(size_t)(q0 + r) * D + d]) * ks_b[d];
+    qs[r * ldq + d] = x;
+  }
+  for (int i = tid; i < kRows * kPLd; i += kThreads) ds_s[i] = 0.f;
+  if (tid < kRows) {  // rows past the tile or N: lse = delta = 0
+    const bool in = tid < rows && q0 + tid < N;
     lse_s[tid] = in ? lse[(size_t)b * N + q0 + tid] : 0.f;
     delta_s[tid] = in ? delta[(size_t)b * N + q0 + tid] : 0.f;
   }
+  __syncthreads();
 
-  const int lane = tid & 31;
-  const int g = lane >> 3;
-  const int rg = (tid >> 5) >> 1;
-  const int kg = (((tid >> 5) & 1) << 3) | (lane & 7);
+  float acc[kGroups][4][4];
+#pragma unroll
+  for (int c = 0; c < kGroups; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+  // dS rows: warp w forms rows 2w and 2w + 1, 16 lanes a row, 4 keys a lane
+  const int srow = 2 * w + (lane >> 4), skey = 4 * (lane & 15);
+  const int d_lo = w * Ds, d_hi = min(D, d_lo + Ds);
+  const int nstep = d_hi > d_lo ? (d_hi - d_lo + 15) / 16 : 0;
+  const int cw = blockIdx.y * kSlab + w * (kGroups * 32);  // warp's columns
 
   for (int k0 = 0; k0 < P; k0 += kT) {
-    float s[RPT][kCPT], dp[RPT][kCPT];
-    tile_dot<T, T, TQ, 1>(Qb, q0, N, Kb, k0, P, ks_b, D, 0, D, as, bs, s);
-    tile_dot<float, T, TQ, 0>(dOb, q0, N, Vb, k0, P, nullptr, D, 0, D, as, bs,
-                              dp);
-    if (g == 0) {
-#pragma unroll
-      for (int a = 0; a < RPT; ++a)
-#pragma unroll
-        for (int c = 0; c < kCPT; ++c) {
-          const int r = rg * RPT + a, jj = kg + 16 * c, j = k0 + jj;
-          float ds = 0.f;
-          if (j < P) {
-            const float gm = keep_b[j] * scale;
-            const float p = expf(s[a][c] * gm - lse_s[r]);
-            ds = p * (dp[a][c] - delta_s[r]) * gm;
-          }
-          ds_s[jj * TQ + r] = ds;
+    const int kn = min(kT, P - k0);              // real keys of the tile
+    // 1. this warp's partial S = (Q kscale) K^T and dP = dO V^T over
+    // columns [d_lo, d_hi) of D, 16 at a time: step i stages K rows k0 ..
+    // k0 + 63 (and V's where V is not K) and dO rows q0 .. q0 + 15 at
+    // columns d_lo + 16i .. + 15, kStages1 - 1 steps ahead. Lane (g, t)
+    // reads row 8j + g, columns 4t .. 4t + 3 for n8 tile j: k = t and t + 4
+    // of k8 step h are 4t + 2h and + 1, and the A fragments of Q kscale
+    // and dO follow the same order. Each n8 tile is four mma tiles, S and
+    // dP for both k8 steps, from one set of K fragments where V is K.
+    auto stage1 = [&](int i) {
+      if (i < nstep) {
+        char* slot = mine + (i % St::kStages1) * St::kStep1;
+        T* kd = reinterpret_cast<T*>(slot);
+        float* od = reinterpret_cast<float*>(slot + St::kOOff);
+        const int d0 = d_lo + 16 * i, q = (lane & 3) * 4;
+        const size_t r0 = (size_t)(k0 + (lane >> 2)) * D;
+#pragma unroll (kVec ? kT * 4 / 32 : 1)
+        for (int n = 0; n < kT * 4 / 32; ++n) {
+          const int r = (lane >> 2) + 8 * n;
+          copy4<kVec>(kd + r * 16 + q, Kb + r0 + (size_t)(8 * n) * D,
+                      k0 + r < P, d0 + q, D);
+          if constexpr (!kSame)
+            copy4<kVec>(kd + St::kK + r * 16 + q,
+                        Vb + r0 + (size_t)(8 * n) * D, k0 + r < P, d0 + q, D);
         }
+#pragma unroll
+        for (int n = 0; n < kRows * 4 / 32; ++n) {
+          const int r = (lane >> 2) + 8 * n;
+          copy4<kVec>(od + r * 16 + q, dOb + (size_t)(q0 + r) * D,
+                      r < rows && q0 + r < N, d0 + q, D);
+        }
+      }
+      cp_commit();
+    };
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < St::kStages1 - 1; ++i) stage1(i);
+#pragma unroll 1
+    for (int i = 0; i < nstep; ++i) {
+      stage1(i + St::kStages1 - 1);
+      cp_wait<St::kStages1 - 1>();
+      __syncwarp();                    // step i is staged, by every lane
+      const char* slot = mine + (i % St::kStages1) * St::kStep1;
+      const T* kb = reinterpret_cast<const T*>(slot);
+      const T* vb = kSame ? kb : kb + St::kK;
+      const float* ob = reinterpret_cast<const float*>(slot + St::kOOff);
+      const int d = d_lo + 16 * i + 4 * t;
+      const float4 qa = lds4(qs + g * ldq + d);
+      const float4 qb = lds4(qs + (g + 8) * ldq + d);
+      const float4 oa = lds4(ob + g * 16 + 4 * t);
+      const float4 obb = lds4(ob + (g + 8) * 16 + 4 * t);
+      // A fragments: 0 and 1 Q kscale at k8 steps 0 and 1, 2 and 3 dO
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        to_tf32<true>(elem(qa, 2 * h), ah[h][0], al[h][0]);
+        to_tf32<true>(elem(qb, 2 * h), ah[h][1], al[h][1]);
+        to_tf32<true>(elem(qa, 2 * h + 1), ah[h][2], al[h][2]);
+        to_tf32<true>(elem(qb, 2 * h + 1), ah[h][3], al[h][3]);
+        to_tf32<true>(elem(oa, 2 * h), ah[2 + h][0], al[2 + h][0]);
+        to_tf32<true>(elem(obb, 2 * h), ah[2 + h][1], al[2 + h][1]);
+        to_tf32<true>(elem(oa, 2 * h + 1), ah[2 + h][2], al[2 + h][2]);
+        to_tf32<true>(elem(obb, 2 * h + 1), ah[2 + h][3], al[2 + h][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (8 * j >= kn) break;        // no real key left in the tile
+        fence();
+        const float4 kf = lds4(kb + (8 * j + g) * 16 + 4 * t);
+        const float4 vf = kSame ? kf : lds4(vb + (8 * j + g) * 16 + 4 * t);
+        uint32_t bh[4][2], bl[4][2];
+        float x[4][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          to_tf32<kF32>(elem(kf, 2 * h), bh[h][0], bl[h][0]);
+          to_tf32<kF32>(elem(kf, 2 * h + 1), bh[h][1], bl[h][1]);
+          if constexpr (kSame) {
+            bh[2 + h][0] = bh[h][0]; bl[2 + h][0] = bl[h][0];
+            bh[2 + h][1] = bh[h][1]; bl[2 + h][1] = bl[h][1];
+          } else {
+            to_tf32<kF32>(elem(vf, 2 * h), bh[2 + h][0], bl[2 + h][0]);
+            to_tf32<kF32>(elem(vf, 2 * h + 1), bh[2 + h][1], bl[2 + h][1]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+        mma_tile<true, kF32, 4, 4>(x, ah, al, bh, bl);  // S h0, h1, dP h0, h1
+        add_into(s[j], x[0]);
+        add_into(s[j], x[1]);
+        add_into(dp[j], x[2]);
+        add_into(dp[j], x[3]);
+      }
+      __syncwarp();                    // every lane is done with step i
     }
-    __syncthreads();
-    // acc += dS K, K streamed from global memory
-    accumulate<T, TQ, Tile<TQ>::kNC, false>(
-        acc, D, D, Kb + (size_t)k0 * D, D, min(kT, P - k0), ds_s, nullptr);
+    cp_wait<0>();
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* ps = part + g * kPartLd + 8 * j + 2 * t;
+      float* pd = ps + kRows * kPartLd;
+      *reinterpret_cast<float2*>(ps) = make_float2(s[j][0], s[j][1]);
+      *reinterpret_cast<float2*>(ps + 8 * kPartLd) =
+          make_float2(s[j][2], s[j][3]);
+      *reinterpret_cast<float2*>(pd) = make_float2(dp[j][0], dp[j][1]);
+      *reinterpret_cast<float2*>(pd + 8 * kPartLd) =
+          make_float2(dp[j][2], dp[j][3]);
+    }
+    __syncthreads();  // every partial is written
+
+    // 2. S and dP = the eight partials each, summed in warp order; dS =
+    // P (dP - delta) g with P = exp(S g - lse), g = keep * scale: a gated
+    // key's g is 0, a key past P or a row past N gives 0.
+    if (srow < rows) {
+      const float* p0 = reinterpret_cast<const float*>(areas) +
+                        srow * kPartLd + skey;
+      float4 sx = lds4(p0), dx = lds4(p0 + kRows * kPartLd);
+#pragma unroll
+      for (int u = 1; u < kWarps; ++u) {
+        const float* pu =
+            reinterpret_cast<const float*>(areas + u * kDqArea) +
+            srow * kPartLd + skey;
+        const float4 y = lds4(pu), z = lds4(pu + kRows * kPartLd);
+        sx.x += y.x; sx.y += y.y; sx.z += y.z; sx.w += y.w;
+        dx.x += z.x; dx.y += z.y; dx.z += z.z; dx.w += z.w;
+      }
+      const bool row_in = q0 + srow < N;
+      const float l = lse_s[srow], dl = delta_s[srow];
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = k0 + skey + e;
+        ds[e] = 0.f;
+        if (row_in && j < P) {
+          const float gm = keep_b[j] * scale;
+          const float p = expf(elem(sx, e) * gm - l);
+          ds[e] = p * (elem(dx, e) - dl) * gm;
+        }
+      }
+      *reinterpret_cast<float4*>(ds_s + srow * kPLd + skey) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();  // dS is written; the partials are read
+
+    // 3. acc += dS K over this warp's columns, 8 keys a step: step i
+    // stages K rows k0 + 8i .. + 7 at the warp's 192 columns, kStages3 - 1
+    // steps ahead. Group c's rows t and t + 4 at columns 32c + 4g .. + 3
+    // give the B fragments of its four n8 tiles (tile e's column n is 32c
+    // + 4n + e).
+    const int nstep3 = cw < D ? (kn + 7) / 8 : 0;
+    auto stage3 = [&](int i) {
+      if (i < nstep3) {
+        T* dst = kst3 + (i % St::kStages3) * St::kK3;
+        const T* krow = Kb + (size_t)(k0 + 8 * i) * D;
+        // a row's 48 four-element chunks: lanes 0-31, then lanes 0-15
+#pragma unroll (kVec ? 8 : 1)
+        for (int r = 0; r < 8; ++r) {
+          const bool ok = k0 + 8 * i + r < P;
+          const int q = 4 * lane;
+          copy4<kVec>(dst + r * St::kKLd + q, krow + (size_t)r * D, ok,
+                      cw + q, D);
+          if (lane < kGroups * 8 - 32)
+            copy4<kVec>(dst + r * St::kKLd + 128 + q, krow + (size_t)r * D,
+                        ok, cw + 128 + q, D);
+        }
+      }
+      cp_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < St::kStages3 - 1; ++i) stage3(i);
+#pragma unroll 1
+    for (int i = 0; i < nstep3; ++i) {
+      stage3(i + St::kStages3 - 1);
+      cp_wait<St::kStages3 - 1>();
+      __syncwarp();                    // step i is staged, by every lane
+      uint32_t ah[1][4], al[1][4];
+      to_tf32<true>(ds_s[g * kPLd + 8 * i + t], ah[0][0], al[0][0]);
+      to_tf32<true>(ds_s[(g + 8) * kPLd + 8 * i + t], ah[0][1], al[0][1]);
+      to_tf32<true>(ds_s[g * kPLd + 8 * i + t + 4], ah[0][2], al[0][2]);
+      to_tf32<true>(ds_s[(g + 8) * kPLd + 8 * i + t + 4], ah[0][3],
+                    al[0][3]);
+      const T* kb = kst3 + (i % St::kStages3) * St::kK3;
+      // one 32-column group at a time: its four n8 tiles
+#pragma unroll
+      for (int c = 0; c < kGroups; ++c) {
+        fence();
+        const float4 ka = lds4(kb + t * St::kKLd + 32 * c + 4 * g);
+        const float4 kc = lds4(kb + (t + 4) * St::kKLd + 32 * c + 4 * g);
+        uint32_t bh[4][2], bl[4][2];
+        float x[4][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          to_tf32<kF32>(elem(ka, e), bh[e][0], bl[e][0]);
+          to_tf32<kF32>(elem(kc, e), bh[e][1], bl[e][1]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) x[e][k] = 0.f;
+        }
+        mma_tile<true, kF32, 4, 1>(x, ah, al, bh, bl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) add_into(acc[c][e], x[e]);
+      }
+      __syncwarp();                    // every lane is done with step i
+    }
+    cp_wait<0>();
   }
 
-  // dQ = acc * kscale; each thread writes the columns it accumulated.
-  for (int rr = 0; rr < TQ; ++rr) {
-    const int q = q0 + rr;
-    if (q >= N) break;
-    float* orow = dQ + ((size_t)b * N + q) * D;
-    for (int c = tid; c < D; c += kThreads) orow[c] = acc[rr * D + c] * ks_b[c];
+  // dQ = acc * kscale; each thread writes the columns it accumulated
+  float* dQb = dQ + (size_t)b * N * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = g + 8 * half;
+    if (r >= rows || q0 + r >= N) continue;
+    float* orow = dQb + (size_t)(q0 + r) * D;
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      const int col = cw + 32 * c + 8 * t;  // tile e, n = 2t (+1): col + e (+4)
+      const float4 k0v = ldg4<kVec>(ks_b, col, D);
+      const float4 k1v = ldg4<kVec>(ks_b, col + 4, D);
+      store4<kVec>(orow, col, D,
+                   make_float4(acc[c][0][2 * half] * k0v.x,
+                               acc[c][1][2 * half] * k0v.y,
+                               acc[c][2][2 * half] * k0v.z,
+                               acc[c][3][2 * half] * k0v.w));
+      store4<kVec>(orow, col + 4, D,
+                   make_float4(acc[c][0][2 * half + 1] * k1v.x,
+                               acc[c][1][2 * half + 1] * k1v.y,
+                               acc[c][2][2 * half + 1] * k1v.z,
+                               acc[c][3][2 * half + 1] * k1v.w));
+    }
   }
 }
 
@@ -457,19 +740,46 @@ struct Args {
   int B, N, P, D;
   float scale;
   cudaStream_t stream;
-  int* plan = nullptr;  // dK/dV only: fill the launch plan, do not launch
+  int* plan = nullptr;  // dQ and dK/dV: fill the launch plan, do not launch
 };
 
-template <typename T, int TQ>
-int launch_dq_tq(const Args& a) {
-  const size_t smem = dq_smem_bytes<TQ>(a.D);
-  if (int err = opt_in_smem(ca_dq_kernel<T, TQ>, smem)) return err;
-  const dim3 grid((a.N + TQ - 1) / TQ, a.B);
-  ca_dq_kernel<T, TQ><<<grid, kThreads, smem, a.stream>>>(
+// dQ with `rows` query rows a block; with a.plan, the launch plan instead.
+template <typename T, bool kSame, bool kVec>
+int launch_dq(const Args& a, int rows) {
+  const size_t smem = dq_smem_bytes(a.D);
+  const auto kernel = ca_dq_kernel<T, kSame, kVec>;
+  if (int err = opt_in_smem(kernel, smem)) return err;
+  const dim3 grid((a.N + rows - 1) / rows, (a.D + kSlab - 1) / kSlab, a.B);
+  if (a.plan != nullptr) return block_plan(kernel, grid, smem, rows, a.plan);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.keep, a.kscale, a.dO, a.lse, a.delta,
-      a.out, a.N, a.P, a.D, a.scale);
+      a.out, rows, a.N, a.P, a.D, a.scale);
   return (int)cudaGetLastError();
+}
+
+// dQ: 16-row blocks, or 8-row ones when 16-row blocks would leave SMs idle
+// (the forward's rule); one build whose staged K rows serve S and dP where
+// V is K (the main path's call), one that stages both; 16-byte copies where
+// D is a multiple of 4 and every pointer is aligned, else element by
+// element.
+template <typename T>
+int launch_dq_rows(const Args& a) {
+  if (a.B > 65535) return (int)cudaErrorInvalidValue;
+  const int rows =
+      (long long)a.B * ((a.N + kRows - 1) / kRows) < sm_count() ? 8 : kRows;
+  const auto aligned = [](const void* p) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = a.D % 4 == 0 && aligned(a.q) && aligned(a.k) &&
+                   aligned(a.v) && aligned(a.dO) && aligned(a.kscale) &&
+                   aligned(a.out);
+  const bool same = a.k == a.v;
+  if (same)
+    return vec ? launch_dq<T, true, true>(a, rows)
+               : launch_dq<T, true, false>(a, rows);
+  return vec ? launch_dq<T, false, true>(a, rows)
+             : launch_dq<T, false, false>(a, rows);
 }
 
 template <typename T, int R>
@@ -500,8 +810,7 @@ int launch_single_r(const Args& a) {
 }
 
 // which: 0 dq, 1 dkdv, 2 dv, 3 dk.
-// dq: 16-row tiles, or 8-row tiles when 16-row ones would leave SMs idle
-// (the forward kernel's rule). dkdv, whose blocks come in clusters of two
+// dq: launch_dq_rows. dkdv, whose blocks come in clusters of two
 // and run one per SM: 32-key tiles, which read Q and dO half as often as
 // 16-key ones, where their clusters give every SM a block and their
 // accumulators fit; then 16 keys where those do, or where 8-key clusters
@@ -518,7 +827,7 @@ int launch(int which, const Args& a) {
   };
   switch (which) {
     case 0:
-      return fills(a.N, 16) ? launch_dq_tq<T, 16>(a) : launch_dq_tq<T, 8>(a);
+      return launch_dq_rows<T>(a);
     case 1: {
       if (a.B > 65535) return (int)cudaErrorInvalidValue;
       const int Dh = half_cut(a.D);
@@ -599,6 +908,19 @@ int sketchedit_contextual_attention_dkdv_plan(int dtype, int B, int N, int P,
          nullptr, nullptr, nullptr, B,       N,       P,       D,
          0.f,     nullptr, plan};
   return launch_typed(1, dtype, a);
+}
+
+// The dQ kernel's launch plan for these shapes on the current device,
+// without a launch (V taken to be K, as on the main path): plan[0] query
+// rows per block, [1] column slabs, [2] the most blocks resident at once on
+// an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), [3] dynamic
+// shared-memory bytes per block, [4] blocks in the grid.
+int sketchedit_contextual_attention_dq_plan(int dtype, int B, int N, int P,
+                                            int D, int* plan) {
+  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         nullptr, nullptr, nullptr, B,       N,       P,       D,
+         0.f,     nullptr, plan};
+  return launch_typed(0, dtype, a);
 }
 
 // dV alone: no V, no delta.

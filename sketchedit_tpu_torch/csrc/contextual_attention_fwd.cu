@@ -170,17 +170,6 @@ template <int TQ, int kDC = Tile<TQ>::kDC> struct FwdBlock {
   }
 };
 
-// The split-TF32 forward (ca_fwd_kernel, ca_fwd_shared_kernel): a block is
-// kWarps warps over kRows query rows and a slab of kSlab output columns;
-// warp w owns kGroups 32-column groups of the slab, and contracts Ds =
-// mma_cols(D) columns of D for its partial S.
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;                    // the mma's m16
-constexpr int kGroups = 6;                   // 192 columns a warp
-constexpr int kSlab = kWarps * kGroups * 32; // 1536
-constexpr int kPartLd = kT + 8;              // partial S rows: 72 floats
-constexpr int kPLd = kT + 4;                 // P rows: 68 floats
-
 constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
 
 // A warp's staging area, in elements of T: kKStages K steps of [kT keys][16
@@ -201,119 +190,11 @@ template <typename T> struct Stage {
       kRows * kPartLd * sizeof(float));
 };
 
-// Columns of D a warp contracts for its partial S: D / 8 rounded up to the
-// 16-column step.
-__host__ __device__ inline int mma_cols(int D) {
-  return ((D + kWarps - 1) / kWarps + 15) / 16 * 16;
-}
-// Row stride of the staged Q tile: 8 warps' columns plus 16 floats, which
-// is 16 mod 32, so the 8 lanes of a float4 phase hit 32 distinct banks.
-__host__ __device__ inline int mma_q_ld(int D) {
-  return kWarps * mma_cols(D) + 16;
-}
 // Shared-memory bytes of a split-TF32 block: the Q tile, the warps' staging
 // areas, P, alpha and l per row.
 template <typename T> size_t mma_smem_bytes(int D) {
   return sizeof(float) * ((size_t)kRows * mma_q_ld(D) + kRows * kPLd +
                           2 * kRows) + kWarps * Stage<T>::kBytes;
-}
-
-// Asynchronous copies global -> shared of 4 consecutive elements (16 bytes
-// of float, 8 of bfloat16), zero-filled where `ok` is false; a warp waits
-// for its own with cp_wait and __syncwarp, no block barrier.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(s),
-               "l"(src), "r"(ok ? 8 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-template <int kPending> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kPending));
-}
-
-// dst[0..3] = row[d .. d + 3], 0 where the row is out of range (ok false:
-// row is then not read, and may point past the tensor) or past D. kVec: D is a multiple of 4 and the base pointers are aligned,
-// so one asynchronous copy does it; otherwise plain loads, element by
-// element.
-template <bool kVec, typename T>
-__device__ __forceinline__ void copy4(T* dst, const T* row, bool ok, int d,
-                                      int D) {
-  if constexpr (kVec) {
-    ok = ok && d < D;
-    cp_async4(dst, ok ? row + d : row, ok);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      dst[i] = ok && d + i < D ? row[d + i] : zero<T>();
-  }
-}
-
-// Four consecutive staged elements as float32.
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-// No load moves across this point: it bounds how many staged operands the
-// compiler loads ahead of their mma, which would otherwise cost registers
-// the accumulators need.
-__device__ __forceinline__ void fence() { asm volatile("" ::: "memory"); }
-
-__device__ __forceinline__ float elem(const float4& x, int i) {
-  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
-}
-
-// Four consecutive output elements c .. c + 3 of a row, in bounds.
-template <bool kVec>
-__device__ __forceinline__ void store4(float* row, int c, int D, float4 x) {
-  if (kVec && c < D) {
-    *reinterpret_cast<float4*>(row + c) = x;
-    return;
-  }
-  for (int i = 0; i < 4; ++i)
-    if (c + i < D) row[c + i] = elem(x, i);
-}
-template <bool kVec>
-__device__ __forceinline__ void store4(__nv_bfloat16* row, int c, int D,
-                                       float4 x) {
-  if (kVec && c < D) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-    uint2 u;
-    u.x = *reinterpret_cast<const uint32_t*>(&lo);
-    u.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(row + c) = u;
-    return;
-  }
-  for (int i = 0; i < 4; ++i)
-    if (c + i < D) store(row + c + i, elem(x, i));
-}
-
-// c += the product mma_tile leaves in a fresh accumulator. An mma aligns
-// its products and its accumulator to the largest of them and truncates
-// the rest: products added to a running sum larger than themselves lose
-// their low bits, always towards zero, and over the hundreds of steps of a
-// row the loss builds up (1e-6 relative and more where all terms share a
-// sign, as a key's similarity to itself does). So every k8 step starts
-// from zero, takes its small split terms first and its hi x hi term last,
-// and is added to the running sum with a round-to-nearest FADD.
-__device__ __forceinline__ void add_into(float (&c)[4], const float (&x)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += x[e];
 }
 
 // One block of the split-TF32 forward: rows [q0, q0 + rows) of image b
@@ -413,16 +294,7 @@ __device__ __forceinline__ void fwd_mma(const T* Qb, const T* Kb,
       const float4 qa = lds4(qs + g * ldq + d);
       const float4 qb = lds4(qs + (g + 8) * ldq + d);
       float4 sc = make_float4(1.f, 1.f, 1.f, 1.f);
-      if constexpr (kScaled == 2) {
-        if (kVec && d < D) {
-          sc = __ldg(reinterpret_cast<const float4*>(ks_b + d));
-        } else {
-          sc.x = d < D ? ks_b[d] : 0.f;
-          sc.y = d + 1 < D ? ks_b[d + 1] : 0.f;
-          sc.z = d + 2 < D ? ks_b[d + 2] : 0.f;
-          sc.w = d + 3 < D ? ks_b[d + 3] : 0.f;
-        }
-      }
+      if constexpr (kScaled == 2) sc = ldg4<kVec>(ks_b, d, D);
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -746,24 +618,6 @@ struct Args {
   cudaStream_t stream;
   int* plan = nullptr;  // fill the launch plan, do not launch
 };
-
-// The split-TF32 kernels' launch plan without a launch: plan[0] query rows
-// per block, [1] column slabs, [2] the most blocks resident at once on an
-// SM of the current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// [3] dynamic shared-memory bytes per block, [4] blocks in the grid.
-template <typename Kernel>
-int block_plan(Kernel kernel, dim3 grid, size_t smem, int rows, int* plan) {
-  int per_sm = 0;
-  if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kThreads, smem))
-    return err;
-  plan[0] = rows;
-  plan[1] = (int)grid.y;
-  plan[2] = per_sm;
-  plan[3] = (int)smem;
-  plan[4] = (int)(grid.x * grid.y * grid.z);
-  return 0;
-}
 
 // variant 0 (ca_fwd_kernel) or 1 (ca_fwd_shared_kernel; q and k are
 // ignored), `rows` query rows a block.

@@ -15,7 +15,9 @@ distributed shared memory; inference only; ``dsplit_plan`` says how it
 runs a shape). The flash-style backward comes in the same two forms:
 ``attention_core_dq`` and ``attention_core_dkdv`` launch the kernels of
 ``csrc/contextual_attention_bwd.cu`` (replacing ``_dq_kernel`` and
-``_dkdv_kernel``; the dK/dV kernel is a two-block cluster over D, like the
+``_dkdv_kernel``; the dQ kernel runs its three products on the tensor cores
+in split TF32, as the default forward does, and ``dq_plan`` says how it
+runs a shape; the dK/dV kernel is a two-block cluster over D, like the
 D-split forward, and ``dkdv_plan`` says how it runs a shape) on CUDA
 tensors and take their plain versions on CPU ones, as do the single-output
 ``attention_core_dv`` and
@@ -292,25 +294,28 @@ def attention_core_dsplit(Q, K, V, keep, softmax_scale: float = 10.0,
 
 _PLAN_KEYS = ("tile_rows", "cluster_blocks", "max_active_clusters",
               "smem_bytes", "grid_clusters")
+_FWD_PLAN_KEYS = ("tile_rows", "column_slabs", "blocks_per_sm", "smem_bytes",
+                  "grid_blocks")
 
 
-def _cluster_plan(name: str, codes: tuple, B: int, N: int, P: int,
-                  D: int) -> dict:
-    """The launch plan of the cluster kernel ``name`` (fwd_dsplit or dkdv)
-    on the current CUDA device, from its C ``..._plan`` entry point."""
+def _plan(name: str, codes: tuple, B: int, N: int, P: int, D: int,
+          keys: tuple = _PLAN_KEYS) -> dict:
+    """The launch plan of kernel ``name`` (fwd, fwd_dsplit, dq or dkdv) on
+    the current CUDA device, from its C ``..._plan`` entry point: ``codes``
+    are its leading int arguments, ``keys`` name the five ints it fills."""
     from sketchedit_tpu_torch.ops import _build
     _, err_str = _kernel(name)
     lib = _build.load()[_ENTRY_POINTS[name][0]]
     fn = getattr(lib, f"sketchedit_contextual_attention_{name}_plan")
     fn.argtypes = [ctypes.c_int] * (len(codes) + 4) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    plan = (ctypes.c_int * len(keys))()
     rc = fn(*codes, B, N, P, D, ctypes.addressof(plan))
     if rc != 0:
         raise RuntimeError(f"contextual_attention_{name}_plan failed "
                            f"(B={B}, N={N}, P={P}, D={D}): "
                            f"{err_str(rc).decode()}")
-    return dict(zip(_PLAN_KEYS, plan))
+    return dict(zip(keys, plan))
 
 
 def dsplit_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
@@ -320,13 +325,8 @@ def dsplit_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
     the most clusters resident at once (``cudaOccupancyMaxActiveClusters``),
     each block's dynamic shared memory in bytes, and the clusters of the
     grid."""
-    return _cluster_plan("fwd_dsplit",
-                         (_DTYPE_CODES[dtype], _DTYPE_CODES[out_dtype]),
-                         B, N, P, D)
-
-
-_FWD_PLAN_KEYS = ("tile_rows", "column_slabs", "blocks_per_sm", "smem_bytes",
-                  "grid_blocks")
+    return _plan("fwd_dsplit", (_DTYPE_CODES[dtype], _DTYPE_CODES[out_dtype]),
+                 B, N, P, D)
 
 
 def fwd_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
@@ -337,19 +337,17 @@ def fwd_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
     the grid splits D into, the most blocks resident at once on an SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), each block's
     dynamic shared memory in bytes, and the blocks of the grid."""
-    from sketchedit_tpu_torch.ops import _build
-    _, err_str = _kernel("fwd")
-    fn = _build.load()[_ENTRY_POINTS["fwd"][0]] \
-        .sketchedit_contextual_attention_fwd_plan
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    plan = (ctypes.c_int * len(_FWD_PLAN_KEYS))()
-    rc = fn(int(shared), _DTYPE_CODES[dtype], _DTYPE_CODES[out_dtype], B, N,
-            P, D, ctypes.addressof(plan))
-    if rc != 0:
-        raise RuntimeError(f"contextual_attention_fwd_plan failed (B={B}, "
-                           f"N={N}, P={P}, D={D}): {err_str(rc).decode()}")
-    return dict(zip(_FWD_PLAN_KEYS, plan))
+    return _plan("fwd", (int(shared), _DTYPE_CODES[dtype],
+                         _DTYPE_CODES[out_dtype]), B, N, P, D, _FWD_PLAN_KEYS)
+
+
+def dq_plan(B: int, N: int, P: int, D: int, dtype=torch.float32) -> dict:
+    """How the dQ kernel runs these shapes on the current CUDA device (V
+    taken to be K, as on the main path), without launching it, in
+    ``fwd_plan``'s keys: the query rows of a block, the slabs of up to 1536
+    dQ columns, the most blocks resident at once on an SM, each block's
+    dynamic shared memory in bytes, and the blocks of the grid."""
+    return _plan("dq", (_DTYPE_CODES[dtype],), B, N, P, D, _FWD_PLAN_KEYS)
 
 
 def dkdv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32) -> dict:
@@ -358,7 +356,7 @@ def dkdv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32) -> dict:
     rows (``tile_rows``), the blocks of a cluster, the most clusters
     resident at once, each block's dynamic shared memory in bytes, and the
     clusters of the grid."""
-    return _cluster_plan("dkdv", (_DTYPE_CODES[dtype],), B, N, P, D)
+    return _plan("dkdv", (_DTYPE_CODES[dtype],), B, N, P, D)
 
 
 def _bwd_terms(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):

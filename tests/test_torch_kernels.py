@@ -13,7 +13,8 @@ and split TF32 in the default and shared forwards, which keeps ~22 bits of
 each product); bfloat16 output rtol = atol = 2e-2 against the plain version
 fed the same bf16-rounded inputs in float32 (the output is rounded to bf16). Backward:
 2e-4 of each gradient's max |value|, for both input types (float32
-arithmetic and outputs on both sides, S recomputed in another order);
+arithmetic and outputs on both sides, S recomputed in another order; dQ
+in split TF32, ~22 bits of each product);
 the kernel path's gradient against dense autograd: 1e-3 of its max.
 """
 
@@ -30,7 +31,8 @@ from sketchedit_tpu_torch.ops.attention_cuda import (
     attention_core_dsplit_reference, attention_core_dv,
     attention_core_dv_reference, attention_core_reference,
     attention_core_shared, attention_core_shared_reference,
-    contextual_attention_fused, dkdv_plan, dsplit_cut, dsplit_plan, fwd_plan)
+    contextual_attention_fused, dkdv_plan, dq_plan, dsplit_cut, dsplit_plan,
+    fwd_plan)
 
 pytestmark = pytest.mark.gpu
 
@@ -305,11 +307,21 @@ SHAPES = [
     ((3, 300, 200, 600), 0.9),
     ((16, 140, 175, 100), 0.7),       # enough tiles for 16-row dQ and dK/dV
 ]
+# dQ's further cases: D past one 1536-column slab (odd), and the main
+# path's 256^2 shape at B = 1 and 8, where the launch rule takes 8-row and
+# 16-row dQ blocks on a 132-SM card
+BWD_SHAPES = SHAPES + [
+    ((2, 50, 70, 1537), 0.8),
+    ((1, 961, 961, 1536), 0.6),
+    ((8, 961, 961, 1536), 0.6),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,keep_p", SHAPES)
+@pytest.mark.parametrize("shape,keep_p", BWD_SHAPES)
 def test_bwd_kernels_match_plain(cuda, dtype, shape, keep_p):
+    """Separate Q, K and V tensors (dQ's build that stages K and V
+    apart)."""
     Q, K, V, keep = _inputs(sum(shape) + 1, *shape, keep_p, dtype, cuda)
     rs = np.random.RandomState(sum(shape))
     B, N, _, D = shape
@@ -331,6 +343,85 @@ def test_bwd_kernels_match_plain(cuda, dtype, shape, keep_p):
         scale = max(w.abs().max().item(), 1e-6)
         torch.testing.assert_close(g, w, rtol=0, atol=2e-4 * scale,
                                    msg=lambda m, n=name: f"{n}: {m}")
+    if keep_p == 0.0:       # every dS multiplier is 0
+        assert not got[0].any()
+    # shown with -rP: the largest differences of each case
+    print("bwd", list(shape), str(dtype), "max|dQ - plain| / max|dQ|",
+          ((got[0] - want[0]).abs().max() / max(want[0].abs().max(), 1e-6)
+           ).item())
+
+
+def _main_path_bwd(seed, B, H, dtype, device):
+    """The backward's arguments as the training path makes them: Q = K = V
+    one tensor from ``attention_inputs`` on seeded gated-like features (H x
+    H, 96 channels) with a hole in the middle, the background's inverse
+    norm as kscale, a seeded float32 dO, the forward kernel's lse and
+    delta."""
+    rs = np.random.RandomState(seed)
+    f = np.maximum(rs.randn(B, 96, H, H), 0) / (1 + np.exp(-rs.randn(
+        B, 96, H, H)))
+    mask = torch.zeros(B, 1, H, H)
+    h = int(H * 0.4)
+    mask[:, :, (H - h) // 2:(H + h) // 2, (H - h) // 2:(H + h) // 2] = 1.0
+    feats = torch.from_numpy(f.astype(np.float32)).to(device, dtype)
+    Q, V, keep, kscale = attention_cuda.attention_inputs(feats, feats,
+                                                         mask.to(device))
+    assert Q is V
+    dO = torch.from_numpy(rs.randn(*Q.shape).astype(np.float32)).to(device)
+    return _bwd_args(V, V, V, keep, dO, kscale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(1, 64), (8, 64), (3, 29)])
+def test_dq_kernel_main_path_call(cuda, dtype, B, H):
+    """The one-tensor call of the training path (dQ's build whose staged K
+    rows serve S and dP) at 256^2 images, B = 1 and 8, and at a ragged
+    29^2 (N = P = 169, D = 1536), against the plain version at 2e-4 of
+    max |dQ|."""
+    args = _main_path_bwd(B * 100 + H, B, H, dtype, cuda)
+    before = attention_cuda.LAUNCHES_DQ
+    got = attention_core_dq(*args)
+    torch.cuda.synchronize()
+    assert attention_cuda.LAUNCHES_DQ == before + 1
+    want = attention_core_dq_reference(*args)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    scale = want.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4 * scale)
+    # shown with -rP
+    print("dq main path", B, H, str(dtype), "max|dQ - plain| / max|dQ|",
+          (got - want).abs().max().item() / scale)
+
+
+@pytest.mark.parametrize("same", [True, False], ids=["one_tensor", "apart"])
+def test_dq_kernel_repeats_bit_for_bit(cuda, same):
+    """Two launches on the same inputs give the same bits: each block owns
+    its dQ rows, and S and dP sum the warps' partials in a fixed order."""
+    args = _main_path_bwd(31, 8, 64, torch.float32, cuda)
+    if not same:          # K and V apart: the build that stages both
+        Q, K, V, *rest = args
+        args = (Q, K.clone(), V.clone(), *rest)
+    first, second = attention_core_dq(*args), attention_core_dq(*args)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("B,rows_132", [(1, 8), (8, 16)])
+def test_dq_plan_at_the_main_path_shapes(cuda, B, rows_132):
+    """256^2 training (N = P = 961, D = 1536): 8-row dQ blocks at B = 1
+    and 16-row ones at B = 8 on a 132-SM card (the rule's pick elsewhere),
+    one column slab, every block within the shared memory a block may opt
+    into."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = 8 if B * -(-961 // 16) < sms else 16
+    assert sms != 132 or want == rows_132
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = dq_plan(B, 961, 961, 1536, dtype)
+        print("dq_plan", B, str(dtype), plan)
+        assert plan["tile_rows"] == want and plan["column_slabs"] == 1
+        assert plan["grid_blocks"] == B * -(-961 // want)
+        assert 0 < plan["smem_bytes"] <= 232448
+        assert plan["blocks_per_sm"] >= 1
+    assert dq_plan(2, 50, 70, 1537)["column_slabs"] == 2
 
 
 def _bwd_args(Q, K, V, keep, dO, kscale):

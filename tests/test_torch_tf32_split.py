@@ -1,6 +1,7 @@
 """Split TF32, the precision scheme of the default and shared forward kernels
-(``csrc/contextual_attention_fwd.cu``), emulated in plain torch on the CPU
-and held against the JAX package's forward.
+(``csrc/contextual_attention_fwd.cu``) and of the dQ backward kernel
+(``csrc/contextual_attention_bwd.cu``), emulated in plain torch on the CPU
+and held against the JAX package's forward and dQ.
 
 mma.sync takes TF32 operands: 10 mantissa bits, rounded here to nearest
 with ties away from zero as ``cvt.rna.tf32.f32`` does. A float32 operand x
@@ -13,7 +14,11 @@ forward's S -> softmax -> P V on the main path's inputs at 64^2 features
 it, and must agree with ``_attention_core_raw`` (interpret mode) within
 chip_smoke.py's float32 tolerance, 1e-4, for float32 and bfloat16 inputs.
 One-pass TF32 on the same inputs misses that tolerance, which is why the
-kernels split.
+kernels split. The dQ emulation runs S, dP and dS K the same way (kscale on
+the query side of S, K raw; dO always split) on the same inputs with a
+seeded dO and the JAX forward's lse and delta, and must agree with
+``_attention_core_bwd_pallas``'s dQ (interpret mode) within chip_smoke.py's
+BWD_TOL, 2e-4 of max |dQ|.
 """
 
 import functools
@@ -25,10 +30,12 @@ import torch
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
-from sketchedit_tpu.ops.attention_pallas import _attention_core_raw
+from sketchedit_tpu.ops.attention_pallas import (
+    _attention_core_bwd_pallas, _attention_core_raw)
 from sketchedit_tpu_torch.ops.attention_cuda import attention_inputs
 
 TOL = 1e-4          # chip_smoke.py's TOL[float32]
+BWD_TOL = 2e-4      # chip_smoke.py's BWD_TOL, a share of max |dQ|
 SCALE = 10.0
 
 
@@ -89,7 +96,8 @@ def emulated_forward(Q, V, keep, kscale, variant, one_pass=False):
 @functools.lru_cache(maxsize=None)
 def case(dtype_name):
     """The main path's attention inputs at 64^2 features (seeded numpy), in
-    the given dtype, and the JAX forward's float32 output on them."""
+    the given dtype, and the JAX forward's float32 output and logsumexp on
+    them."""
     rs = np.random.RandomState(7)
     B, C, H = 1, 96, 64
     # non-negative gated-like pm features (pmconv6 ends in relu * sigmoid)
@@ -101,11 +109,12 @@ def case(dtype_name):
     Q, V, keep, kscale = attention_inputs(feats, feats, torch.from_numpy(mask))
     K = V.float() * kscale[:, None, :]       # the keys, float32
     with pltpu.force_tpu_interpret_mode():
-        want = _attention_core_raw(
+        want, lse = _attention_core_raw(
             jnp.asarray(Q.float().numpy()), jnp.asarray(K.numpy()),
             jnp.asarray(V.float().numpy()), jnp.asarray(keep.numpy()),
-            softmax_scale=SCALE, out_dtype=jnp.float32)
-    return Q, V, keep, kscale, torch.from_numpy(np.array(want))
+            softmax_scale=SCALE, return_lse=True, out_dtype=jnp.float32)
+    return (Q, V, keep, kscale, torch.from_numpy(np.array(want)),
+            torch.from_numpy(np.array(lse)))
 
 
 def test_tf32_rounding_keeps_10_mantissa_bits():
@@ -127,7 +136,7 @@ def test_tf32_rounding_keeps_10_mantissa_bits():
 @pytest.mark.parametrize("variant", ["default", "shared"])
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_split_tf32_forward_matches_jax(dtype_name, variant):
-    Q, V, keep, kscale, want = case(dtype_name)
+    Q, V, keep, kscale, want, _ = case(dtype_name)
     assert Q.shape == (1, 961, 1536) and 0 < keep.sum() < 961
     got = emulated_forward(Q, V, keep, kscale, variant)
     err = (got - want).abs().max().item()
@@ -138,3 +147,55 @@ def test_split_tf32_forward_matches_jax(dtype_name, variant):
     print(dtype_name, variant, "split", err, "one pass", one_err)
     with pytest.raises(AssertionError):
         torch.testing.assert_close(one, want, rtol=TOL, atol=TOL)
+
+
+def emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
+    """dQ of ``attention_core(Q, V, V, keep, kscale=kscale)`` as the dQ
+    kernel computes it: S = (Q kscale) V^T with kscale on the query side
+    and the keys raw, dP = dO V^T, dS = P (dP - delta) g with P = exp(S g -
+    lse) and g = keep * scale, dQ = (dS V) kscale; Q kscale, dO and dS are
+    split, V is split where it holds float32 values."""
+    f32 = Q.dtype == torch.float32
+    Kf = V.float()
+    passes = 1 if one_pass else 3
+    S = mma(operand(Q.float() * kscale[:, None, :], True),
+            operand(Kf.transpose(1, 2), f32 or one_pass), passes)
+    dP = mma(operand(dO, True), operand(Kf.transpose(1, 2), f32 or one_pass),
+             passes)
+    g = keep[:, None, :] * SCALE
+    dS = torch.exp(S * g - lse[..., None]) * (dP - delta[..., None]) * g
+    return mma(operand(dS, True), operand(Kf, f32 or one_pass),
+               passes) * kscale[:, None, :]
+
+
+@functools.lru_cache(maxsize=None)
+def dq_case(dtype_name):
+    """case()'s inputs with a seeded dO, delta = rowsum(dO O) from the JAX
+    forward, and the JAX package's dQ on them (float32 values of the
+    inputs, as the forward's case)."""
+    Q, V, keep, kscale, out, lse = case(dtype_name)
+    dO = torch.from_numpy(np.random.RandomState(8).randn(*Q.shape).astype(
+        np.float32))
+    K = V.float() * kscale[:, None, :]
+    with pltpu.force_tpu_interpret_mode():
+        dq = _attention_core_bwd_pallas(
+            jnp.asarray(Q.float().numpy()), jnp.asarray(K.numpy()),
+            jnp.asarray(V.float().numpy()), jnp.asarray(keep.numpy()),
+            jnp.asarray(out.numpy()), jnp.asarray(lse.numpy()),
+            jnp.asarray(dO.numpy()), SCALE)[0]
+    return dO, (dO * out).sum(-1), torch.from_numpy(np.array(dq))
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_split_tf32_dq_matches_jax(dtype_name):
+    Q, V, keep, kscale, _, lse = case(dtype_name)
+    dO, delta, want = dq_case(dtype_name)
+    scale = want.abs().max().item()
+    assert want.shape == (1, 961, 1536) and scale > 0
+    got = emulated_dq(Q, V, keep, kscale, lse, delta, dO)
+    err = (got - want).abs().max().item() / scale
+    one = emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=True)
+    one_err = (one - want).abs().max().item() / scale
+    print(dtype_name, "dQ split", err, "one pass", one_err,
+          "(shares of max |dQ|)")
+    torch.testing.assert_close(got, want, rtol=0, atol=BWD_TOL * scale)
