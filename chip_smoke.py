@@ -18,8 +18,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    default forward, the fused dK/dV); a `dkdv_plan` line gives the fused
    dK/dV kernel's key tile, cluster shape and resident clusters at each
    training shape, a `dq_plan` line the dQ kernel's rows per block, column
-   slabs, resident blocks per SM and shared memory, and a `dq_ptxas` line
-   the dQ instantiations' registers and spills;
+   slabs, resident blocks per SM and shared memory, `dk_dv_plan` lines the
+   same for the dV and dK kernels, and `dq_ptxas` and `dk_dv_ptxas` lines
+   the dQ, dV and dK instantiations' registers and spills;
 4. inference path: the runner's EditPipeline on uint8 batches at 256^2
    (B = 1 and 4, float32 and bfloat16) and 252^2, one forward launch per
    netG forward, checked against the same pipeline with dense attention
@@ -301,8 +302,8 @@ def main():
         attention_core_dsplit, attention_core_dsplit_reference,
         attention_core_dv, attention_core_dv_reference,
         attention_core_reference, attention_core_shared,
-        attention_core_shared_reference, attention_inputs, dkdv_plan,
-        dq_plan, dsplit_plan, fwd_plan)
+        attention_core_shared_reference, attention_inputs, dk_dv_plan,
+        dkdv_plan, dq_plan, dsplit_plan, fwd_plan)
     from sketchedit_tpu_torch.options import parse_argv
     from sketchedit_tpu_torch.options.test_options import TestOptions
     from sketchedit_tpu_torch.runner import build_pipeline
@@ -332,16 +333,20 @@ def main():
     emit({"phase": "build", "seconds": round(build_s, 3),
           "nvcc_seconds": _build.build_seconds, **card})
     # registers and spills of each dQ instantiation (ca_dq_kernel<T, kSame,
+    # kVec>) and each dV and dK one (ca_dk_or_dv_kernel<T, kDK, kSame,
     # kVec>), where this run built the library
-    entry, dq_ptxas = None, []
-    for ln in _build.build_log.get("contextual_attention_bwd", "").splitlines():
-        if "Compiling entry function" in ln:
-            entry = ln.split("'")[1]
-        elif "spill" in ln and entry and "ca_dq_kernel" in entry:
-            dq_ptxas.append({"entry": entry, "spills": ln.strip()})
-        elif "Used" in ln and entry and "ca_dq_kernel" in entry and dq_ptxas:
-            dq_ptxas[-1]["registers"] = ln.split(":", 1)[1].strip()
-    emit({"phase": "dq_ptxas", "instantiations": dq_ptxas})
+    for phase, kernel in (("dq_ptxas", "ca_dq_kernel"),
+                          ("dk_dv_ptxas", "ca_dk_or_dv_kernel")):
+        entry, found = None, []
+        for ln in _build.build_log.get("contextual_attention_bwd",
+                                       "").splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1]
+            elif "spill" in ln and entry and kernel in entry:
+                found.append({"entry": entry, "spills": ln.strip()})
+            elif "Used" in ln and entry and kernel in entry and found:
+                found[-1]["registers"] = ln.split(":", 1)[1].strip()
+        emit({"phase": phase, "instantiations": found})
 
     # 3. kernel vs plain --------------------------------------------------
     rs = np.random.RandomState(args.seed)
@@ -555,6 +560,15 @@ def main():
                   "dtype": str(dt).split(".")[-1],
                   **dq_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt),
                   **card})
+            # and the dV and dK kernels: key rows per block, column slabs,
+            # blocks resident per SM, shared memory, the grid's blocks
+            for dk in (False, True):
+                emit({"phase": "dk_dv_plan", "kernel": "dk" if dk else "dv",
+                      "image_hw": [256, 256],
+                      "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
+                      "dtype": str(dt).split(".")[-1],
+                      **dk_dv_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt,
+                                   dk=dk), **card})
             bwd_inputs[(B, dt)] = check_bwd(
                 f"B{B}_64sq_{str(dt).split('.')[-1]}", Q, V, V, keep, ksc)
     check_bwd("unaligned_2x130x150x70", Qr, Kr, Vr, keep_r,
@@ -1439,13 +1453,13 @@ def main():
             row[f"{k}_bound_ms"] = max(t_ops, t_bytes)
             row[f"{k}_bound_by"] = "bytes" if t_bytes > t_ops else "operations"
             row[f"{k}_gflop"] = flops[k] / 1e9
-        # the dQ kernel's and the fused dK/dV kernel's loss to the library
-        # call and multiple of the bound; dK/dV against the split dV + dK
-        row["dq_x_library"] = row["dq_ms"] / row["library_ms"]
-        row["dq_x_bound"] = row["dq_ms"] / row["dq_bound_ms"]
-        row["dkdv_x_library"] = row["dkdv_ms"] / row["library_ms"]
-        row["dkdv_x_bound"] = row["dkdv_ms"] / row["dkdv_bound_ms"]
+        # each kernel's loss to the library call and multiple of the bound;
+        # dK/dV against the split dV + dK, and the split pair against it
+        for k in ("dq", "dkdv", "dv", "dk"):
+            row[f"{k}_x_library"] = row[f"{k}_ms"] / row["library_ms"]
+            row[f"{k}_x_bound"] = row[f"{k}_ms"] / row[f"{k}_bound_ms"]
         row["dkdv_x_split"] = row["dkdv_ms"] / (row["dv_ms"] + row["dk_ms"])
+        row["split_x_fused"] = (row["dv_ms"] + row["dk_ms"]) / row["dkdv_ms"]
         bwd_times[(B, dt)] = row
         emit(row)
 

@@ -17,10 +17,10 @@
 // The gate rules are the forward's: keep = 0 gives logit 0 (P = exp(-lse))
 // and a zero dS multiplier; keys past P contribute nothing; ragged N, P and
 // D are bounds checks, never padded copies. Q, K and V are float32 or
-// bfloat16; dO, lse, delta and every output are float32. The dq kernel's
-// products run on the tensor cores in split TF32 (float32-accurate, as the
-// forwards'); the other three kernels' arithmetic is float32 on the CUDA
-// cores. dO is not rounded to the input type (the
+// bfloat16; dO, lse, delta and every output are float32. The dq, dv and dk
+// kernels' products run on the tensor cores in split TF32 (float32-accurate,
+// as the forwards'); the fused dkdv kernel's arithmetic is float32 on the
+// CUDA cores. dO is not rounded to the input type (the
 // JAX package streams it in the input type to halve its DMA): these kernels
 // are bound by operations, not bytes, so the rounding would buy nothing.
 //
@@ -96,28 +96,55 @@
 //   repeats bit for bit. With one 8-warp block per SM, the tile products
 //   run at about a quarter of the FMA rate and the accumulation at about
 //   half (256^2, B = 8; scripts/dkdv_variants.py clocks each phase).
-// - dv and dk: one block per (image, R-key tile), all of D, with one
-//   (R, D) accumulator, which is what the split buys: R = 32 keys fit in
-//   one block (192 KB at D = 1536) without a cluster; 16 and 8 keys when
-//   taller tiles would leave SMs idle. One weight tile
-//   (P^T for dv, dS^T for dk) goes to shared memory, and one tensor (dO for
-//   dv, Q for dk) is streamed in the accumulation.
+// - dv and dk: dq's block with the roles of owned and streamed rows
+//   swapped: 8 warps over kRows = 16 key rows (8 where 16-row blocks would
+//   leave SMs idle), all queries in tiles of kT = 64, a slab of up to 1536
+//   output columns, 192 a warp in registers (no shared-memory accumulator);
+//   split TF32 through mma_tile, a fresh accumulator per k8 step. The owned
+//   K rows stay raw in the input type in shared memory (99 KB in float32,
+//   50 KB in bfloat16 at D = 1536; a float32 tile costs 5% in bfloat16),
+//   and kscale goes on them as S^T's A fragments are formed, so in bfloat16
+//   Q enters S^T whole and K enters dP^T whole: both products take two
+//   passes, and only dO and K kscale are split (three passes in float32).
+//   Per query tile:
+//     S^T, dP^T  warp w contracts its own 1/8 of D, 16 columns a step, into
+//            partial S^T = (K kscale) Q^T and (dk) dP^T = V dO^T (16 x 64
+//            each), staging the tile's Q or dO rows (with S^T the step's 16
+//            kscale values, which a global load per step left unhidden:
+//            +6% in bfloat16; where V is not K, V's 16 owned rows, re-read
+//            from L2 per step) with cp.async in its own 12.8 KB area, as
+//            two loops: one streamed tensor a step keeps three float32
+//            steps in flight where one loop over both would fit one; where
+//            V is K (the main path) dP^T takes its A rows from the owned K
+//            tile (staging V's rows apart costs 0-2%);
+//     weights after a barrier one lane sums 4 queries of a key over the
+//            eight partials in warp order (two launches, same bits) and
+//            writes P^T (dv) or dS^T = P (dP - delta) g (dk) to shared
+//            memory; queries past N and keys past P weigh 0;
+//     W X    after a second barrier each warp adds P^T dO (dv; dO split in
+//            both dtypes) or dS^T Q (dk) for its columns, the weights' A
+//            fragments from shared memory, 8 streamed rows at its 192
+//            columns staged with cp.async, steps ahead (dq's dS K).
+//   dK_eff is written as accumulated. A block takes 206 KB of shared memory
+//   in float32 and runs alone on its SM; D up to 1920 fits, a wider D than
+//   1536 takes more column slabs, each recomputing S^T and dP^T. Like dq's,
+//   each warp is held back by its own chain of fragment loads, splits, mma
+//   passes and FADDs: the streamed side is two tensors (Q and dO) where
+//   dq's is one K serving S and dP, so a float32 step converts 80 operands
+//   to dq's 48 for the same mma (scripts/dk_dv_variants.py clocks each
+//   phase; 16-row blocks, 8 where 16 leave SMs idle, 64-query tiles and a
+//   12.8 KB area measured best).
 // A dkdv block (8 warps, 218 KB of shared memory at R = 32) runs alone on
-// its SM, as a 32-key dv or dk block and a dq block do. The dkdv cluster
-// needs sm_90. The dv and dk kernels are the first design, simple and
-// right; moving them and the fused dK/dV onto the tensor cores is later
-// work.
+// its SM, as a dq, dv or dk block does. The dkdv cluster needs sm_90.
+// Moving the fused dK/dV onto the tensor cores is later work.
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "contextual_attention_common.cuh"
 
 namespace {
-
-template <int R>
-size_t single_smem_bytes(int D) {
-  return sizeof(float) * ((size_t)R * D + stage_floats<R>() + kT * R + 2 * kT);
-}
 
 // dQ's per-warp staging area, kDqArea bytes, holds one of three things in
 // turn: kStages1 steps of the S and dP products (K rows k0 .. k0 + 63 at 16
@@ -649,87 +676,380 @@ ca_dkdv_kernel(const T* Q, const T* K, const T* V, const float* keep,
   }
 }
 
-// One block: R key rows of one image, all queries, all of D, one output:
-// dK_eff (kDK; reads V and delta for dP and dS) or dV (reads neither: V
-// and delta may be NULL).
-template <typename T, int R, bool kDK>
-__global__ void __launch_bounds__(kThreads, Tile<R>::kMinBlocks)
+// The dK and dV kernels' per-warp staging area, kDkArea bytes (dQ's), holds
+// one of three things in turn: steps of one partial product (the block's kTq
+// streamed Q or dO rows at 16 columns of D, and V's owned rows at the same
+// columns where V is not K), or the warp's partials [2][kRows][kQLd]
+// (S^T, then dP^T), or steps of the accumulation (8 streamed Q or dO rows at
+// the warp's 192 columns, padded as dQ's K steps). S^T and dP^T run as two
+// loops, so a float32 step holds one streamed tensor (4 KB) and three steps
+// are in flight, where one loop over both would stage 8 KB a step and fit
+// one.
+constexpr int kDkArea = 12800;
+// Queries per streamed tile of the dK/dV kernels, and the type the owned K
+// tile is held in (the input type: 50 KB of bfloat16 at D = 1536).
+constexpr int kTq = kT;
+template <typename T> using DkTile = T;
+constexpr int kWLd = kTq + 4;         // weight rows (P^T or dS^T): 68 floats
+constexpr int kQLd = kTq + 8;         // partial rows: 72 floats
+
+// Steps in flight in the dK/dV area for a step of `bytes`.
+template <int kBytes> __host__ __device__ constexpr int dk_stages() {
+  static_assert(kBytes <= kDkArea, "a step must fit");
+  return kDkArea / kBytes;
+}
+
+// Shared-memory bytes of a dK or dV block: the owned K tile, the warps'
+// areas, the weight tile [kRows][kWLd] (P^T or dS^T), lse and delta per
+// streamed query.
+template <typename T>
+size_t dk_dv_smem_bytes(int D) {
+  return (size_t)kRows * mma_q_ld(D) * sizeof(DkTile<T>) +
+         (size_t)kWarps * kDkArea + sizeof(float) * (kRows * kWLd + 2 * kTq);
+}
+
+// One partial product of the dK/dV kernels over this warp's columns
+// [d_lo, d_lo + 16 nstep) of D, into acc[kTq / 8][4]: the block's kRows
+// owned rows (m16, keys) against the kTq streamed rows of the tile (n8
+// tiles of queries i0 ..), acc[j] the lane's C fragment of n8 tile j. The A rows are
+// the owned K tile's (kOwnA; times kscale where kScaleA, for S, its 16
+// values staged with the step) or V's owned rows, staged with the step (dP
+// where V is not K); the B rows are Bb's (Q in T for S, dO in float32 for
+// dP), staged with cp.async in the warp's own area, steps ahead. An operand holding float32 values is split
+// (K kscale always; K, V and Q in float32; dO always), one holding bfloat16
+// data enters whole. Lane (g, t) reads columns 4t .. 4t + 3 of a step: k =
+// t and t + 4 of k8 step h are 4t + 2h and + 1 on both sides. Two n8 tiles
+// a pass (four independent mma); tiles past the tile's last real query are
+// skipped.
+template <typename T, typename TB, bool kOwnA, bool kScaleA, bool kVec>
+__device__ __forceinline__ void dk_dv_partial(
+    float (&acc)[kTq / 8][4], char* mine, const DkTile<T>* ktile, int ldk,
+    const T* Vb,
+    const float* ks_b, const TB* Bb, int i0, int N, int qn, int j0, int rows,
+    int P, int D, int d_lo, int nstep) {
+  constexpr bool kSplitA = kScaleA || sizeof(T) == sizeof(float);
+  constexpr bool kSplitB = sizeof(TB) == sizeof(float);
+  constexpr int kStepB = kTq * 16 * (int)sizeof(TB);
+  constexpr int kStepV = kStepB + (kScaleA ? 16 * (int)sizeof(float) : 0);
+  constexpr int kStep = kStepV + (kOwnA ? 0 : kRows * 16 * (int)sizeof(T));
+  constexpr int kStages = dk_stages<kStep>();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  auto stage = [&](int i) {
+    if (i < nstep) {
+      char* slot = mine + (i % kStages) * kStep;
+      TB* bd = reinterpret_cast<TB*>(slot);
+      const int d0 = d_lo + 16 * i, q = (lane & 3) * 4;
+      const size_t r0 = (size_t)(i0 + (lane >> 2)) * D;
+#pragma unroll (kVec ? kTq * 4 / 32 : 1)
+      for (int n = 0; n < kTq * 4 / 32; ++n) {
+        const int r = (lane >> 2) + 8 * n;
+        copy4<kVec>(bd + r * 16 + q, Bb + r0 + (size_t)(8 * n) * D,
+                    i0 + r < N, d0 + q, D);
+      }
+      if constexpr (kScaleA) {
+        if (lane < 4)
+          copy4<kVec>(reinterpret_cast<float*>(slot + kStepB) + 4 * lane,
+                      ks_b, true, d0 + 4 * lane, D);
+      }
+      if constexpr (!kOwnA) {
+        T* vd = reinterpret_cast<T*>(slot + kStepV);
+#pragma unroll
+        for (int n = 0; n < kRows * 4 / 32; ++n) {
+          const int r = (lane >> 2) + 8 * n;
+          copy4<kVec>(vd + r * 16 + q, Vb + (size_t)(j0 + r) * D,
+                      r < rows && j0 + r < P, d0 + q, D);
+        }
+      }
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kTq / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) stage(i);
+#pragma unroll 1
+  for (int i = 0; i < nstep; ++i) {
+    stage(i + kStages - 1);
+    cp_wait<kStages - 1>();
+    __syncwarp();                      // step i is staged, by every lane
+    const char* slot = mine + (i % kStages) * kStep;
+    const TB* bb = reinterpret_cast<const TB*>(slot);
+    const int d = d_lo + 16 * i + 4 * t;
+    float4 xa, xb;
+    if constexpr (kOwnA) {
+      xa = lds4(ktile + g * ldk + d);
+      xb = lds4(ktile + (g + 8) * ldk + d);
+    } else {
+      const T* vs = reinterpret_cast<const T*>(slot + kStepV) + 4 * t;
+      xa = lds4(vs + g * 16);
+      xb = lds4(vs + (g + 8) * 16);
+    }
+    if constexpr (kScaleA) {
+      const float4 ks =
+          lds4(reinterpret_cast<const float*>(slot + kStepB) + 4 * t);
+      xa = make_float4(xa.x * ks.x, xa.y * ks.y, xa.z * ks.z, xa.w * ks.w);
+      xb = make_float4(xb.x * ks.x, xb.y * ks.y, xb.z * ks.z, xb.w * ks.w);
+    }
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      to_tf32<kSplitA>(elem(xa, 2 * h), ah[h][0], al[h][0]);
+      to_tf32<kSplitA>(elem(xb, 2 * h), ah[h][1], al[h][1]);
+      to_tf32<kSplitA>(elem(xa, 2 * h + 1), ah[h][2], al[h][2]);
+      to_tf32<kSplitA>(elem(xb, 2 * h + 1), ah[h][3], al[h][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kTq / 8; j += 2) {
+      if (8 * j >= qn) break;          // no real query left in the tile
+      fence();
+      const float4 b0 = lds4(bb + (8 * j + g) * 16 + 4 * t);
+      const float4 b1 = lds4(bb + (8 * j + 8 + g) * 16 + 4 * t);
+      uint32_t bh[4][2], bl[4][2];
+      float x[4][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        to_tf32<kSplitB>(elem(b0, 2 * h), bh[h][0], bl[h][0]);
+        to_tf32<kSplitB>(elem(b0, 2 * h + 1), bh[h][1], bl[h][1]);
+        to_tf32<kSplitB>(elem(b1, 2 * h), bh[2 + h][0], bl[2 + h][0]);
+        to_tf32<kSplitB>(elem(b1, 2 * h + 1), bh[2 + h][1], bl[2 + h][1]);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+      mma_tile<kSplitA, kSplitB, 4, 2>(x, ah, al, bh, bl);  // (j, j + 1) x h
+      add_into(acc[j], x[0]);
+      add_into(acc[j], x[1]);
+      add_into(acc[j + 1], x[2]);
+      add_into(acc[j + 1], x[3]);
+    }
+    __syncwarp();                      // every lane is done with step i
+  }
+  cp_wait<0>();
+  __syncwarp();
+}
+
+// One block: key rows [j0, j0 + rows) of one image (rows is 16, or 8 with
+// the lower half of every A tile zero), all queries, output columns
+// [blockIdx.y * kSlab, + kSlab): dK_eff (kDK; reads V and delta) or dV
+// (reads neither: V and delta may be NULL). kSame (dK only): V is K (one
+// pointer), so dP^T takes its A rows from the owned K tile. kVec: D is a
+// multiple of 4 and every pointer is 16-byte aligned.
+template <typename T, bool kDK, bool kSame, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
 ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
                    const float* kscale, const float* dO, const float* lse,
-                   const float* delta, float* out, int N, int P, int D,
-                   float scale) {
-  constexpr int kSD = Tile<R>::kSD;
-  constexpr int RPT = R / 4;
-
+                   const float* delta, float* out, int rows, int N, int P,
+                   int D, float scale) {
+  // the accumulation's streamed rows: Q for dK_eff, dO for dV; split where
+  // they hold float32 values
+  using TS = typename std::conditional<kDK, T, float>::type;
+  constexpr bool kSplit3 = sizeof(TS) == sizeof(float);
+  constexpr int kLd3 = kGroups * 32 + 32 / (int)sizeof(TS);
+  constexpr int kStep3 = 8 * kLd3;                       // elements of TS
+  constexpr int kStages3 = dk_stages<kStep3 * (int)sizeof(TS)>();
+  static_assert(2 * kRows * kQLd * sizeof(float) <= (size_t)kDkArea,
+                "the partials must fit");
   extern __shared__ __align__(16) float smem[];
-  float* acc = smem;                        // [R][D]
-  float* as = acc + (size_t)R * D;          // [R][kSD]
-  float* bs = as + R * kSD;                 // [kT][kSD]
-  float* w_s = bs + kT * kSD;               // [kT][R]  (P or dS, transposed)
-  float* lse_s = w_s + kT * R;              // [kT]
-  float* delta_s = lse_s + kT;              // [kT]
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int j0 = blockIdx.x * R;
+  const int Ds = mma_cols(D), ldk = mma_q_ld(D), kcols = kWarps * Ds;
+  DkTile<T>* kt = reinterpret_cast<DkTile<T>*>(smem);   // [kRows][ldk]
+  char* areas = reinterpret_cast<char*>(kt + kRows * ldk);
+  float* w_s = reinterpret_cast<float*>(areas + kWarps * kDkArea);
+  float* lse_s = w_s + kRows * kWLd;                     // [kTq]
+  float* delta_s = lse_s + kTq;                          // [kTq]
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z;
+  const int j0 = blockIdx.x * rows;
   const T* Qb = Q + (size_t)b * N * D;
   const T* Kb = K + (size_t)b * P * D;
   const float* dOb = dO + (size_t)b * N * D;
-  const float* keep_b = keep + (size_t)b * P;
+  const TS* Sb;                                          // accumulation rows
+  if constexpr (kDK) Sb = Qb; else Sb = dOb;
   const float* ks_b = kscale + (size_t)b * D;
+  char* mine = areas + w * kDkArea;                      // this warp's area
+  float* part = reinterpret_cast<float*>(mine);  // [2][kRows][kQLd]
+  TS* st3 = reinterpret_cast<TS*>(mine);         // [kStages3][8][kLd3]
 
-  for (int i = tid; i < R * D; i += kThreads) acc[i] = 0.f;
+  // the owned K rows, raw; rows past the tile or P and columns past D are 0
+  for (int i = tid; i < kRows * kcols; i += kThreads) {
+    const int r = i / kcols, d = i % kcols;
+    store(kt + r * ldk + d, r < rows && j0 + r < P && d < D
+                                ? to_f(Kb[(size_t)(j0 + r) * D + d]) : 0.f);
+  }
+  __syncthreads();  // the K tile is written
+  // the weight rows: warp w forms keys 2w and 2w + 1, 16 lanes a key, 4
+  // queries a lane (lanes past kTq idle); a key past the tile or P, or a
+  // gated one (g = 0), has weight 0 in dS^T, and a key past the tile or P
+  // in P^T
+  const int srow = 2 * w + (lane >> 4), sq = 4 * (lane & 15);
+  const bool key_in = srow < rows && j0 + srow < P;
+  const float gm = key_in ? keep[(size_t)b * P + j0 + srow] * scale : 0.f;
 
-  const int lane = tid & 31;
-  const int g = lane >> 3;
-  const int rg = (tid >> 5) >> 1;
-  const int kg = (((tid >> 5) & 1) << 3) | (lane & 7);
+  float acc[kGroups][4][4];
+#pragma unroll
+  for (int c = 0; c < kGroups; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+  const int d_lo = w * Ds, d_hi = min(D, d_lo + Ds);
+  const int nstep = d_hi > d_lo ? (d_hi - d_lo + 15) / 16 : 0;
+  const int cw = blockIdx.y * kSlab + w * (kGroups * 32);  // warp's columns
 
-  for (int i0 = 0; i0 < N; i0 += kT) {
-    // visible after the first barrier of tile_dot; the previous tile's
-    // readers passed the barrier before its accumulation
-    if (tid < kT) {
-      const int i = i0 + tid;
-      const bool in = i < N;
-      lse_s[tid] = in ? lse[(size_t)b * N + i] : 0.f;
-      if constexpr (kDK) delta_s[tid] = in ? delta[(size_t)b * N + i] : 0.f;
+  for (int i0 = 0; i0 < N; i0 += kTq) {
+    const int qn = min(kTq, N - i0);             // real queries of the tile
+    // read after the barrier that ends the partial products; the previous
+    // tile's readers passed the barrier after its weight rows
+    if (tid < kTq) {
+      const bool in = tid < qn;
+      lse_s[tid] = in ? lse[(size_t)b * N + i0 + tid] : 0.f;
+      if constexpr (kDK)
+        delta_s[tid] = in ? delta[(size_t)b * N + i0 + tid] : 0.f;
     }
-    float s[RPT][kCPT], dp[RPT][kCPT];
-    tile_dot<T, T, R, 2>(Kb, j0, P, Qb, i0, N, ks_b, D, 0, D, as, bs, s);
+    // 1. this warp's partial S^T = (K kscale) Q^T and, for dK, dP^T =
+    // V dO^T over columns [d_lo, d_hi) of D
+    float s[kTq / 8][4];
+    dk_dv_partial<T, T, true, true, kVec>(s, mine, kt, ldk, nullptr, ks_b,
+                                          Qb, i0, N, qn, j0, rows, P, D,
+                                          d_lo, nstep);
+    float dp[kTq / 8][4];
     if constexpr (kDK)
-      tile_dot<T, float, R, 0>(V + (size_t)b * P * D, j0, P, dOb, i0, N,
-                               nullptr, D, 0, D, as, bs, dp);
-    if (g == 0) {
+      dk_dv_partial<T, float, kSame, false, kVec>(
+          dp, mine, kt, ldk, V + (size_t)b * P * D, ks_b, dOb, i0, N, qn,
+          j0, rows, P, D, d_lo, nstep);
 #pragma unroll
-      for (int a = 0; a < RPT; ++a)
-#pragma unroll
-        for (int c = 0; c < kCPT; ++c) {
-          const int r = rg * RPT + a, j = j0 + r;     // key
-          const int ii = kg + 16 * c, i = i0 + ii;    // query
-          float w = 0.f;
-          if (j < P && i < N) {
-            const float gm = keep_b[j] * scale;
-            w = expf(s[a][c] * gm - lse_s[ii]);
-            if constexpr (kDK) w *= (dp[a][c] - delta_s[ii]) * gm;
-          }
-          w_s[ii * R + r] = w;
-        }
+    for (int j = 0; j < kTq / 8; ++j) {
+      float* ps = part + g * kQLd + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(ps) = make_float2(s[j][0], s[j][1]);
+      *reinterpret_cast<float2*>(ps + 8 * kQLd) =
+          make_float2(s[j][2], s[j][3]);
+      if constexpr (kDK) {
+        float* pd = ps + kRows * kQLd;
+        *reinterpret_cast<float2*>(pd) = make_float2(dp[j][0], dp[j][1]);
+        *reinterpret_cast<float2*>(pd + 8 * kQLd) =
+            make_float2(dp[j][2], dp[j][3]);
+      }
     }
-    __syncthreads();
-    const int qn = min(kT, N - i0);
-    if constexpr (kDK)   // dK_eff += dS^T Q
-      accumulate<T, R, Tile<R>::kNC, false>(acc, D, D, Qb + (size_t)i0 * D, D,
-                                            qn, w_s, nullptr);
-    else                 // dV += P^T dO
-      accumulate<float, R, Tile<R>::kNC, false>(
-          acc, D, D, dOb + (size_t)i0 * D, D, qn, w_s, nullptr);
+    __syncthreads();  // every partial S^T (and dP^T) is written
+
+    // 2. S^T (and dP^T) = the eight partials, summed in warp order; the
+    // weight is P = exp(S g - lse) for dV, dS = P (dP - delta) g for dK_eff
+    if (sq < kTq) {
+      const float* p0 = reinterpret_cast<const float*>(areas) +
+                        srow * kQLd + sq;
+      float4 sx = lds4(p0), dx = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (kDK) dx = lds4(p0 + kRows * kQLd);
+#pragma unroll
+      for (int u = 1; u < kWarps; ++u) {
+        const float* pu =
+            reinterpret_cast<const float*>(areas + u * kDkArea) +
+            srow * kQLd + sq;
+        const float4 y = lds4(pu);
+        sx.x += y.x; sx.y += y.y; sx.z += y.z; sx.w += y.w;
+        if constexpr (kDK) {
+          const float4 z = lds4(pu + kRows * kQLd);
+          dx.x += z.x; dx.y += z.y; dx.z += z.z; dx.w += z.w;
+        }
+      }
+      float wv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        wv[e] = 0.f;
+        if (key_in && sq + e < qn) {
+          const float p = expf(elem(sx, e) * gm - lse_s[sq + e]);
+          wv[e] = kDK ? p * (elem(dx, e) - delta_s[sq + e]) * gm : p;
+        }
+      }
+      *reinterpret_cast<float4*>(w_s + srow * kWLd + sq) =
+          make_float4(wv[0], wv[1], wv[2], wv[3]);
+    }
+    __syncthreads();  // the weights are written; the partials are read
+
+    // 3. acc += W X over this warp's columns, 8 queries a step (W = dS^T
+    // and X = Q for dK_eff, W = P^T and X = dO for dV): step i stages rows
+    // i0 + 8i .. + 7 at the warp's 192 columns, kStages3 - 1 steps ahead;
+    // dQ's dS K step with the roles of keys and queries swapped.
+    const int nstep3 = cw < D ? (qn + 7) / 8 : 0;
+    auto stage3 = [&](int i) {
+      if (i < nstep3) {
+        TS* dst = st3 + (i % kStages3) * kStep3;
+        const TS* srow3 = Sb + (size_t)(i0 + 8 * i) * D;
+        // a row's 48 four-element chunks: lanes 0-31, then lanes 0-15
+#pragma unroll (kVec ? 8 : 1)
+        for (int r = 0; r < 8; ++r) {
+          const bool ok = i0 + 8 * i + r < N;
+          const int q = 4 * lane;
+          copy4<kVec>(dst + r * kLd3 + q, srow3 + (size_t)r * D, ok, cw + q,
+                      D);
+          if (lane < kGroups * 8 - 32)
+            copy4<kVec>(dst + r * kLd3 + 128 + q, srow3 + (size_t)r * D, ok,
+                        cw + 128 + q, D);
+        }
+      }
+      cp_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < kStages3 - 1; ++i) stage3(i);
+#pragma unroll 1
+    for (int i = 0; i < nstep3; ++i) {
+      stage3(i + kStages3 - 1);
+      cp_wait<kStages3 - 1>();
+      __syncwarp();                    // step i is staged, by every lane
+      uint32_t ah[1][4], al[1][4];
+      to_tf32<true>(w_s[g * kWLd + 8 * i + t], ah[0][0], al[0][0]);
+      to_tf32<true>(w_s[(g + 8) * kWLd + 8 * i + t], ah[0][1], al[0][1]);
+      to_tf32<true>(w_s[g * kWLd + 8 * i + t + 4], ah[0][2], al[0][2]);
+      to_tf32<true>(w_s[(g + 8) * kWLd + 8 * i + t + 4], ah[0][3],
+                    al[0][3]);
+      const TS* sb = st3 + (i % kStages3) * kStep3;
+      // one 32-column group at a time: its four n8 tiles (tile e's column
+      // n is 32c + 4n + e)
+#pragma unroll
+      for (int c = 0; c < kGroups; ++c) {
+        fence();
+        const float4 ra = lds4(sb + t * kLd3 + 32 * c + 4 * g);
+        const float4 rc = lds4(sb + (t + 4) * kLd3 + 32 * c + 4 * g);
+        uint32_t bh[4][2], bl[4][2];
+        float x[4][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          to_tf32<kSplit3>(elem(ra, e), bh[e][0], bl[e][0]);
+          to_tf32<kSplit3>(elem(rc, e), bh[e][1], bl[e][1]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) x[e][k] = 0.f;
+        }
+        mma_tile<true, kSplit3, 4, 1>(x, ah, al, bh, bl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) add_into(acc[c][e], x[e]);
+      }
+      __syncwarp();                    // every lane is done with step i
+    }
+    cp_wait<0>();
   }
 
-  for (int rr = 0; rr < R; ++rr) {
-    const int j = j0 + rr;
-    if (j >= P) break;
-    float* orow = out + ((size_t)b * P + j) * D;
-    for (int c = tid; c < D; c += kThreads) orow[c] = acc[rr * D + c];
+  // each thread writes the columns it accumulated, as accumulated (dK_eff
+  // is the gradient of the keys K kscale)
+  float* outb = out + (size_t)b * P * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = g + 8 * half;
+    if (r >= rows || j0 + r >= P) continue;
+    float* orow = outb + (size_t)(j0 + r) * D;
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      const int col = cw + 32 * c + 8 * t;  // tile e, n = 2t (+1): col + e (+4)
+      store4<kVec>(orow, col, D,
+                   make_float4(acc[c][0][2 * half], acc[c][1][2 * half],
+                               acc[c][2][2 * half], acc[c][3][2 * half]));
+      store4<kVec>(orow, col + 4, D,
+                   make_float4(acc[c][0][2 * half + 1],
+                               acc[c][1][2 * half + 1],
+                               acc[c][2][2 * half + 1],
+                               acc[c][3][2 * half + 1]));
+    }
   }
 }
 
@@ -797,34 +1117,59 @@ int launch_dkdv_r(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int R, bool kDK>
-int launch_single_r(const Args& a) {
-  const size_t smem = single_smem_bytes<R>(a.D);
-  if (int err = opt_in_smem(ca_dk_or_dv_kernel<T, R, kDK>, smem)) return err;
-  const dim3 grid((a.P + R - 1) / R, a.B);
-  ca_dk_or_dv_kernel<T, R, kDK><<<grid, kThreads, smem, a.stream>>>(
+// dK_eff (kDK) or dV with `rows` key rows a block; with a.plan, the launch
+// plan instead.
+template <typename T, bool kDK, bool kSame, bool kVec>
+int launch_dk_dv(const Args& a, int rows) {
+  const size_t smem = dk_dv_smem_bytes<T>(a.D);
+  const auto kernel = ca_dk_or_dv_kernel<T, kDK, kSame, kVec>;
+  if (int err = opt_in_smem(kernel, smem)) return err;
+  const dim3 grid((a.P + rows - 1) / rows, (a.D + kSlab - 1) / kSlab, a.B);
+  if (a.plan != nullptr) return block_plan(kernel, grid, smem, rows, a.plan);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.keep, a.kscale, a.dO, a.lse, a.delta,
-      a.out, a.N, a.P, a.D, a.scale);
+      a.out, rows, a.N, a.P, a.D, a.scale);
   return (int)cudaGetLastError();
 }
 
+// dK_eff or dV: dQ's rule with keys for queries (16-row blocks, or 8-row
+// ones when 16-row blocks would leave SMs idle), and dQ's builds: for dK one
+// whose owned K rows serve S^T and dP^T where V is K (the main path's call),
+// one that stages V's rows; 16-byte copies where D is a multiple of 4 and
+// every pointer is aligned, else element by element. dV reads no V.
+template <typename T, bool kDK>
+int launch_dk_dv_rows(const Args& a) {
+  if (a.B > 65535) return (int)cudaErrorInvalidValue;
+  const int rows =
+      (long long)a.B * ((a.P + kRows - 1) / kRows) < sm_count() ? 8 : kRows;
+  const auto aligned = [](const void* p) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = a.D % 4 == 0 && aligned(a.q) && aligned(a.k) &&
+                   aligned(a.v) && aligned(a.dO) && aligned(a.kscale) &&
+                   aligned(a.out);
+  if constexpr (kDK) {
+    if (a.k != a.v)
+      return vec ? launch_dk_dv<T, true, false, true>(a, rows)
+                 : launch_dk_dv<T, true, false, false>(a, rows);
+  }
+  return vec ? launch_dk_dv<T, kDK, true, true>(a, rows)
+             : launch_dk_dv<T, kDK, true, false>(a, rows);
+}
+
 // which: 0 dq, 1 dkdv, 2 dv, 3 dk.
-// dq: launch_dq_rows. dkdv, whose blocks come in clusters of two
-// and run one per SM: 32-key tiles, which read Q and dO half as often as
-// 16-key ones, where their clusters give every SM a block and their
-// accumulators fit; then 16 keys where those do, or where 8-key clusters
-// would not all fit at once (at 256^2, B = 1: 61 clusters of 16 keys in one
-// wave, not 121 of 8 in two); 8 keys otherwise (the D-split forward's
-// rule). dv and dk: the tallest of 32, 16 and 8 keys that fills every SM
-// and fits.
+// dq: launch_dq_rows; dv and dk: launch_dk_dv_rows. dkdv, whose blocks come
+// in clusters of two and run one per SM: 32-key tiles, which read Q and dO
+// half as often as 16-key ones, where their clusters give every SM a block
+// and their accumulators fit; then 16 keys where those do, or where 8-key
+// clusters would not all fit at once (at 256^2, B = 1: 61 clusters of 16
+// keys in one wave, not 121 of 8 in two); 8 keys otherwise (the D-split
+// forward's rule).
 template <typename T>
 int launch(int which, const Args& a) {
   if (a.B <= 0 || a.N <= 0 || a.P <= 0 || a.D <= 0)
     return (int)cudaErrorInvalidValue;
-  const auto fills = [&](int rows, int tile) {
-    return (long long)a.B * ((rows + tile - 1) / tile) >= sm_count();
-  };
   switch (which) {
     case 0:
       return launch_dq_rows<T>(a);
@@ -842,15 +1187,9 @@ int launch(int which, const Args& a) {
       return launch_dkdv_r<T, 8>(a);
     }
     case 2:
+      return launch_dk_dv_rows<T, false>(a);
     case 3:
-      if (fills(a.P, 32) && single_smem_bytes<32>(a.D) <= kMaxSmem)
-        return which == 3 ? launch_single_r<T, 32, true>(a)
-                          : launch_single_r<T, 32, false>(a);
-      if (fills(a.P, 16) && single_smem_bytes<16>(a.D) <= kMaxSmem)
-        return which == 3 ? launch_single_r<T, 16, true>(a)
-                          : launch_single_r<T, 16, false>(a);
-      return which == 3 ? launch_single_r<T, 8, true>(a)
-                        : launch_single_r<T, 8, false>(a);
+      return launch_dk_dv_rows<T, true>(a);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -921,6 +1260,27 @@ int sketchedit_contextual_attention_dq_plan(int dtype, int B, int N, int P,
          nullptr, nullptr, nullptr, B,       N,       P,       D,
          0.f,     nullptr, plan};
   return launch_typed(0, dtype, a);
+}
+
+// The dV (dk = 0) or dK (dk = 1) kernel's launch plan for these shapes on
+// the current device, without a launch (V taken to be K, as on the main
+// path), in dq_plan's order: plan[0] key rows per block, [1] column slabs,
+// [2] the most blocks resident at once on an SM, [3] dynamic shared-memory
+// bytes per block, [4] blocks in the grid.
+int sketchedit_contextual_attention_dv_plan(int dtype, int B, int N, int P,
+                                            int D, int* plan) {
+  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         nullptr, nullptr, nullptr, B,       N,       P,       D,
+         0.f,     nullptr, plan};
+  return launch_typed(2, dtype, a);
+}
+
+int sketchedit_contextual_attention_dk_plan(int dtype, int B, int N, int P,
+                                            int D, int* plan) {
+  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         nullptr, nullptr, nullptr, B,       N,       P,       D,
+         0.f,     nullptr, plan};
+  return launch_typed(3, dtype, a);
 }
 
 // dV alone: no V, no delta.

@@ -3,8 +3,9 @@
 // product, the online softmax over one key tile, and the accumulation of a
 // weighted sum of streamed rows into a shared-memory accumulator, all float32
 // on the CUDA cores; and the float32-accurate tensor-core product (split
-// TF32 on mma.sync) that the two full-width forwards and dQ are built on,
-// with their block shape, per-warp cp.async staging and launch plan. Every
+// TF32 on mma.sync) that the two full-width forwards, dQ, dK and dV are
+// built on, with their block shape, per-warp cp.async staging and launch
+// plan. Every
 // kernel runs kThreads = 256 threads a block and walks its streamed axis in
 // tiles of kT = 64.
 
@@ -39,8 +40,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even
 }
 
-// Per row-tile height R (the rows a block owns: queries in the forward and
-// dq kernels, keys in the dK/dV kernels): the D-chunk staged per step
+// Per row-tile height R (the query rows a block of the D-split forward
+// owns): the D-chunk staged per step
 // (kDC), its padded row stride (kSD), the columns a thread carries at once
 // in the accumulation (kNC), and the blocks per SM the register budget is
 // cut for. 8-row tiles are chosen when the grid is smaller than the SM
@@ -62,7 +63,7 @@ template <int R, int kDC = Tile<R>::kDC> constexpr size_t stage_floats() {
 
 // s[a][c] = sum_d A[a0 + rg*RPT + a][d] * B[b0 + kg + 16 c][d] over the
 // contraction window d_lo <= d < d_hi, with the per-channel scale sc on the
-// A rows (kScaled == 1), on the B rows (kScaled == 2) or nowhere (0). A and
+// A rows (kScaled == 1) or nowhere (0). A and
 // B have row stride D and sc has D entries; every caller but the D-split
 // forward contracts the whole row, [0, D). Rows at or past na (nb) read as
 // 0, and an empty window gives 0 with no barrier. A warp pair owns RPT =
@@ -94,7 +95,6 @@ __device__ __forceinline__ void tile_dot(const TA* A, int a0, int na,
   TA araw[ALD];
   TB braw[BLD];
   float asc[kScaled == 1 ? ALD : 1];
-  float bsc[kScaled == 2 ? BLD : 1];
   auto load_chunk = [&](int c0) {
 #pragma unroll
     for (int n = 0; n < ALD; ++n) {
@@ -108,7 +108,6 @@ __device__ __forceinline__ void tile_dot(const TA* A, int a0, int na,
       const int i = tid + n * kThreads, r = b0 + i / kDC, d = c0 + i % kDC;
       const bool in = r < nb && d < d_hi;
       braw[n] = in ? B[(size_t)r * D + d] : zero<TB>();
-      if constexpr (kScaled == 2) bsc[n] = in ? sc[d] : 0.f;
     }
   };
   load_chunk(d_lo);
@@ -130,9 +129,7 @@ __device__ __forceinline__ void tile_dot(const TA* A, int a0, int na,
 #pragma unroll
     for (int n = 0; n < BLD; ++n) {
       const int i = tid + n * kThreads;
-      float x = to_f(braw[n]);
-      if constexpr (kScaled == 2) x *= bsc[n];
-      bs[(i / kDC) * kSD + i % kDC] = x;
+      bs[(i / kDC) * kSD + i % kDC] = to_f(braw[n]);
     }
     __syncthreads();
     if (d0 + kDC < d_hi) load_chunk(d0 + kDC);  // next chunk, while this runs
@@ -339,10 +336,11 @@ __device__ __forceinline__ void mma_tile(float (&c)[kN][4],
   for (int n = 0; n < kN; ++n) mma_tf32(c[n], ah[n % kA], bh[n]);
 }
 
-// The split-TF32 kernels (ca_fwd_kernel, ca_fwd_shared_kernel and
-// ca_dq_kernel): a block is kWarps warps over kRows query rows and a slab
-// of kSlab output columns; warp w owns kGroups 32-column groups of the
-// slab, and contracts Ds = mma_cols(D) columns of D for its partial S.
+// The split-TF32 kernels (ca_fwd_kernel, ca_fwd_shared_kernel, ca_dq_kernel
+// and ca_dk_or_dv_kernel): a block is kWarps warps over kRows owned rows
+// (queries; keys in dK and dV) and a slab of kSlab output columns; warp w
+// owns kGroups 32-column groups of the slab, and contracts Ds = mma_cols(D)
+// columns of D for its partial S.
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;                    // the mma's m16
 constexpr int kGroups = 6;                   // 192 columns a warp

@@ -21,7 +21,9 @@ runs a shape; the dK/dV kernel is a two-block cluster over D, like the
 D-split forward, and ``dkdv_plan`` says how it runs a shape) on CUDA
 tensors and take their plain versions on CPU ones, as do the single-output
 ``attention_core_dv`` and
-``attention_core_dk`` (``_dv_kernel``, ``_dk_kernel``);
+``attention_core_dk`` (``_dv_kernel``, ``_dk_kernel``: dQ's block with
+keys owned and queries streamed, on the tensor cores in split TF32;
+``dk_dv_plan`` says how they run a shape);
 ``attention_core_bwd`` runs dQ and then the fused kernel or the split pair.
 ``ContextualAttentionCore`` ties forward and backward together for
 autograd.
@@ -300,9 +302,10 @@ _FWD_PLAN_KEYS = ("tile_rows", "column_slabs", "blocks_per_sm", "smem_bytes",
 
 def _plan(name: str, codes: tuple, B: int, N: int, P: int, D: int,
           keys: tuple = _PLAN_KEYS) -> dict:
-    """The launch plan of kernel ``name`` (fwd, fwd_dsplit, dq or dkdv) on
-    the current CUDA device, from its C ``..._plan`` entry point: ``codes``
-    are its leading int arguments, ``keys`` name the five ints it fills."""
+    """The launch plan of kernel ``name`` (fwd, fwd_dsplit, dq, dkdv, dv or
+    dk) on the current CUDA device, from its C ``..._plan`` entry point:
+    ``codes`` are its leading int arguments, ``keys`` name the five ints it
+    fills."""
     from sketchedit_tpu_torch.ops import _build
     _, err_str = _kernel(name)
     lib = _build.load()[_ENTRY_POINTS[name][0]]
@@ -357,6 +360,18 @@ def dkdv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32) -> dict:
     resident at once, each block's dynamic shared memory in bytes, and the
     clusters of the grid."""
     return _plan("dkdv", (_DTYPE_CODES[dtype],), B, N, P, D)
+
+
+def dk_dv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
+               dk: bool = True) -> dict:
+    """How the dK kernel (or, without ``dk``, the dV kernel) runs these
+    shapes on the current CUDA device (V taken to be K, as on the main
+    path), without launching it, in ``dq_plan``'s keys: the key rows of a
+    block (``tile_rows``), the slabs of up to 1536 output columns, the most
+    blocks resident at once on an SM, each block's dynamic shared memory in
+    bytes, and the blocks of the grid."""
+    return _plan("dk" if dk else "dv", (_DTYPE_CODES[dtype],), B, N, P, D,
+                 _FWD_PLAN_KEYS)
 
 
 def _bwd_terms(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from sketchedit_tpu_torch.device import resolve_device
 from sketchedit_tpu_torch.models import deepfill_c2, discriminator, md_generator
 from sketchedit_tpu_torch.models.deepfill_c2 import (
     DeepFillC2Generator, DeepFillConfig)
@@ -140,11 +141,13 @@ def _grad_mask(cfg: TrainConfig, nets):
 
 
 def init_train_state(cfg: TrainConfig, *, seed: int = 0, flag_seed: int = 0,
-                     device="cpu") -> TrainState:
-    """Fresh nets on ``device`` (float32 parameters), each drawn on the CPU
-    from its own generator seeded by ``seed``, so a seed gives the same
-    weights on every device; M and G by ``cfg.init_type``, D xavier (gain
-    0.02) with u ~ N(0, 1)."""
+                     device="cuda") -> TrainState:
+    """Fresh nets on ``device`` (float32 parameters; the GPU unless the
+    caller names the CPU, and ``cuda`` without a GPU raises), each drawn on
+    the CPU from its own generator seeded by ``seed``, so a seed gives the
+    same weights on every device; M and G by ``cfg.init_type``, D xavier
+    (gain 0.02) with u ~ N(0, 1)."""
+    device = resolve_device(device)
     d_net = (discriminator.MultiscaleDiscriminator(cfg.num_d, device=device)
              if cfg.netd == "multiscale"
              else discriminator.Discriminator(device=device))

@@ -13,8 +13,8 @@ and split TF32 in the default and shared forwards, which keeps ~22 bits of
 each product); bfloat16 output rtol = atol = 2e-2 against the plain version
 fed the same bf16-rounded inputs in float32 (the output is rounded to bf16). Backward:
 2e-4 of each gradient's max |value|, for both input types (float32
-arithmetic and outputs on both sides, S recomputed in another order; dQ
-in split TF32, ~22 bits of each product);
+arithmetic and outputs on both sides, S recomputed in another order; dQ,
+dV and dK in split TF32, ~22 bits of each product);
 the kernel path's gradient against dense autograd: 1e-3 of its max.
 """
 
@@ -31,8 +31,8 @@ from sketchedit_tpu_torch.ops.attention_cuda import (
     attention_core_dsplit_reference, attention_core_dv,
     attention_core_dv_reference, attention_core_reference,
     attention_core_shared, attention_core_shared_reference,
-    contextual_attention_fused, dkdv_plan, dq_plan, dsplit_cut, dsplit_plan,
-    fwd_plan)
+    contextual_attention_fused, dk_dv_plan, dkdv_plan, dq_plan, dsplit_cut,
+    dsplit_plan, fwd_plan)
 
 pytestmark = pytest.mark.gpu
 
@@ -602,18 +602,36 @@ def test_launches_run_on_the_tensors_device(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,keep_p", SHAPES + [
-    ((9, 130, 500, 1536), 0.8),       # 32-key tiles at the model's D
+    ((9, 130, 500, 1536), 0.8),       # the model's D, 16-row blocks
+    ((2, 50, 70, 1537), 0.8),         # D past one 1536-column slab (odd)
+    # the training path's one-tensor call (Q = K = V from attention_inputs)
+    # at 256^2, B = 1 (8-row blocks) and 8 (16-row ones), and a ragged 29^2
+    (("main", 1, 64), None),
+    (("main", 8, 64), None),
+    (("main", 3, 29), None),
 ])
 def test_dv_dk_kernels_match_plain_and_fused(cuda, dtype, shape, keep_p):
-    Q, K, V, keep = _inputs(sum(shape) + 2, *shape, keep_p, dtype, cuda)
-    rs = np.random.RandomState(sum(shape))
-    B, N, _, D = shape
-    dO = torch.from_numpy(rs.randn(B, N, D).astype(np.float32)).to(cuda)
-    kscale = torch.from_numpy((0.5 + rs.rand(B, D)).astype(np.float32)
-                              ).to(cuda)
-    out, lse = attention_core(Q, K, V, keep, return_lse=True,
-                              out_dtype=torch.float32, kscale=kscale)
-    args = (Q, K, V, keep, lse, (dO * out).sum(-1), dO, 10.0, kscale)
+    """dV and dK_eff from the single-output kernels against their plain
+    versions and the fused dK/dV kernel's (2e-4 of each gradient's max); all
+    keys gated: dK_eff is exactly 0. The plain versions run on CPU copies,
+    as the port runs them: on the main path the logits reach the hundreds
+    (244 at the ragged 29^2), where the plain dV on the card lies 1.5e-4 to
+    1.7e-4 of its max from a float64 evaluation of the same function, the
+    kernels under 4e-5 and the plain dV on the CPU under 5e-5
+    (scripts/dk_dv_variants.py --precision)."""
+    if shape[0] == "main":
+        args = _main_path_bwd(shape[1] * 100 + shape[2] + 1, *shape[1:],
+                              dtype, cuda)
+        assert args[0] is args[1] and args[1] is args[2]
+    else:
+        Q, K, V, keep = _inputs(sum(shape) + 2, *shape, keep_p, dtype, cuda)
+        rs = np.random.RandomState(sum(shape))
+        B, N, _, D = shape
+        dO = torch.from_numpy(rs.randn(B, N, D).astype(np.float32)).to(cuda)
+        kscale = torch.from_numpy((0.5 + rs.rand(B, D)).astype(np.float32)
+                                  ).to(cuda)
+        args = _bwd_args(Q, K, V, keep, dO, kscale)
+    Q, K, _, keep, lse, _, dO, _, kscale = args
     before = (attention_cuda.LAUNCHES_DV, attention_cuda.LAUNCHES_DK)
     dV = attention_core_dv(Q, K, keep, lse, dO, 10.0, kscale)
     dK = attention_core_dk(*args)
@@ -621,15 +639,61 @@ def test_dv_dk_kernels_match_plain_and_fused(cuda, dtype, shape, keep_p):
     assert (attention_cuda.LAUNCHES_DV, attention_cuda.LAUNCHES_DK) == (
         before[0] + 1, before[1] + 1)
     fused = attention_core_dkdv(*args)
+    cpu = [t.cpu() if torch.is_tensor(t) else t for t in args]
+    Qc, Kc, _, keep_c, lse_c, _, dO_c, _, kscale_c = cpu
+    diffs = []
     for name, g, w, sib in (
-            ("dV", dV, attention_core_dv_reference(Q, K, keep, lse, dO, 10.0,
-                                                   kscale), fused[1]),
-            ("dK_eff", dK, attention_core_dk_reference(*args), fused[0])):
+            ("dV", dV, attention_core_dv_reference(
+                Qc, Kc, keep_c, lse_c, dO_c, 10.0, kscale_c).to(cuda),
+             fused[1]),
+            ("dK_eff", dK, attention_core_dk_reference(*cpu).to(cuda),
+             fused[0])):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         scale = max(w.abs().max().item(), 1e-6)
+        diffs.append((g - w).abs().max().item() / scale)
         for other in (w, sib):
             torch.testing.assert_close(g, other, rtol=0, atol=2e-4 * scale,
                                        msg=lambda m, n=name: f"{n}: {m}")
+    if keep_p == 0.0:       # every dS multiplier is 0
+        assert not dK.any()
+    # shown with -rP: the largest differences of each case
+    print("dv dk", shape, str(dtype), "max|dV - plain| / max|dV|", diffs[0],
+          "max|dK_eff - plain| / max|dK_eff|", diffs[1])
+
+
+@pytest.mark.parametrize("same", [True, False], ids=["one_tensor", "apart"])
+def test_dk_dv_repeat_bit_for_bit(cuda, same):
+    """Two launches on the same inputs give the same bits: each block owns
+    its key rows, and S^T and dP^T sum the warps' partials in a fixed
+    order."""
+    args = _main_path_bwd(32, 8, 64, torch.float32, cuda)
+    if not same:          # K and V apart: the dK build that stages V
+        Q, K, V, *rest = args
+        args = (Q, K.clone(), V.clone(), *rest)
+    Q, K, _, keep, lse, _, dO, _, kscale = args
+    dv = lambda: attention_core_dv(Q, K, keep, lse, dO, 10.0, kscale)
+    assert torch.equal(dv(), dv())
+    assert torch.equal(attention_core_dk(*args), attention_core_dk(*args))
+
+
+@pytest.mark.parametrize("B,rows_132", [(1, 8), (8, 16)])
+def test_dk_dv_plan_at_the_main_path_shapes(cuda, B, rows_132):
+    """256^2 training (N = P = 961, D = 1536): 8-row dK and dV blocks at
+    B = 1 and 16-row ones at B = 8 on a 132-SM card (the rule's pick
+    elsewhere), one column slab, every block within the shared memory a
+    block may opt into."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = 8 if B * -(-961 // 16) < sms else 16
+    assert sms != 132 or want == rows_132
+    for dtype in (torch.float32, torch.bfloat16):
+        for dk in (False, True):
+            plan = dk_dv_plan(B, 961, 961, 1536, dtype, dk=dk)
+            print("dk_dv_plan", B, str(dtype), "dk" if dk else "dv", plan)
+            assert plan["tile_rows"] == want and plan["column_slabs"] == 1
+            assert plan["grid_blocks"] == B * -(-961 // want)
+            assert 0 < plan["smem_bytes"] <= 232448
+            assert plan["blocks_per_sm"] >= 1
+    assert dk_dv_plan(2, 50, 70, 1537)["column_slabs"] == 2
 
 
 @pytest.mark.parametrize("switch", ["SKETCHEDIT_SHARED_ATTN",

@@ -69,7 +69,7 @@ def _nhwc(t):
 def _port_state(cfg, seed=0):
     """Fresh port state with netM / netG weights scaled so that the outputs
     are not flat (kaiming alone leaves them within 1e-3 of the midpoint)."""
-    state = tr.init_train_state(cfg, seed=seed)
+    state = tr.init_train_state(cfg, seed=seed, device="cpu")
     with torch.no_grad():
         for label, gain in (("M", GAIN_M), ("G", GAIN_G)):
             for conv in state.nets[label].children():
@@ -422,7 +422,7 @@ def test_param_groups_match_jax():
 
 def test_update_part_mask_freezes_netg():
     cfg = tr.TrainConfig(update_part="mask", no_gan_loss=True)
-    state = tr.init_train_state(cfg)
+    state = tr.init_train_state(cfg, device="cpu")
     g0 = copy.deepcopy(state.nets["G"].state_dict())
     m0 = state.nets["M"].conv1.weight.clone()
     d0 = copy.deepcopy(state.nets["D"].state_dict())
@@ -438,7 +438,7 @@ def test_reuse_fake_and_multiscale_steps_update_every_net():
     batch = _port_batch(_tiny_batch())
     for cfg in (tr.TrainConfig(reuse_fake=True),
                 tr.TrainConfig(netd="multiscale", num_d=2)):
-        state = tr.init_train_state(cfg)
+        state = tr.init_train_state(cfg, device="cpu")
         before = {lab: copy.deepcopy(net.state_dict())
                   for lab, net in state.nets.items()}
         _, metrics = tr.train_step(state, batch, 0, 2, cfg)
@@ -457,7 +457,7 @@ def test_remat_step_matches_plain():
     out = []
     for remat in (False, True):
         cfg = tr.TrainConfig(remat=remat)
-        state = tr.init_train_state(cfg)
+        state = tr.init_train_state(cfg, device="cpu")
         state, metrics = tr.train_step(state, batch, 1, 2, cfg)
         out.append((state, metrics))
     (s0, m0), (s1, m1) = out
@@ -477,7 +477,7 @@ def test_bf16_losses_track_f32():
     results = {}
     for dt in ("float32", "bfloat16"):
         cfg = tr.TrainConfig(compute_dtype=dt)
-        state = tr.init_train_state(cfg)
+        state = tr.init_train_state(cfg, device="cpu")
         w0 = state.nets["G"].conv1.weight.clone()
         state, metrics = tr.train_step(state, batch, 1, 2, cfg)
         w1 = state.nets["G"].conv1.weight
@@ -520,9 +520,17 @@ def test_lr_schedule_matches_optax():
 
 def test_draw_flags_range_and_resume():
     cfg = tr.TrainConfig()
-    state = tr.init_train_state(cfg, flag_seed=3)
+    state = tr.init_train_state(cfg, flag_seed=3, device="cpu")
     draws = [tr.draw_flags(state, cfg) for _ in range(50)]
     assert {f for pair in draws for f in pair} == {0, 1, 2}
     no_joint = tr.TrainConfig(netg=DeepFillConfig(joint_train_inp=False))
     assert all(1 <= f <= 2 for _ in range(30)
                for f in tr.draw_flags(state, no_joint))
+
+
+def test_init_train_state_defaults_to_the_card(monkeypatch):
+    """Without a device the state goes to the GPU; with no GPU that raises
+    instead of training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tr.init_train_state(tr.TrainConfig())

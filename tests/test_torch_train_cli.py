@@ -121,12 +121,15 @@ def test_resume_is_exact(tmp_path):
     assert len(batches) == 2 and batches[0]["image"].dtype == np.uint8
     cfg = tr.TrainConfig()
 
-    full = tr.init_train_state(cfg, seed=1, flag_seed=2)
+    full = tr.init_train_state(cfg, seed=1, flag_seed=2,
+                              device="cpu")
     cli.train_loop(full, batches, cfg)
-    half = tr.init_train_state(cfg, seed=1, flag_seed=2)
+    half = tr.init_train_state(cfg, seed=1, flag_seed=2,
+                              device="cpu")
     cli.train_loop(half, batches[:1], cfg)
     ckpt.save_train_state(half, ns)
-    resumed = tr.init_train_state(cfg, seed=7, flag_seed=8)
+    resumed = tr.init_train_state(cfg, seed=7, flag_seed=8,
+                                 device="cpu")
     assert ckpt.load_train_state(ns, resumed)
     assert not ckpt.load_train_state(
         argparse.Namespace(checkpoints_dir=str(tmp_path), name="none"),
