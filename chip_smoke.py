@@ -34,7 +34,11 @@ Phases, in order; any failure raises and the exit code is not 0:
 6. training path: the train loop, 3 steps at 256^2, B = 8, in float32 and
    bfloat16 on batches from the editimage loader (synthetic PNGs), with
    the launch counts of the forward and both backward kernels, and a saved
-   checkpoint reloaded; then the train CLI for 2 steps;
+   checkpoint reloaded; held-out validation in process (8 items at 256^2,
+   float32: the kernel path's metrics against a dense netG's with the same
+   weights, one forward launch per call, its time); then the train CLI for
+   2 steps, and for 2 epochs with --val_image_dir and --nThreads 2 (the
+   spawned loader pool; val rows in metrics.jsonl, best_net_*);
 7. CLI: the batch inference CLI with test_celeb.sh's flags;
 8. serving: the BatchingExecutor on the EditPipeline in process (32
    concurrent submits; serve defaults and float32; the default, shared and
@@ -50,8 +54,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    function, the three forwards at 256^2 (B = 1 and 8), 512^2 and 1024^2
    with a `fwd_plan` line each (the default forward's rows per block,
    column slabs, resident blocks per SM and shared memory), served
-   throughput per --max_batch and client count); one JSON line per item,
-   and the `kernels` line. A float32 operations bound counts split TF32
+   throughput per --max_batch and client count, the editimage loader's
+   img/s per --nThreads alone and feeding the bfloat16 train loop, beside
+   the bfloat16 step's); one JSON line per item, and the `kernels` line. A float32 operations bound counts split TF32
    (three tensor-core passes) where that is faster than the CUDA cores.
 
 The weights are random, drawn from --seed: kaiming init scaled by 1.8
@@ -838,7 +843,8 @@ def main():
         aspect_ratio=1.0, isTrain=True, no_flip=False, canny_low=100,
         canny_high=200, decode_cache_mb=512, not_om=True, cjit=None,
         batchSize=8, serial_batches=False, dataset_mode="editimage",
-        checkpoints_dir=os.path.join(tmp.name, "train_ck"), name="smoke")
+        nThreads=0, checkpoints_dir=os.path.join(tmp.name, "train_ck"),
+        name="smoke")
     with contextlib.redirect_stdout(io.StringIO()):
         loader = data_mod.create_dataloader(ns)
     assert len(loader) == 3
@@ -882,6 +888,65 @@ def main():
               "last_losses": losses[-1], "params_changed": True,
               "checkpoint_reloads": True})
 
+    # held-out validation in process: 8 of the PNGs at 256^2 scored through
+    # netM and netG of a float32 train state, once with the kernel path and
+    # once with a dense netG carrying the same weights; netM is shared, so
+    # the hard masks and mask_iou agree exactly
+    from sketchedit_tpu_torch.models.deepfill_c2 import DeepFillC2Generator
+    from sketchedit_tpu_torch.options.train_options import TrainOptions
+    from sketchedit_tpu_torch.train.validation import Validator
+    with contextlib.redirect_stdout(io.StringIO()):
+        vopt = parse_argv(TrainOptions, [
+            "--name", "val", "--checkpoints_dir", ns.checkpoints_dir,
+            "--dataset_mode", "editimage", "--train_image_dir", pngs,
+            "--val_image_dir", pngs, "--preprocess_mode", "resize_and_crop",
+            "--load_size", "256", "--crop_size", "256", "--not_om"],
+            save=False)
+    state, cfg = train_state("float32", "kernel")
+    validator = Validator(vopt, cfg, pngs, items=8)
+    assert validator.image.shape == (8, 256, 256, 3)
+    dense_g = DeepFillC2Generator(DeepFillConfig(attention_impl="dense"),
+                                  device=dev)
+    dense_g.load_state_dict(state.nets["G"].state_dict())
+    saved = counts(attention_cuda)
+    zero_counts(attention_cuda)
+    val_k = validator.run(state.nets)
+    torch.cuda.synchronize()
+    val_launches = counts(attention_cuda)
+    # one eval-mode edit of the 8 items: one forward launch, as one edit
+    assert val_launches == expect(fwd=1), val_launches
+    val_d = validator.run({"M": state.nets["M"], "G": dense_g})
+    assert counts(attention_cuda) == val_launches, "the dense path launched"
+    val_diff = {k: abs(val_k[k] - val_d[k]) for k in val_k}
+    for k, v in val_k.items():
+        assert np.isfinite(v), (k, v)
+        tol = {"psnr": 1e-3, "region_psnr": 1e-3, "mask_iou": 0.0}.get(
+            k, 1e-5)
+        assert val_diff[k] <= tol, (k, val_k[k], val_d[k])
+    assert 0.0 < val_k["mask_iou"] < 1.0, val_k
+    val_ms = cuda_ms(lambda: validator.run(state.nets), reps=5, warmup=1)
+    # where a call's time goes: the eval edit of the 8 items, then the
+    # metrics on its outputs
+    from types import SimpleNamespace
+    from sketchedit_tpu_torch.models.editline2 import edit
+    from sketchedit_tpu_torch.utils import metrics as metrics_mod
+    view = SimpleNamespace(config=validator.config, netM=state.nets["M"],
+                           netG=state.nets["G"])
+    v_img, v_sk, v_reg = (torch.from_numpy(a).to(dev) for a in (
+        validator.image, validator.sketch, validator.region))
+    with torch.no_grad():
+        edit_ms = cuda_ms(lambda: edit(view, v_img, v_sk), reps=5, warmup=1)
+        v_out, _ = edit(view, v_img, v_sk)
+        ssim_ms = cuda_ms(lambda: metrics_mod.ssim(v_out, v_img), reps=5,
+                          warmup=1)
+    set_counts(attention_cuda, saved)
+    emit({"phase": "train_validation", "hw": [256, 256], "items": 8,
+          "dtype": "float32", "kernel": val_k, "dense": val_d,
+          "abs_diff": val_diff, "launches": val_launches,
+          "ms_per_call": val_ms, "edit_ms": edit_ms, "ssim_ms": ssim_ms,
+          **card})
+    del state, dense_g
+
     # the train CLI on the same PNGs: 16 images, B = 8, two steps
     cli_pngs = os.path.join(tmp.name, "cli_images")
     os.makedirs(cli_pngs)
@@ -902,6 +967,37 @@ def main():
     assert {"latest_net_M.npz", "latest_net_G.npz", "latest_net_D.npz",
             "train_state_latest.pt", "iter.txt"} <= files, files
     emit({"phase": "train_cli", "images": 16, "batch": 8, "steps": 2,
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+    # the train CLI with held-out validation and the spawned loader pool:
+    # 2 epochs of 2 steps, a validation after each, best_net_* and the
+    # metrics log
+    t0 = time.perf_counter()
+    run_dir = os.path.join(tmp.name, "cli_ck", "cli_val")
+    res = subprocess.run(
+        [sys.executable, "-m", "sketchedit_tpu_torch.cli.train", "--name",
+         "cli_val", "--checkpoints_dir", os.path.join(tmp.name, "cli_ck"),
+         "--dataset_mode", "editimage", "--train_image_dir", cli_pngs,
+         "--val_image_dir", pngs, "--val_items", "8", "--nThreads", "2",
+         "--batchSize", "8", "--niter", "2", "--use_cam", "--pool_type",
+         "max", "--joint_train_inp", "--not_om", "--preprocess_mode",
+         "resize_and_crop", "--load_size", "256", "--crop_size", "256",
+         "--save_epoch_freq", "1", "--print_freq", "8", "--device", "cuda"],
+        cwd=ROOT, timeout=600, capture_output=True, text=True)
+    assert res.returncode == 0, (res.stdout[-2000:], res.stderr[-3000:])
+    assert "loader: processes, nThreads 2" in res.stdout, res.stdout[-2000:]
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        rows = [json.loads(ln) for ln in fh]
+    assert [(r["kind"], r["epoch"]) for r in rows] == [
+        ("train", 1), ("train", 1), ("val", 1),
+        ("train", 2), ("train", 2), ("val", 2)], rows
+    val_rows = [r for r in rows if r["kind"] == "val"]
+    assert all(np.isfinite(r[k]) for r in val_rows for k in val_k)
+    assert val_rows[0]["best"] is True
+    files = set(os.listdir(run_dir))
+    assert {"best_net_M.npz", "best_net_G.npz", "best_net_D.npz"} <= files
+    emit({"phase": "train_cli_val", "images": 16, "val_items": 8,
+          "batch": 8, "epochs": 2, "nThreads": 2, "val_rows": val_rows,
           "seconds": round(time.perf_counter() - t0, 3)})
 
     # 7. CLI --------------------------------------------------------------
@@ -1388,6 +1484,7 @@ def main():
     # train step: 256^2, B = 8, flags (1, 1), through the kernels
     saved = counts(attention_cuda)
     tb = tr.batch_to_device(batch8, dev)
+    step_img_per_s = {}
     for dt, tf32 in (("float32", False), ("float32", True),
                      ("bfloat16", False)):
         state, cfg = train_state(dt, "auto")
@@ -1395,11 +1492,63 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = tf32
         ms = cuda_ms(lambda: tr.train_step(state, tb, 1, 1, cfg), reps=3,
                      warmup=1)
+        step_img_per_s[dt] = 8000.0 / ms
         emit({"phase": "time_train_step", "hw": [256, 256], "batch": 8,
               "dtype": dt, "tf32": tf32, "ms_per_step": ms,
               "img_per_s": 8000.0 / ms, **card})
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    del state
+
+    # the editimage loader's rate at 256^2, B = 8, per --nThreads, beside
+    # the bfloat16 step's: does the loader hold the step back? Alone (5
+    # epochs of 3 batches after one of warm-up, which starts the pool) and
+    # feeding the bfloat16 train loop (2 epochs after one of warm-up),
+    # against the loop over 3 batches held in memory; uncached (every item
+    # decoded, as on a dataset larger than the decode cache) and with the
+    # default 512 MB cache (the 24 PNGs fit)
+    state, cfg = train_state("bfloat16", "auto")
+    # the control: the train loop over the same 3 batches held in memory
+    with contextlib.redirect_stdout(io.StringIO()):
+        held = list(data_mod.create_dataloader(ns))
+    train_loop(state, held, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        train_loop(state, held, cfg)
+    torch.cuda.synchronize()
+    held_img_per_s = 2 * len(held) * 8 / (time.perf_counter() - t0)
+    del held
+    for cache_mb in (0, 512):
+        for n_threads in (0, 1, 2):
+            lns = argparse.Namespace(**{**vars(ns), "nThreads": n_threads,
+                                        "decode_cache_mb": cache_mb})
+            with contextlib.redirect_stdout(io.StringIO()):
+                loader = data_mod.create_dataloader(lns)
+            try:
+                for _ in loader:
+                    pass
+                t0 = time.perf_counter()
+                n_img = sum(b["valid"] for _ in range(5) for b in loader)
+                alone_s = time.perf_counter() - t0
+                train_loop(state, loader, cfg)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    train_loop(state, loader, cfg)
+                torch.cuda.synchronize()
+                loop_s = time.perf_counter() - t0
+            finally:
+                loader.close()
+            emit({"phase": "loader_rate", "hw": [256, 256], "batch": 8,
+                  "nThreads": n_threads, "mode": loader.mode,
+                  "decode_cache_mb": cache_mb,
+                  "loader_img_per_s": n_img / alone_s,
+                  "loop_img_per_s": 2 * len(loader) * 8 / loop_s,
+                  "held_batches_loop_img_per_s": held_img_per_s,
+                  "bf16_step_img_per_s": step_img_per_s["bfloat16"],
+                  "cpu_count": os.cpu_count(), **card})
+    del state
 
     # the backward kernels at the training path's shapes (256^2, B = 1 and
     # 8); the library call is the backward of SDPA on the same function,
@@ -1579,6 +1728,8 @@ def main():
             "source": "sketchedit_tpu_torch/csrc/contextual_attention_fwd.cu",
             "replaces": "sketchedit_tpu/ops/attention_pallas.py:53",
             "launches": launches[str(dt).split(".")[-1]],
+            **({"validation_launches": val_launches["fwd"]}
+               if dt == torch.float32 else {}),
             "max_abs_err": errs[tag],
             "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
             "bound_ms": max(t_bytes, t_ops),

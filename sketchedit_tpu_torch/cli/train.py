@@ -8,13 +8,21 @@ One G+D step per batch (``train/trainer.py``), checkpoints with the
 reference's ``{epoch}_net_{M,G,D}`` naming in the JAX layout, the full
 training state in ``train_state_latest.pt``, ``iter.txt`` resume, and a
 checkpoint-and-exit at the next step after SIGTERM or SIGINT (exit code
-128 + the signal). Held-out validation and multi-GPU runs are not ported
-and raise. ``train_loop`` runs the steps over any iterable of batches.
+128 + the signal). With ``--val_image_dir``, a held-out batch is scored
+every ``--val_epoch_freq`` epochs and at the last one (``train/
+validation.py``), and each improvement of ``--val_track`` saves
+``best_net_{M,G,D}``. ``--metrics_log`` (default ``auto``: ``metrics.jsonl``
+in the run directory) gets a ``train`` row at every print and a ``val`` row
+per validation. ``--nThreads`` selects the loader's workers
+(``data/__init__.py``). Multi-GPU runs are not ported and raise.
+``train_loop`` runs the steps over any iterable of batches.
 """
 
 from __future__ import annotations
 
 import signal
+
+import torch
 
 from sketchedit_tpu_torch import data
 from sketchedit_tpu_torch.device import resolve_device
@@ -24,7 +32,10 @@ from sketchedit_tpu_torch.params import checkpoint as ckpt
 from sketchedit_tpu_torch.runner import set_precision
 from sketchedit_tpu_torch.train.losses import load_vgg_params
 from sketchedit_tpu_torch.train.trainer import (
-    TrainConfig, batch_to_device, draw_flags, init_train_state, train_step)
+    TrainConfig, draw_flags, host_tensors, init_train_state, train_step)
+from sketchedit_tpu_torch.train.validation import (
+    MetricsLog, build_validator, is_improvement, recover_best,
+    resolve_val_track)
 from sketchedit_tpu_torch.utils.iter_counter import IterationCounter
 
 
@@ -32,14 +43,37 @@ def train_loop(state, batches, cfg: TrainConfig, *, vgg_params=None,
                on_step=None):
     """One ``train_step`` per batch of numpy arrays (a loader batch), on the
     device of the state's nets, with branch flags drawn from the state's
-    generator. ``on_step(metrics)`` runs after each step."""
+    generator. ``on_step(metrics)`` runs after each step.
+
+    Each batch is staged (pinned, then copied asynchronously) before the
+    step of the batch ahead of it is dispatched, so reading and pinning it
+    overlaps the step on the device; a pinned buffer stays referenced until
+    the event recorded after its copy has passed."""
     device = next(state.nets["G"].parameters()).device
-    for batch in batches:
+    in_flight = []                  # (pinned host tensors, copy-done event)
+
+    def stage(batch):
+        if batch is None:
+            return None
         if not cfg.lambda_mask_rec:
             batch = {k: v for k, v in batch.items() if k != "region_gt"}
+        host = host_tensors(batch, pin=device.type == "cuda")
+        staged = {k: v.to(device, non_blocking=True) for k, v in host.items()}
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            in_flight[:] = [(h, e) for h, e in in_flight if not e.query()]
+            in_flight.append((host, done))
+        return staged
+
+    batch_it = iter(batches)
+    staged = stage(next(batch_it, None))
+    while staged is not None:
+        current = staged
+        staged = stage(next(batch_it, None))
         flag_g, flag_d = draw_flags(state, cfg)
-        _, metrics = train_step(state, batch_to_device(batch, device),
-                                flag_g, flag_d, cfg, vgg_params)
+        _, metrics = train_step(state, current, flag_g, flag_d, cfg,
+                                vgg_params)
         if on_step is not None:
             on_step(metrics)
 
@@ -69,10 +103,6 @@ def config_from_opt(opt, steps_per_epoch: int, vgg_found: bool) -> TrainConfig:
 
 def check_ported(opt):
     """Raise on the options whose code paths the port does not have."""
-    if opt.val_image_dir:
-        raise NotImplementedError(
-            "--val_image_dir: held-out validation is not ported yet "
-            "(ROADMAP.md queue 1 item 11)")
     if opt.data_parallel > 1 or len(opt.gpu_ids) > 1:
         raise NotImplementedError(
             "multi-GPU training is not ported yet (ROADMAP.md queue 1 "
@@ -85,6 +115,7 @@ def main():
     device = resolve_device(opt.device)
 
     dataloader = data.create_dataloader(opt)
+    print(f"loader: {dataloader.mode}, nThreads {dataloader.num_workers}")
     steps_per_epoch = max(1, len(dataloader.dataset) // opt.batchSize)
     vgg_params = load_vgg_params(device=device)
     cfg = config_from_opt(opt, steps_per_epoch, vgg_params is not None)
@@ -106,6 +137,19 @@ def main():
             if loaded is not None:
                 state.nets[label].load_state_dict(loaded)
                 print(f"resumed net {label} (weights only)")
+
+    opt.val_track = resolve_val_track(opt)
+    metrics_log = MetricsLog.from_opt(opt)
+    validator = build_validator(opt, cfg)
+    best_val = None
+    if opt.continue_train and metrics_log is not None:
+        best_val = recover_best(metrics_log.path, opt.val_track)
+        if best_val is not None:
+            print(f"resumed best {opt.val_track} = {best_val}")
+    if validator is not None:
+        print(f"validation: {validator.image.shape[0]} held-out items "
+              f"from {opt.val_image_dir} every {opt.val_epoch_freq} epochs "
+              f"(best checkpoint tracks {opt.val_track})")
 
     iter_counter = IterationCounter(opt, len(dataloader.dataset))
     stop_signum = None
@@ -131,9 +175,14 @@ def main():
             raise SystemExit(128 + stop_signum)
         if iter_counter.needs_printing():
             vals = {k: round(float(v), 4) for k, v in metrics.items()}
+            ms_per_img = iter_counter.time_per_iter * 1000
             print(f"epoch {epoch} iter {iter_counter.epoch_iter} "
-                  f"({iter_counter.time_per_iter * 1000:.0f} ms/img) {vals}",
-                  flush=True)
+                  f"({ms_per_img:.0f} ms/img) {vals}", flush=True)
+            if metrics_log is not None:
+                metrics_log.log({"kind": "train", "epoch": epoch,
+                                 "iter": iter_counter.epoch_iter,
+                                 "ms_per_img": round(ms_per_img, 1),
+                                 "losses": vals})
         if iter_counter.needs_saving():
             save_latest()
             iter_counter.record_current_iter()
@@ -141,16 +190,34 @@ def main():
     signal.signal(signal.SIGTERM, request_stop)
     signal.signal(signal.SIGINT, request_stop)
 
-    for epoch in iter_counter.training_epochs():
-        iter_counter.record_epoch_start(epoch)
-        train_loop(state, dataloader, cfg, vgg_params=vgg_params,
-                   on_step=on_step)
-        iter_counter.record_epoch_end()
-        if (epoch % opt.save_epoch_freq == 0
-                or epoch == iter_counter.total_epochs):
-            ckpt.save_pipeline(state.nets, epoch, opt)   # and 'latest'
-            ckpt.save_train_state(state, opt)
-            print(f"saved the model at the end of epoch {epoch}")
+    try:
+        for epoch in iter_counter.training_epochs():
+            iter_counter.record_epoch_start(epoch)
+            train_loop(state, dataloader, cfg, vgg_params=vgg_params,
+                       on_step=on_step)
+            iter_counter.record_epoch_end()
+            if validator is not None and (
+                    epoch % opt.val_epoch_freq == 0
+                    or epoch == iter_counter.total_epochs):
+                vals = {k: round(v, 4)
+                        for k, v in validator.run(state.nets).items()}
+                if is_improvement(opt.val_track, vals[opt.val_track],
+                                  best_val):
+                    best_val = vals[opt.val_track]
+                    ckpt.save_pipeline(state.nets, "best", opt)
+                    vals["best"] = True
+                print(f"validation epoch {epoch}: {vals}", flush=True)
+                if metrics_log is not None:
+                    metrics_log.log({"kind": "val", "epoch": epoch, **vals})
+            if (epoch % opt.save_epoch_freq == 0
+                    or epoch == iter_counter.total_epochs):
+                ckpt.save_pipeline(state.nets, epoch, opt)   # and 'latest'
+                ckpt.save_train_state(state, opt)
+                print(f"saved the model at the end of epoch {epoch}")
+    finally:
+        dataloader.close()
+        if metrics_log is not None:
+            metrics_log.close()
 
 
 if __name__ == "__main__":

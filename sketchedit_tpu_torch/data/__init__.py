@@ -1,4 +1,4 @@
-"""Dataset registry and a serial batch loader (counterpart of
+"""Dataset registry and a prefetching batch loader (counterpart of
 ``sketchedit_tpu/data/__init__.py``) for ``dataset_mode`` ``testimage``,
 ``editimage`` (training) and ``base`` (no dataset).
 
@@ -8,11 +8,19 @@ sample and flagged by ``valid``; items in the compact protocol (uint8
 ``image_u8`` and bool masks, as ``EditImageDataset`` gives them) are
 expanded to float32 unless ``compact``, in which case the batch keeps the
 uint8 image as ``image`` and the bool masks, and the trainer expands them
-on the device. ``DataLoader`` is the JAX loader without its worker pools:
-the same order (shuffled from ``seed + epoch``) and the same items.
+on the device. ``DataLoader`` is the JAX loader: the same order (shuffled
+from ``seed + epoch``), the same items and the same worker paths (a
+prefetch thread, a spawned process pool). This package imports no torch:
+a spawned worker needs only numpy and PIL for its items and never
+initializes CUDA.
 """
 
 from __future__ import annotations
+
+import concurrent.futures as _futures
+import itertools
+import multiprocessing as _mp
+import os
 
 import numpy as np
 
@@ -76,20 +84,63 @@ def collate(samples, batch_size: int, compact: bool = False):
     return batch
 
 
+# --- spawned-worker plumbing (module level: a fresh interpreter imports it)
+
+_WORKER_STATE: dict = {}
+
+
+def _worker_init(dataset, base_seed, n_workers=1):
+    # a dataset's decode-cache cap (--decode_cache_mb) is a total budget:
+    # chunks go to workers by position, not by index, so every worker
+    # eventually sees every item, and an undivided cap per process would
+    # multiply the loader's memory by the worker count
+    if n_workers > 1 and getattr(dataset, "_cache_cap", 0):
+        dataset._cache_cap //= n_workers
+    _WORKER_STATE["ds"] = dataset
+    _WORKER_STATE["seed"] = base_seed
+
+
+def _worker_get(args):
+    idx, epoch = args
+    ds = _WORKER_STATE["ds"]
+    if hasattr(ds, "reseed"):
+        ds.reseed((_WORKER_STATE["seed"], epoch, idx))
+    return ds[idx]
+
+
+def _worker_get_chunk(args):
+    idxs, epoch = args
+    return [_worker_get((i, epoch)) for i in idxs]
+
+
 class DataLoader:
-    """Ordered or shuffled batches, read serially. Each pass over it is one
-    epoch; shuffling draws the order from ``seed + epoch``."""
+    """Ordered or shuffled batches. Each pass over it is one epoch;
+    shuffling draws the order from ``seed + epoch``.
+
+    ``num_workers`` 0 reads in the caller's thread. 1, or more on a
+    single-core host, prefetches 2 batches on one background thread (the
+    numpy glue holds the interpreter lock, so more threads only contend);
+    the items are those of the serial path. More on a multi-core host (or
+    with ``SKETCHEDIT_FORCE_PROCESS_WORKERS=1``) uses a persistent pool of
+    spawned processes that prefetches 3 batches, each batch split in chunks
+    across the workers and each item drawn after ``reseed((seed, epoch,
+    index))``, so a batch does not depend on the worker count. Spawn, not
+    fork: the training process holds a CUDA context. A failed read raises
+    in the caller.
+    """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0,
+                 num_workers: int = 0, drop_last: bool = False, seed: int = 0,
                  compact: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.num_workers = max(0, num_workers)
         self.drop_last = drop_last
         self.seed = seed
         self.compact = compact
         self._epoch = 0
+        self._pool = None
 
     def __len__(self):
         n = len(self.dataset)
@@ -97,8 +148,13 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def __iter__(self):
-        self._epoch += 1
+    def close(self):
+        """Stop the worker processes, if any were started."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+
+    def _index_batches(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(order)
@@ -107,7 +163,67 @@ class DataLoader:
             idx = order[start:start + bs]
             if self.drop_last and len(idx) < bs:
                 return
-            yield collate([self.dataset[i] for i in idx], bs, self.compact)
+            yield idx
+
+    def _collate(self, samples):
+        return collate(samples, self.batch_size, self.compact)
+
+    @property
+    def mode(self) -> str:
+        """'serial', 'thread' or 'processes': the path ``__iter__`` takes."""
+        if self.num_workers == 0:
+            return "serial"
+        force = os.environ.get("SKETCHEDIT_FORCE_PROCESS_WORKERS") == "1"
+        if self.num_workers > 1 and ((os.cpu_count() or 1) > 1 or force):
+            return "processes"
+        return "thread"
+
+    def __iter__(self):
+        self._epoch += 1
+        mode = self.mode
+        if mode == "serial":
+            for idx in self._index_batches():
+                yield self._collate([self.dataset[i] for i in idx])
+            return
+        if mode == "processes":
+            yield from self._iter_processes()
+            return
+        with _futures.ThreadPoolExecutor(1) as pool:
+            batches = self._index_batches()
+            inflight = [pool.map(self.dataset.__getitem__, idx)
+                        for idx in itertools.islice(batches, 2)]
+            for nxt in batches:
+                current = inflight.pop(0)
+                inflight.append(pool.map(self.dataset.__getitem__, nxt))
+                yield self._collate(list(current))
+            for current in inflight:
+                yield self._collate(list(current))
+
+    def _iter_processes(self):
+        if self._pool is None:
+            self._pool = _futures.ProcessPoolExecutor(
+                self.num_workers, mp_context=_mp.get_context("spawn"),
+                initializer=_worker_init,
+                initargs=(self.dataset, self.seed, self.num_workers))
+        pool, epoch = self._pool, self._epoch
+
+        def submit(idx):
+            # a batch in chunks across the workers: fewer, larger messages
+            chunks = np.array_split(np.asarray(idx, int), self.num_workers)
+            return [pool.submit(_worker_get_chunk, (c.tolist(), epoch))
+                    for c in chunks if len(c)]
+
+        def gather(futs):
+            return self._collate([s for f in futs for s in f.result()])
+
+        batches = self._index_batches()
+        inflight = [submit(idx) for idx in itertools.islice(batches, 3)]
+        for nxt in batches:
+            current = inflight.pop(0)
+            inflight.append(submit(nxt))
+            yield gather(current)
+        for current in inflight:
+            yield gather(current)
 
 
 def create_dataloader(opt):
@@ -118,5 +234,25 @@ def create_dataloader(opt):
           "was created")
     train = bool(getattr(opt, 'isTrain', False))
     return DataLoader(instance, batch_size=opt.batchSize,
-                      shuffle=not opt.serial_batches, drop_last=train,
+                      shuffle=not opt.serial_batches,
+                      num_workers=int(opt.nThreads), drop_last=train,
                       compact=train)
+
+
+def create_dataloader_trainval(opt):
+    """Train and val loaders over ``--dataset_mode_train`` and
+    ``--dataset_mode_val``: the train loader shuffles (unless
+    --serial_batches) and drops the remainder, the val loader keeps the
+    order and pads its last batch."""
+    assert opt.isTrain
+    loaders = []
+    for mode, shuffle, drop in ((opt.dataset_mode_train,
+                                 not opt.serial_batches, True),
+                                (opt.dataset_mode_val, False, False)):
+        instance = find_dataset_using_name(mode)()
+        instance.initialize(opt)
+        loaders.append(DataLoader(instance, batch_size=opt.batchSize,
+                                  shuffle=shuffle,
+                                  num_workers=int(opt.nThreads),
+                                  drop_last=drop))
+    return tuple(loaders)

@@ -55,8 +55,12 @@ class BaseOptions:
         parser.add_argument('--serial_batches', action='store_true')
         parser.add_argument('--no_flip', action='store_true')
         parser.add_argument('--nThreads', default=0, type=int,
-                            help='accepted for script compatibility; the '
-                                 'port reads its datasets serially')
+                            help='loader workers: 0 reads in the main '
+                                 'process; 1 (or more on a one-core host) '
+                                 'prefetches 2 batches on a thread; more '
+                                 'on a multi-core host prefetch 3 batches '
+                                 'in a pool of spawned processes, each item '
+                                 'drawn from (seed, epoch, index)')
         parser.add_argument('--max_dataset_size', type=int, default=sys.maxsize)
         parser.add_argument('--load_from_opt_file', action='store_true')
         parser.add_argument('--display_winsize', type=int, default=400,
@@ -147,11 +151,14 @@ class BaseOptions:
         lines.append('----------------- End -------------------')
         print('\n'.join(lines))
 
-    def parse(self):
+    def parse(self, save=None):
+        """save: None snapshots opt.txt and opt.json for training runs
+        only; False never does (an evaluation script parsing train options
+        must not overwrite the run's snapshot); True always does."""
         opt = self.gather_options()
         opt.isTrain = self.isTrain
         self.print_options(opt)
-        if opt.isTrain:
+        if (opt.isTrain and save is not False) or save:
             self.save_options(opt)
         opt.gpu_ids = [int(s) for s in str(opt.gpu_ids).split(',')
                        if s and int(s) >= 0]

@@ -1,10 +1,9 @@
 """Training options (a copy of ``sketchedit_tpu/options/train_options.py``
 on the port's base options, which add ``--device``).
 
-Held-out validation (``--val_image_dir`` and the flags beside it) and
-multi-GPU runs (``--data_parallel``, several ``--gpu_ids``) are registered
+Multi-GPU runs (``--data_parallel``, several ``--gpu_ids``) are registered
 so that the JAX CLI's command lines parse, but the port's train CLI raises
-on them: they are ROADMAP queue 1 items 11 and 12.
+on them: they are ROADMAP queue 1 item 12.
 """
 
 from sketchedit_tpu_torch.options.base_options import BaseOptions
@@ -79,15 +78,23 @@ class TrainOptions(BaseOptions):
                                  'files.list cache next to the data')
         parser.add_argument('--cache_filelist_read', action='store_true',
                             help='read the files.list cache if present')
-        # held-out validation: not ported (ROADMAP queue 1 item 11)
+        # held-out validation (train/validation.py)
         parser.add_argument('--val_image_dir', type=str, default='',
-                            help='not ported: the port raises when set')
-        parser.add_argument('--val_items', type=int, default=8)
-        parser.add_argument('--val_epoch_freq', type=int, default=1)
+                            help='held-out image dir; when set, PSNR/SSIM/'
+                                 'mask-IoU validation runs during training')
+        parser.add_argument('--val_items', type=int, default=8,
+                            help='held-out items in the fixed val batch')
+        parser.add_argument('--val_epoch_freq', type=int, default=1,
+                            help='validate every N epochs')
         parser.add_argument('--val_track', type=str, default='auto',
                             choices=['auto', 'psnr', 'ssim', 'region_psnr',
-                                     'region_l1', 'outside_l1', 'mask_iou'])
-        parser.add_argument('--metrics_log', type=str, default='auto')
+                                     'region_l1', 'outside_l1', 'mask_iou'],
+                            help='metric deciding the best_net_* snapshot; '
+                                 "'auto' = mask_iou with --lambda_mask_rec "
+                                 '> 0, else psnr')
+        parser.add_argument('--metrics_log', type=str, default='auto',
+                            help="JSONL metrics log: 'auto' = <run_dir>/"
+                                 "metrics.jsonl, 'off' disables, else a path")
         # multi-GPU: not ported (ROADMAP queue 1 item 12)
         parser.add_argument('--data_parallel', type=int, default=0,
                             help='not ported: the port raises above 1')

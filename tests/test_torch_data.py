@@ -1,9 +1,11 @@
 """The port's training data pipeline (its copies of the JAX package's
 editimage dataset, MaskCreator, transforms and image listing, the compact
-collate and the serial loader) gives arrays identical to the JAX package's
-from the same seed."""
+collate and the loader on each of its paths: serial, prefetch thread and
+spawned process pool) gives arrays identical to the JAX package's from the
+same seed."""
 
 import argparse
+import os
 
 import numpy as np
 import pytest
@@ -52,7 +54,7 @@ def _opt(images, mode, **kw):
                 canny_high=200, decode_cache_mb=1, not_om=False, cjit=None,
                 path_objectshape_list=None, path_objectshape_base=None,
                 max_dataset_size=None, batchSize=2, serial_batches=False,
-                dataset_mode="editimage")
+                dataset_mode="editimage", nThreads=0)
     base.update(kw)
     return argparse.Namespace(**base)
 
@@ -152,3 +154,109 @@ def test_create_dataloader_train_and_test_modes(images):
     assert batch["image"].dtype == np.uint8 and batch["mask"].dtype == bool
     with pytest.raises(ValueError, match="unknown dataset_mode"):
         t_data.find_dataset_using_name("nosuch")
+
+
+def _loader_pair(images, **kw):
+    opt = _opt(images, "resize_and_crop", **kw)
+    return j_data.create_dataloader(opt), t_data.create_dataloader(opt)
+
+
+def _assert_epochs_equal(t_loader, j_loader, epochs=2):
+    for _ in range(epochs):
+        got, want = list(t_loader), list(j_loader)
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            _assert_items_equal(g, w)
+
+
+def test_create_dataloader_trainval_identical(images):
+    opt = _opt(images, "resize_and_crop", dataset_mode_train="editimage",
+               dataset_mode_val="editimage", batchSize=3)
+    j_train, j_val = j_data.create_dataloader_trainval(opt)
+    t_train, t_val = t_data.create_dataloader_trainval(opt)
+    for t_l, j_l in ((t_train, j_train), (t_val, j_val)):
+        assert ((t_l.shuffle, t_l.drop_last, t_l.compact, t_l.num_workers)
+                == (j_l.shuffle, j_l.drop_last, j_l.compact,
+                    j_l.num_workers))
+        _assert_epochs_equal(t_l, j_l)
+    assert len(t_train) == 1 and len(t_val) == 2      # 4 items, B = 3
+    assert next(iter(t_val))["valid"] == 3
+
+
+def test_thread_prefetch_identical_to_jax_and_serial(images):
+    j_loader, t_loader = _loader_pair(images, nThreads=1)
+    assert t_loader.mode == "thread" and t_loader.num_workers == 1
+    _assert_epochs_equal(t_loader, j_loader, epochs=3)
+    # the thread reads the serial path's items in the serial path's order
+    serial = _loader_pair(images, nThreads=0)[1]
+    threaded = _loader_pair(images, nThreads=1)[1]
+    assert serial.mode == "serial"
+    _assert_epochs_equal(threaded, serial)
+
+
+class _FailingDataset:
+    """Item 2 cannot be read (module level, so that it pickles)."""
+
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, i):
+        if i == 2:
+            raise OSError("unreadable item 2")
+        return {"image": np.full((2, 2, 3), i, np.float32)}
+
+
+def test_a_failed_read_raises_in_the_caller():
+    loader = t_data.DataLoader(_FailingDataset(), 2, num_workers=1)
+    with pytest.raises(OSError, match="unreadable item 2"):
+        list(loader)
+
+
+def test_loader_mode_follows_workers_and_cores(monkeypatch):
+    monkeypatch.delenv("SKETCHEDIT_FORCE_PROCESS_WORKERS", raising=False)
+    ds = _FailingDataset()
+    monkeypatch.setattr(os, "cpu_count", lambda: 8)
+    assert [t_data.DataLoader(ds, 2, num_workers=n).mode
+            for n in (0, 1, 2)] == ["serial", "thread", "processes"]
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    assert t_data.DataLoader(ds, 2, num_workers=2).mode == "thread"
+    monkeypatch.setenv("SKETCHEDIT_FORCE_PROCESS_WORKERS", "1")
+    assert t_data.DataLoader(ds, 2, num_workers=2).mode == "processes"
+
+
+def test_worker_init_splits_the_decode_cache():
+    class _DS:
+        _cache_cap = 512 << 20
+
+    for n, want in ((4, (512 << 20) // 4), (1, 512 << 20)):
+        ds = _DS()
+        t_data._worker_init(ds, 0, n)
+        assert ds._cache_cap == want
+    t_data._WORKER_STATE.clear()
+
+
+def test_spawn_pool_identical_across_workers_and_to_jax(images, monkeypatch):
+    """The forced pool of spawned processes: the same batches with 2 and 3
+    workers, and the JAX pool's, over two epochs (items reseeded from
+    (seed, epoch, index))."""
+    monkeypatch.setenv("SKETCHEDIT_FORCE_PROCESS_WORKERS", "1")
+
+    def run(loader):
+        try:
+            return [list(loader) for _ in range(2)]
+        finally:
+            loader.close()
+
+    j2, t2 = _loader_pair(images, nThreads=2)
+    t3 = _loader_pair(images, nThreads=3)[1]
+    assert t2.mode == t3.mode == "processes"
+    want, got2, got3 = run(j2), run(t2), run(t3)
+    assert t2._pool is None and t3._pool is None      # closed
+    for epoch in range(2):
+        assert len(want[epoch]) == len(got2[epoch]) == len(got3[epoch]) == 2
+        for w, a, b in zip(want[epoch], got2[epoch], got3[epoch]):
+            _assert_items_equal(a, w)
+            _assert_items_equal(b, w)
+    # the pool reseeds per item: epochs differ in their draws
+    assert not all(np.array_equal(a["mask"], b["mask"])
+                   for a, b in zip(got2[0], got2[1]))

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``sketchedit_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and every module imports
-on a machine with neither a GPU nor a CUDA toolkit."""
+"""The port stands alone: no module of ``sketchedit_tpu_torch``, not its
+scripts and not ``chip_smoke.py`` imports JAX or the JAX package, every
+module imports on a machine with neither a GPU nor a CUDA toolkit, and the
+data package (what a spawned loader worker runs) imports no torch."""
 
 import ast
 import importlib
@@ -10,7 +11,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "sketchedit_tpu_torch").rglob("*.py"))
-SCANNED = PORT_FILES + [ROOT / "chip_smoke.py"]
+SCANNED = PORT_FILES + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "scripts").glob("*_torch.py"))
+DATA_FILES = sorted((ROOT / "sketchedit_tpu_torch" / "data").glob("*.py"))
 
 
 def _imported_modules(path):
@@ -59,6 +62,20 @@ def test_scanner_catches_forbidden_imports(tmp_path):
                    "from sketchedit_tpu_torch.ops import image\n")
     assert [m for m in _imported_modules(src) if _forbidden(m)] == [
         "jax.numpy", "sketchedit_tpu.ops", "sketchedit_tpu"]
+
+
+def test_scan_covers_the_eval_scripts():
+    names = {p.name for p in SCANNED}
+    assert {"edit_eval_torch.py", "mask_eval_torch.py"} <= names
+    assert len(DATA_FILES) >= 5
+
+
+@pytest.mark.parametrize("path", DATA_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_data_package_imports_no_torch(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] == "torch"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -1,10 +1,12 @@
 """The port's train CLI on the CPU: two steps on four 32^2 PNGs, checkpoints
 that the JAX package loads (its forward then matches the port's), an exact
-resume of the training state, checkpoint-and-exit on SIGTERM, and the
-refusals (no GPU without --device cpu; validation and multi-GPU not
-ported). Forward tolerance: atol 1e-4, float32 on both sides."""
+resume of the training state, held-out validation with the metrics log and
+best checkpoints (loaded through the spawned loader pool), checkpoint-and-
+exit on SIGTERM, and the refusals (no GPU without --device cpu; multi-GPU
+not ported). Forward tolerance: atol 1e-4, float32 on both sides."""
 
 import argparse
+import json
 import os
 import signal
 import subprocess
@@ -55,10 +57,18 @@ def _flags(imgs, ck, name, *extra):
             *extra]
 
 
-def _run_cli(args, timeout=300):
+def _run_cli(args, timeout=300, env=None):
+    # one intra-op thread: at 32^2 more threads only add contention, which
+    # the parallel test workers multiply
     return subprocess.run(
         [sys.executable, "-m", "sketchedit_tpu_torch.cli.train", *args],
-        capture_output=True, text=True, timeout=timeout, cwd=REPO)
+        capture_output=True, text=True, timeout=timeout, cwd=REPO,
+        env={**os.environ, "OMP_NUM_THREADS": "1", **(env or {})})
+
+
+def _rows(run_dir):
+    with open(run_dir / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
 
 
 def test_cli_two_steps_and_jax_loads_the_checkpoints(tmp_path):
@@ -73,6 +83,12 @@ def test_cli_two_steps_and_jax_loads_the_checkpoints(tmp_path):
     for label in "MGD":
         assert {f"latest_net_{label}.npz", f"1_net_{label}.npz"} <= files
     assert {"train_state_latest.pt", "iter.txt", "opt.json"} <= files
+    # --metrics_log defaults to auto: one train row per print
+    rows = _rows(run)
+    assert [(r["kind"], r["epoch"], r["iter"]) for r in rows] == [
+        ("train", 1, 2), ("train", 1, 4)]
+    assert set(rows[0]["losses"]) >= {"G_total", "L1f", "D_Fake"}
+    assert not any(f.startswith("best_") for f in files)
 
     # the JAX package reads the .npz files; its forward equals the port's
     rs = np.random.RandomState(1)
@@ -116,7 +132,7 @@ def test_resume_is_exact(tmp_path):
         aspect_ratio=1.0, isTrain=True, no_flip=True, canny_low=100,
         canny_high=200, decode_cache_mb=1, not_om=True, cjit=None,
         batchSize=2, serial_batches=True, dataset_mode="editimage",
-        checkpoints_dir=str(tmp_path / "ck"), name="r")
+        nThreads=0, checkpoints_dir=str(tmp_path / "ck"), name="r")
     batches = list(data.create_dataloader(ns))
     assert len(batches) == 2 and batches[0]["image"].dtype == np.uint8
     cfg = tr.TrainConfig()
@@ -178,10 +194,49 @@ def test_cli_sigterm_checkpoints_and_exits(tmp_path):
             "train_state_latest.pt", "iter.txt"} <= files
 
 
+def test_cli_validation_writes_val_rows_and_best_nets(tmp_path):
+    """--val_image_dir over 2 epochs with --nThreads 2 (the forced spawn
+    pool): train and val rows in metrics.jsonl, best_net_{M,G,D} equal to
+    the epoch of the last improvement; --continue_train recovers the
+    best value from the log."""
+    imgs = _pngs(tmp_path / "imgs")
+    ck = tmp_path / "ck"
+    flags = _flags(imgs, ck, "val", "--device", "cpu", "--val_image_dir",
+                   str(imgs), "--val_items", "3", "--nThreads", "2")
+    force = {"SKETCHEDIT_FORCE_PROCESS_WORKERS": "1"}
+    res = _run_cli([*flags, "--niter", "2"], env=force)
+    assert res.returncode == 0, (res.stdout[-2000:], res.stderr[-3000:])
+    assert "loader: processes, nThreads 2" in res.stdout
+    assert "validation: 3 held-out items" in res.stdout
+    run = ck / "val"
+    rows = _rows(run)
+    assert [(r["kind"], r["epoch"]) for r in rows] == [
+        ("train", 1), ("train", 1), ("val", 1),
+        ("train", 2), ("train", 2), ("val", 2)]
+    val = [r for r in rows if r["kind"] == "val"]
+    assert all(np.isfinite(r[k]) for r in val for k in
+               ("psnr", "ssim", "region_psnr", "region_l1", "outside_l1",
+                "mask_iou"))
+    assert val[0]["best"] is True
+    assert val[1].get("best", False) == (val[1]["psnr"] > val[0]["psnr"])
+    best_epoch = 2 if val[1].get("best") else 1
+    for label in "MGD":
+        with np.load(run / f"best_net_{label}.npz") as best, \
+                np.load(run / f"{best_epoch}_net_{label}.npz") as want:
+            assert best.files == want.files
+            for k in best.files:
+                np.testing.assert_array_equal(best[k], want[k])
+
+    # the resumed run has no epoch left to train: it only starts up
+    res = _run_cli([*flags, "--niter", "2", "--continue_train"], env=force)
+    assert res.returncode == 0, (res.stdout[-2000:], res.stderr[-3000:])
+    best_psnr = max(r["psnr"] for r in val)
+    assert f"resumed best psnr = {best_psnr}" in res.stdout
+    assert _rows(run) == rows
+
+
 @pytest.mark.parametrize("extra,error,match", [
     ((), RuntimeError, "CUDA is not available"),
-    (("--device", "cpu", "--val_image_dir", "x"), NotImplementedError,
-     "ROADMAP"),
     (("--device", "cpu", "--gpu_ids", "0,1"), NotImplementedError,
      "ROADMAP"),
 ])
