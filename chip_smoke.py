@@ -55,8 +55,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    with a `fwd_plan` line each (the default forward's rows per block,
    column slabs, resident blocks per SM and shared memory), served
    throughput per --max_batch and client count, the editimage loader's
-   img/s per --nThreads alone and feeding the bfloat16 train loop, beside
-   the bfloat16 step's); one JSON line per item, and the `kernels` line. A float32 operations bound counts split TF32
+   steady img/s per --nThreads over 50-batch epochs of 512^2 photo-like
+   PNGs, alone and feeding the bfloat16 train loop, beside the loop over
+   held batches and the bfloat16 step); one JSON line per item, and the `kernels` line. A float32 operations bound counts split TF32
    (three tensor-core passes) where that is faster than the CUDA cores.
 
 The weights are random, drawn from --seed: kaiming init scaled by 1.8
@@ -70,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -286,6 +288,22 @@ def train_batch(B, H, seed):
     return out
 
 
+
+
+def photo_like(rs, size):
+    """A seeded stand-in for a photograph: smooth colour fields, a few
+    hard-edged shapes and mild sensor noise, as uint8 HWC."""
+    from PIL import Image
+    low = (rs.rand(8, 8, 3) * 255).astype(np.uint8)
+    img = np.asarray(Image.fromarray(low).resize((size, size),
+                                                 Image.BICUBIC), np.float32)
+    for _ in range(6):
+        y0, x0 = rs.randint(0, size - 32, 2)
+        h, w = rs.randint(32, size // 2, 2)
+        img[y0:y0 + h, x0:x0 + w] = (img[y0:y0 + h, x0:x0 + w] * 0.5
+                                     + rs.rand(3) * 127)
+    img += rs.randn(size, size, 3) * 4
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def main():
@@ -1500,54 +1518,109 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     del state
 
-    # the editimage loader's rate at 256^2, B = 8, per --nThreads, beside
-    # the bfloat16 step's: does the loader hold the step back? Alone (5
-    # epochs of 3 batches after one of warm-up, which starts the pool) and
-    # feeding the bfloat16 train loop (2 epochs after one of warm-up),
-    # against the loop over 3 batches held in memory; uncached (every item
+    # the editimage loader at 256^2, B = 8, per --nThreads, beside the
+    # bfloat16 step: does it hold the step back in steady state? 400 seeded
+    # photo-like PNGs at 512^2, resized to 256^2 as a dataset of larger
+    # photos is, so an epoch is 50 batches. Per path, uncached (every item
     # decoded, as on a dataset larger than the decode cache) and with the
-    # default 512 MB cache (the 24 PNGs fit)
+    # default 512 MB cache: two epochs alone (the first starts the pool and
+    # fills the cache), then one feeding the bfloat16 train loop. The steady
+    # rate leaves out each epoch's first `skip` batches; `fill_s` is the
+    # wait for the first batch of an epoch. The control is the loop over
+    # the same 50 batches held in memory.
+    photos = os.path.join(tmp.name, "photos")
+    os.makedirs(photos)
+    r = np.random.RandomState(args.seed + 700)
+    arrays = [photo_like(r, 512) for _ in range(400)]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda i: Image.fromarray(arrays[i]).save(
+            os.path.join(photos, f"{i:04d}.png")), range(len(arrays))))
+    del arrays
+    pns = argparse.Namespace(**{**vars(ns), "train_image_dir": photos})
+    skip = 10
+
+    def rates(stamps, start, end):
+        n = len(stamps)
+        return {"steady_img_per_s": 8 * (n - skip) / (end - stamps[skip - 1]),
+                "epoch_img_per_s": 8 * n / (end - start),
+                "fill_s": stamps[0] - start}
+
+    def alone(loader):
+        stamps, start, cpu0 = [], time.perf_counter(), time.process_time()
+        for _ in loader:
+            stamps.append(time.perf_counter())
+        return {**rates(stamps, start, stamps[-1]),
+                "main_cpu_s": time.process_time() - cpu0}
+
+    def fed(batches):
+        # a step's stamp is taken once it is dispatched; the end waits for
+        # the device, so the steady window also counts the steps in flight
+        stamps = []
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        train_loop(state, batches, cfg,
+                   on_step=lambda m: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        return rates(stamps, start, time.perf_counter())
+
+    def proc_stats(pid):
+        # resident memory, CPU seconds, and whether torch or a CUDA device
+        # file is mapped there
+        with open(f"/proc/{pid}/status") as f:
+            rss_kb = int(f.read().split("VmRSS:")[1].split()[0])
+        with open(f"/proc/{pid}/stat") as f:
+            ticks = f.read().rsplit(")", 1)[1].split()
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+        return {"rss_mb": rss_kb / 1024,
+                "cpu_s": (int(ticks[11]) + int(ticks[12]))
+                / os.sysconf("SC_CLK_TCK"),
+                "maps_libtorch": "libtorch" in maps,
+                "maps_dev_nvidia": "/dev/nvidia" in maps}
+
+    def workers(loader):
+        # the spawned workers; spawn imports the parent's main module again
+        return [proc_stats(pid) for pid in loader._pool._processes]
+
+    host = {"cpu_count": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0))}
+
     state, cfg = train_state("bfloat16", "auto")
-    # the control: the train loop over the same 3 batches held in memory
     with contextlib.redirect_stdout(io.StringIO()):
-        held = list(data_mod.create_dataloader(ns))
-    train_loop(state, held, cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(2):
-        train_loop(state, held, cfg)
-    torch.cuda.synchronize()
-    held_img_per_s = 2 * len(held) * 8 / (time.perf_counter() - t0)
+        held = list(data_mod.create_dataloader(
+            argparse.Namespace(**{**vars(pns), "decode_cache_mb": 0})))
+    assert len(held) == 50
+    train_loop(state, held[:3], cfg)
+    held_rates = fed(held)
+    emit({"phase": "loader_rate_held", "hw": [256, 256], "batch": 8,
+          "batches": len(held), **held_rates, "skip": skip,
+          "bf16_step_img_per_s": step_img_per_s["bfloat16"], "host": host,
+          **card})
     del held
     for cache_mb in (0, 512):
-        for n_threads in (0, 1, 2):
-            lns = argparse.Namespace(**{**vars(ns), "nThreads": n_threads,
+        for n_threads in (0, 1, 2, 4):
+            lns = argparse.Namespace(**{**vars(pns), "nThreads": n_threads,
                                         "decode_cache_mb": cache_mb})
             with contextlib.redirect_stdout(io.StringIO()):
                 loader = data_mod.create_dataloader(lns)
             try:
-                for _ in loader:
-                    pass
-                t0 = time.perf_counter()
-                n_img = sum(b["valid"] for _ in range(5) for b in loader)
-                alone_s = time.perf_counter() - t0
-                train_loop(state, loader, cfg)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(2):
-                    train_loop(state, loader, cfg)
-                torch.cuda.synchronize()
-                loop_s = time.perf_counter() - t0
+                first = alone(loader)
+                second = alone(loader)
+                loop = fed(loader)
+                extra = ({"workers": workers(loader)}
+                         if loader.mode == "processes" else {})
             finally:
                 loader.close()
-            emit({"phase": "loader_rate", "hw": [256, 256], "batch": 8,
+            emit({"phase": "loader_rate", "hw": [256, 256],
+                  "source_hw": [512, 512], "batch": 8,
+                  "batches_per_epoch": len(loader), "skip": skip,
                   "nThreads": n_threads, "mode": loader.mode,
-                  "decode_cache_mb": cache_mb,
-                  "loader_img_per_s": n_img / alone_s,
-                  "loop_img_per_s": 2 * len(loader) * 8 / loop_s,
-                  "held_batches_loop_img_per_s": held_img_per_s,
+                  "decode_cache_mb": cache_mb, "alone_epoch1": first,
+                  "alone_epoch2": second, "loop": loop,
+                  "loop_x_held": loop["steady_img_per_s"]
+                  / held_rates["steady_img_per_s"], **extra,
                   "bf16_step_img_per_s": step_img_per_s["bfloat16"],
-                  "cpu_count": os.cpu_count(), **card})
+                  **card})
     del state
 
     # the backward kernels at the training path's shapes (256^2, B = 1 and

@@ -22,8 +22,6 @@ from __future__ import annotations
 
 import signal
 
-import torch
-
 from sketchedit_tpu_torch import data
 from sketchedit_tpu_torch.device import resolve_device
 from sketchedit_tpu_torch.models.deepfill_c2 import DeepFillConfig
@@ -32,7 +30,7 @@ from sketchedit_tpu_torch.params import checkpoint as ckpt
 from sketchedit_tpu_torch.runner import set_precision
 from sketchedit_tpu_torch.train.losses import load_vgg_params
 from sketchedit_tpu_torch.train.trainer import (
-    TrainConfig, draw_flags, host_tensors, init_train_state, train_step)
+    TrainConfig, batch_to_device, draw_flags, init_train_state, train_step)
 from sketchedit_tpu_torch.train.validation import (
     MetricsLog, build_validator, is_improvement, recover_best,
     resolve_val_track)
@@ -47,24 +45,16 @@ def train_loop(state, batches, cfg: TrainConfig, *, vgg_params=None,
 
     Each batch is staged (pinned, then copied asynchronously) before the
     step of the batch ahead of it is dispatched, so reading and pinning it
-    overlaps the step on the device; a pinned buffer stays referenced until
-    the event recorded after its copy has passed."""
+    overlaps the step on the device. PyTorch's caching host allocator keeps
+    a pinned block from reuse until the copy that reads it has passed."""
     device = next(state.nets["G"].parameters()).device
-    in_flight = []                  # (pinned host tensors, copy-done event)
 
     def stage(batch):
         if batch is None:
             return None
         if not cfg.lambda_mask_rec:
             batch = {k: v for k, v in batch.items() if k != "region_gt"}
-        host = host_tensors(batch, pin=device.type == "cuda")
-        staged = {k: v.to(device, non_blocking=True) for k, v in host.items()}
-        if device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
-            in_flight[:] = [(h, e) for h, e in in_flight if not e.query()]
-            in_flight.append((host, done))
-        return staged
+        return batch_to_device(batch, device)
 
     batch_it = iter(batches)
     staged = stage(next(batch_it, None))

@@ -10,9 +10,11 @@ expanded to float32 unless ``compact``, in which case the batch keeps the
 uint8 image as ``image`` and the bool masks, and the trainer expands them
 on the device. ``DataLoader`` is the JAX loader: the same order (shuffled
 from ``seed + epoch``), the same items and the same worker paths (a
-prefetch thread, a spawned process pool). This package imports no torch:
-a spawned worker needs only numpy and PIL for its items and never
-initializes CUDA.
+prefetch thread, a spawned process pool). This package imports no torch,
+so its items need only numpy, PIL and OpenCV and a worker never
+initializes CUDA. A spawned worker does import the parent's main module
+again, and with it torch where that module imports it (as
+``python -m sketchedit_tpu_torch.cli.train`` does).
 """
 
 from __future__ import annotations
@@ -84,12 +86,25 @@ def collate(samples, batch_size: int, compact: bool = False):
     return batch
 
 
+def _one_opencv_thread():
+    """Items call OpenCV (Canny, dilate, filter2D) on 256^2 arrays, where
+    its thread pool gains no wall time while its threads spin between
+    calls, taking cores from the other readers and from the training
+    process (PERF.md §6, PR 10); the loader keeps OpenCV to one thread."""
+    try:
+        import cv2
+    except ImportError:  # pragma: no cover
+        return
+    cv2.setNumThreads(1)
+
+
 # --- spawned-worker plumbing (module level: a fresh interpreter imports it)
 
 _WORKER_STATE: dict = {}
 
 
 def _worker_init(dataset, base_seed, n_workers=1):
+    _one_opencv_thread()
     # a dataset's decode-cache cap (--decode_cache_mb) is a total budget:
     # chunks go to workers by position, not by index, so every worker
     # eventually sees every item, and an undivided cap per process would
@@ -126,7 +141,8 @@ class DataLoader:
     across the workers and each item drawn after ``reseed((seed, epoch,
     index))``, so a batch does not depend on the worker count. Spawn, not
     fork: the training process holds a CUDA context. A failed read raises
-    in the caller.
+    in the caller. Every path reads with OpenCV on one thread, which for
+    the serial and thread paths sets it so in the caller's process.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
@@ -180,6 +196,7 @@ class DataLoader:
 
     def __iter__(self):
         self._epoch += 1
+        _one_opencv_thread()
         mode = self.mode
         if mode == "serial":
             for idx in self._index_batches():

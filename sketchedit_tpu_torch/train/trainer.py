@@ -301,25 +301,19 @@ def d_loss_fn(net_d, net_m, net_g, batch, flag: int, cfg: TrainConfig):
     return d_loss_from_gen(net_d, gen, batch, cfg)
 
 
-def host_tensors(batch, pin: bool) -> dict:
-    """The numpy arrays of a loader batch as host tensors, in pinned memory
-    when ``pin``; tensors pass through; other entries are dropped."""
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray):
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            out[k] = t.pin_memory() if pin else t
-        elif isinstance(v, torch.Tensor):
-            out[k] = v
-    return out
-
-
 def batch_to_device(batch, device) -> dict:
     """The numpy arrays of a loader batch as tensors on ``device`` (pinned,
     asynchronous copies on CUDA); other entries are dropped."""
     device = torch.device(device)
-    host = host_tensors(batch, pin=device.type == "cuda")
-    return {k: v.to(device, non_blocking=True) for k, v in host.items()}
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = (t.pin_memory().to(device, non_blocking=True)
+                      if device.type == "cuda" else t)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.to(device)
+    return out
 
 
 def decompress_batch(batch) -> dict:

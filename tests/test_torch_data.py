@@ -235,6 +235,21 @@ def test_worker_init_splits_the_decode_cache():
     t_data._WORKER_STATE.clear()
 
 
+def test_loader_and_its_workers_keep_opencv_to_one_thread():
+    import cv2
+    saved = cv2.getNumThreads()
+    try:
+        cv2.setNumThreads(4)
+        next(iter(t_data.DataLoader(_FailingDataset(), 2)))
+        assert cv2.getNumThreads() == 1
+        cv2.setNumThreads(4)
+        t_data._worker_init(_FailingDataset(), 0, 2)
+        assert cv2.getNumThreads() == 1
+    finally:
+        cv2.setNumThreads(saved)
+        t_data._WORKER_STATE.clear()
+
+
 def test_spawn_pool_identical_across_workers_and_to_jax(images, monkeypatch):
     """The forced pool of spawned processes: the same batches with 2 and 3
     workers, and the JAX pool's, over two epochs (items reseeded from

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``sketchedit_tpu_torch``, not its
 scripts and not ``chip_smoke.py`` imports JAX or the JAX package, every
 module imports on a machine with neither a GPU nor a CUDA toolkit, and the
-data package (what a spawned loader worker runs) imports no torch."""
+data package (the code a loader worker runs for its items) imports no
+torch."""
 
 import ast
 import importlib
