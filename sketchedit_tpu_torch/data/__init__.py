@@ -90,7 +90,7 @@ def _one_opencv_thread():
     """Items call OpenCV (Canny, dilate, filter2D) on 256^2 arrays, where
     its thread pool gains no wall time while its threads spin between
     calls, taking cores from the other readers and from the training
-    process (PERF.md §6, PR 10); the loader keeps OpenCV to one thread."""
+    process (PERF.md §5); the loader keeps OpenCV to one thread."""
     try:
         import cv2
     except ImportError:  # pragma: no cover
