@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the exit code is not 0:
 3. kernels vs plain: the contextual-attention forward kernel, then the dQ
    and dK/dV backward kernels, against their plain PyTorch versions at the
    main paths' shapes (inference 256^2 B = 1 and 4, training 256^2 B = 1
-   and 8), float32 and bfloat16, plus a ragged and an all-gated case; the
+   and 8), float32 and bfloat16, plus a ragged and an all-gated case and
+   the sharded path's query slices (481 of 961 patches, B = 1 and 8); the
    shared-tensor and D-split forwards (256^2 B = 1 and 8, 512^2 and 1024^2
    B = 1; a `dsplit_plan` line gives the D-split's tile rows, cluster shape
    and resident clusters at each) and the dV and dK kernels the same way,
@@ -39,6 +40,20 @@ Phases, in order; any failure raises and the exit code is not 0:
    weights, one forward launch per call, its time); then the train CLI for
    2 steps, and for 2 epochs with --val_image_dir and --nThreads 2 (the
    spawned loader pool; val rows in metrics.jsonl, best_net_*);
+   multi-device paths, every device being this one card (two shards, two
+   replicas or two ranks on cuda:0: the paths compute what the
+   single-device path computes; their times measure overhead, not
+   scaling): `sharded_attention`, netG with the attention's query patches
+   in two shards (--attention_impl sharded --gpu_ids 0,0) at B = 1 in both
+   dtypes against the unsharded kernel path and the dense path (two
+   forward launches per netG forward), one train step at B = 8 by default
+   and under SKETCHEDIT_SPLIT_DKDV=1 against the unsharded step, and a
+   1024^2 edit sharded and unsharded with both times; `dp_edit`, the
+   pipeline with two replicas (--data_parallel 2 --gpu_ids 0,0) on a batch
+   of 5; `dp_train_step`, two gloo ranks' averaged step against the
+   single-process step on the same B = 8 batch, and one rank under NCCL;
+   `dp_train_cli`, the train CLI on two ranks stopped by a SIGTERM to its
+   process group (exit 143, the checkpoint written once);
 7. CLI: the batch inference CLI with test_celeb.sh's flags;
 8. serving: the BatchingExecutor on the EditPipeline in process (32
    concurrent submits; serve defaults and float32; the default, shared and
@@ -75,7 +90,9 @@ import concurrent.futures
 import contextlib
 import io
 import json
+import multiprocessing
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -130,6 +147,16 @@ BWD_TOL = 2e-4
 # flips, while a wrong kernel (dK not folded with kscale, say) misses by
 # O(1). The max-abs error relative to the max |value| is reported beside.
 GRAD_TOL = 1e-2
+# data-parallel train step against the single-process steps on the same
+# rows (float32, TF32 off): relative L2 per gradient tensor, the losses to
+# rtol 1e-4. cuDNN takes other algorithms at B = 4 than at B = 8, and in
+# one process the mean of the two B = 4 halves' gradients is 1.03e-2 (netM)
+# from the B = 8 step's, against 1.7e-7 with cuDNN off
+# (scripts/dp_grad_numerics_torch.py). So the bound holds the ranks to
+# those halves run in one process; the B = 8 step's distance is reported.
+DP_GRAD_TOL = 1e-3
+# two query shards, two replicas, two ranks: all on this one card
+SHARDS = (torch.device("cuda", 0),) * 2
 
 lines: list[str] = []
 
@@ -304,6 +331,44 @@ def photo_like(rs, size):
                                      + rs.rand(3) * 127)
     img += rs.randn(size, size, 3) * 4
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def dp_rank(rank, world, init_method, batch_path, out_path, seed):
+    """One rank of the two-rank step on this card over gloo: rank 0's
+    train state (seeded as the single-process one), one train_step at lr 0
+    on this rank's rows (so the D half reads the same generator as the
+    single-process step, and the parameters keep their gradients, averaged
+    over the ranks), saved with the metrics and the launch counts."""
+    from sketchedit_tpu_torch.models.deepfill_c2 import DeepFillConfig
+    from sketchedit_tpu_torch.ops import attention_cuda
+    from sketchedit_tpu_torch.parallel import distributed
+    from sketchedit_tpu_torch.runner import set_precision
+    from sketchedit_tpu_torch.train import trainer as tr
+    torch.cuda.set_device(SHARDS[rank])
+    set_precision("highest")
+    distributed.init(rank, world, "gloo", init_method)
+    try:
+        cfg = tr.TrainConfig(netg=DeepFillConfig(attention_impl="kernel"),
+                             precision="highest", lr=0.0)
+        state = tr.init_train_state(cfg, seed=seed + rank, device="cuda")
+        scale_weights_(state.nets["M"], state.nets["G"])
+        distributed.broadcast_(distributed.train_state_tensors(state))
+        with np.load(batch_path) as f:
+            n = len(f["image"]) // world
+            rows = {k: f[k][rank * n:(rank + 1) * n] for k in f.files}
+        zero_counts(attention_cuda)
+        _, metrics = tr.train_step(state, tr.batch_to_device(rows, "cuda"),
+                                   1, 1, cfg,
+                                   group=torch.distributed.group.WORLD)
+        torch.cuda.synchronize()
+        out = {f"grad.{label}.{n}": p.grad.cpu().numpy()
+               for label, net in state.nets.items()
+               for n, p in net.named_parameters()}
+        out.update({f"metric.{k}": float(v) for k, v in metrics.items()})
+        out.update({f"count.{k}": v for k, v in counts(attention_cuda).items()})
+        np.savez(out_path, **out)
+    finally:
+        distributed.close()
 
 
 def main():
@@ -594,6 +659,15 @@ def main():
                                    dk=dk), **card})
             bwd_inputs[(B, dt)] = check_bwd(
                 f"B{B}_64sq_{str(dt).split('.')[-1]}", Q, V, V, keep, ksc)
+    # the query-sharded path's shapes: the first of two query slices (481
+    # of 961 patches) against the whole bank, in float32 as that path forms
+    # its inputs, at B = 1 (inference) and 8 (training)
+    for B in (1, 8):
+        f = features(rs, B, 64, 64).to(dev)
+        _, V, keep, ksc = attention_inputs(f, f, hole_mask(B, 64, 64).to(dev))
+        Qs = torch.tensor_split(V, 2, dim=1)[0].contiguous()
+        check_core(f"B{B}_64sq_float32_qslice", Qs, V, V, keep, kscale=ksc)
+        check_bwd(f"B{B}_64sq_float32_qslice", Qs, V, V, keep, ksc)
     check_bwd("unaligned_2x130x150x70", Qr, Kr, Vr, keep_r,
               torch.from_numpy((0.5 + rs.rand(2, 70)).astype(np.float32)
                                ).to(dev))
@@ -605,13 +679,13 @@ def main():
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")   # removed at exit
     ckdir = os.path.join(tmp.name, "ck")
 
-    def pipeline(dtype, impl, device="cuda"):
+    def pipeline(dtype, impl, device="cuda", *extra):
         with contextlib.redirect_stdout(io.StringIO()):
             opt = parse_argv(TestOptions, [
             "--name", "celeb", "--checkpoints_dir", ckdir, "--use_cam",
             "--pool_type", "max", "--joint_train_inp", "--init_type",
             "kaiming", "--device", device, "--compute_dtype", dtype,
-            "--attention_impl", impl])
+            "--attention_impl", impl, *extra])
         with contextlib.redirect_stdout(io.StringIO()):   # option dumps
             p = build_pipeline(opt, seed=args.seed)
         scale_weights_(p.model.netM, p.model.netG)
@@ -646,6 +720,9 @@ def main():
                for i, (_, B, H, W) in enumerate(cases)]
     results = []
     launches = {"float32": 0, "bfloat16": 0}
+    # the float32 kernels' launches on the multi-device paths (every one of
+    # them forms its attention inputs in float32)
+    multi_launches = dict.fromkeys(COUNTERS, 0)
     zero_counts(attention_cuda)
     for (dt, B, H, W), (img, sk) in zip(cases, batches):
         before = attention_cuda.LAUNCHES
@@ -705,6 +782,63 @@ def main():
           "max_u8_diff": cpu_diff, "max_mask_u8_diff": mask_diff})
     assert cpu_diff <= 1 and mask_diff <= 1, "GPU and CPU runs disagree"
 
+    # query-sharded attention (--attention_impl sharded --gpu_ids 0,0): netG
+    # with its attention's query patches split in two, both shards on this
+    # card, at B = 1 against the unsharded kernel path and the dense path on
+    # the same batch. Two forward launches per netG forward, one per shard.
+    # In float32 the composed image within 1 LSB of both; in bfloat16 the
+    # sharded path forms its attention inputs in float32 (as the JAX one
+    # does), and its netG is held to the float32 dense netG as the kernel
+    # path is above.
+    sharded = {dt: pipeline(dt, "sharded", "cuda", "--gpu_ids", "0,0")
+               for dt in ("float32", "bfloat16")}
+    for dt, p in sharded.items():
+        assert p.config.netg.attention_devices == SHARDS and not p.replicas
+        img, sk = batch(1, 256, 256, args.seed + 500)
+        zero_counts(attention_cuda)
+        composed, mask = p(img, sk)
+        torch.cuda.synchronize()
+        used = counts(attention_cuda)
+        assert used == expect(fwd=2), used
+        multi_launches["fwd"] += used["fwd"]
+        k_c, k_m = pipes[dt](img, sk)
+        d_c, d_m = dense[dt](img, sk)
+        row = {"phase": "sharded_attention", "path": "edit", "dtype": dt,
+               "batch": 1, "hw": [256, 256], "shards": [str(d) for d in SHARDS],
+               "launches": used,
+               "max_u8_diff_vs_kernel": int(u8_diff(composed, k_c).max()),
+               "max_u8_diff_vs_dense": int(u8_diff(composed, d_c).max()),
+               "mask_equal_kernel": bool((mask == k_m).all()),
+               "mask_equal_dense": bool((mask == d_m).all())}
+        if dt == "float32":
+            emit(row)
+            assert row["max_u8_diff_vs_kernel"] <= 1, row
+            assert row["max_u8_diff_vs_dense"] <= 1, row
+            continue
+        fakes = netg_outputs(img, sk, [p, dense[dt], dense["float32"]])
+        s_err = (fakes[0] - fakes[2]).abs() * 127.5
+        d_err = (fakes[1] - fakes[2]).abs() * 127.5
+        row.update({"netG_sharded_vs_f32_mean": s_err.mean().item(),
+                    "netG_dense_vs_f32_mean": d_err.mean().item()})
+        emit(row)
+        assert s_err.mean() <= 1.05 * d_err.mean(), row
+    # a 1024^2 float32 edit (16129 query patches, 8065 a shard), sharded
+    # and unsharded; two shards on one card time the sharding's overhead
+    img, sk = batch(1, 1024, 1024, args.seed + 501)
+    big = sharded["float32"](img, sk)
+    want_big = pipes["float32"](img, sk)
+    big_ms = cuda_ms(lambda: sharded["float32"](img, sk), reps=3, warmup=1)
+    one_ms = cuda_ms(lambda: pipes["float32"](img, sk), reps=3, warmup=1)
+    emit({"phase": "sharded_attention", "path": "edit", "dtype": "float32",
+          "batch": 1, "hw": [1024, 1024], "shards": 2,
+          "max_u8_diff_vs_kernel": int(u8_diff(big[0], want_big[0]).max()),
+          "frac_u8_diff_vs_kernel": float((u8_diff(big[0], want_big[0]) > 0
+                                           ).mean()),
+          "mask_equal_kernel": bool((big[1] == want_big[1]).all()),
+          "sharded_ms": big_ms, "unsharded_ms": one_ms,
+          "note": "two shards on one card: overhead, not scaling", **card})
+    del sharded, big, want_big
+
     # 5. train step --------------------------------------------------------
     from sketchedit_tpu_torch.cli.train import train_loop
     from sketchedit_tpu_torch.models.deepfill_c2 import DeepFillConfig
@@ -712,8 +846,10 @@ def main():
     from sketchedit_tpu_torch.train import trainer as tr
 
     def train_state(dtype, impl, device="cuda", precision="highest"):
-        cfg = tr.TrainConfig(netg=DeepFillConfig(attention_impl=impl),
-                             compute_dtype=dtype, precision=precision)
+        cfg = tr.TrainConfig(netg=DeepFillConfig(
+            attention_impl=impl,
+            attention_devices=SHARDS if impl == "sharded" else ()),
+            compute_dtype=dtype, precision=precision)
         state = tr.init_train_state(cfg, seed=args.seed, device=device)
         scale_weights_(state.nets["M"], state.nets["G"])
         return state, cfg
@@ -805,6 +941,25 @@ def main():
         m_k, g_k = default_step[1]
         emit({"phase": "train_step_switch_vs_default", "switch": switch,
               "hw": [256, 256], "batch": 8, "dtype": "float32", "flag": 1,
+              "max_loss_rel_diff": losses_agree(m_s, m_k),
+              "grad_err": grad_errors(g_s, g_k), "grad_tol": GRAD_TOL,
+              "launches": n_s})
+    # the same step with the attention's query patches in two shards on
+    # this card (attention_impl='sharded'), by default and under the split
+    # switch: each kernel launches once per shard; gradients against the
+    # default kernels' unsharded step
+    for switch, want in ((None, expect(fwd=4, fwd_lse=2, dq=2, dkdv=2)),
+                         ("SKETCHEDIT_SPLIT_DKDV",
+                          expect(fwd=4, fwd_lse=2, dq=2, dv=2, dk=2))):
+        with env(**({switch: "1"} if switch else {})):
+            m_s, g_s, n_s = one_step("float32", "sharded", batch8, (1, 1))
+        assert n_s == want, (switch, n_s)
+        for k, v in n_s.items():
+            multi_launches[k] += v
+        m_k, g_k = default_step[1]
+        emit({"phase": "sharded_attention", "path": "train_step",
+              "switch": switch, "hw": [256, 256], "batch": 8,
+              "dtype": "float32", "flag": 1, "shards": 2,
               "max_loss_rel_diff": losses_agree(m_s, m_k),
               "grad_err": grad_errors(g_s, g_k), "grad_tol": GRAD_TOL,
               "launches": n_s})
@@ -1017,6 +1172,227 @@ def main():
     emit({"phase": "train_cli_val", "images": 16, "val_items": 8,
           "batch": 8, "epochs": 2, "nThreads": 2, "val_rows": val_rows,
           "seconds": round(time.perf_counter() - t0, 3)})
+
+    # 6b. data parallelism on this card -----------------------------------
+    # Two replicas and two ranks share cuda:0: the runs show that each path
+    # computes what the single-device path computes through the kernels;
+    # their times measure overhead, not scaling. NCCL refuses two ranks on
+    # one card, so the two ranks talk over gloo, and one rank alone sets
+    # NCCL up on the card.
+    from sketchedit_tpu_torch.parallel import distributed
+
+    # dp_edit: build_pipeline with --data_parallel 2 --gpu_ids 0,0 on the
+    # float32 pipeline's (scaled) weights, B = 5 (padded to 6, shards of
+    # 3), against the single-device pipeline fed the same shards, and
+    # reported against it on the whole batch (other batch sizes may take
+    # other cuDNN algorithms)
+    dp_ck = os.path.join(tmp.name, "dp_ck")
+    ckpt.save_pipeline({"M": pipes["float32"].model.netM,
+                        "G": pipes["float32"].model.netG}, "latest",
+                       argparse.Namespace(checkpoints_dir=dp_ck, name="celeb"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        dp_pipe = build_pipeline(parse_argv(TestOptions, [
+            "--name", "celeb", "--checkpoints_dir", dp_ck, "--use_cam",
+            "--pool_type", "max", "--joint_train_inp", "--device", "cuda",
+            "--compute_dtype", "float32", "--data_parallel", "2",
+            "--gpu_ids", "0,0"]), require_checkpoint=True)
+    assert [d for _, d in dp_pipe.replicas] == list(SHARDS)
+    one = pipes["float32"]
+    img, sk = batch(5, 256, 256, args.seed + 600)
+    zero_counts(attention_cuda)
+    dp_c, dp_m = dp_pipe(img, sk)
+    torch.cuda.synchronize()
+    used = counts(attention_cuda)
+    assert used == expect(fwd=2), used        # one launch per replica
+    multi_launches["fwd"] += used["fwd"]
+    pad = lambda a: np.concatenate([a[3:], a[-1:]])    # noqa: E731
+    shard_c = np.concatenate([one(img[:3], sk[:3])[0],
+                              one(pad(img), pad(sk))[0][:2]])
+    whole_c, whole_m = one(img, sk)
+    row = {"phase": "dp_edit", "batch": 5, "replicas": 2, "hw": [256, 256],
+           "dtype": "float32", "launches": used,
+           "max_u8_diff_vs_shards_alone": int(u8_diff(dp_c, shard_c).max()),
+           "max_u8_diff_vs_whole_batch": int(u8_diff(dp_c, whole_c).max()),
+           "mask_equal_whole_batch": bool((dp_m == whole_m).all()),
+           "dp_ms_per_batch": cuda_ms(lambda: dp_pipe(img, sk), reps=5),
+           "single_ms_per_batch": cuda_ms(lambda: one(img, sk), reps=5),
+           "note": "two replicas on one card: overhead, not scaling", **card}
+    emit(row)
+    assert dp_c.shape == img.shape and dp_m.shape == (5, 256, 256, 1)
+    assert row["max_u8_diff_vs_shards_alone"] <= 1, row
+    del dp_pipe
+
+    # dp_train_cli: --data_parallel 2 --gpu_ids 0,0 on the 16 PNGs at B = 8
+    # (2 steps an epoch), started here to run beside dp_train_step; after
+    # epoch 1's checkpoint the session's process group gets SIGTERM: both
+    # ranks stop after the same step, exit 143, and rank 0 alone wrote
+    # every file once
+    t_cli = time.perf_counter()
+    dp_run = os.path.join(tmp.name, "cli_ck", "dp_cli")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sketchedit_tpu_torch.cli.train", "--name",
+         "dp_cli", "--checkpoints_dir", os.path.join(tmp.name, "cli_ck"),
+         "--dataset_mode", "editimage", "--train_image_dir", cli_pngs,
+         "--batchSize", "8", "--niter", "100", "--use_cam", "--pool_type",
+         "max", "--joint_train_inp", "--not_om", "--preprocess_mode",
+         "resize_and_crop", "--load_size", "256", "--crop_size", "256",
+         "--save_epoch_freq", "1", "--print_freq", "8", "--device", "cuda",
+         "--data_parallel", "2", "--gpu_ids", "0,0"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    cli_out = []
+
+    def stop_after_epoch_1():
+        for line in proc.stdout:
+            cli_out.append(line)
+            if line.startswith("saved the model at the end of epoch 1"):
+                os.killpg(proc.pid, signal.SIGTERM)
+
+    watcher = threading.Thread(target=stop_after_epoch_1, daemon=True)
+    watcher.start()
+
+    try:
+        # dp_train_step: two gloo ranks on this card, 4 rows each of the
+        # global B = 8 batch, one step at lr 0 (float32, TF32 off): averaged
+        # gradients and losses against the single-process steps on the same
+        # halves (DP_GRAD_TOL), and the whole batch's step (reported; losses
+        # held to 1e-4)
+        dp_dir = os.path.join(tmp.name, "dp_step")
+        os.makedirs(dp_dir)
+        np.savez(os.path.join(dp_dir, "batch.npz"), **batch8)
+        ctx = multiprocessing.get_context("spawn")
+        init_method = distributed.free_tcp_address()
+        t0 = time.perf_counter()
+        ranks = [ctx.Process(target=dp_rank, args=(
+            r, 2, init_method, os.path.join(dp_dir, "batch.npz"),
+            os.path.join(dp_dir, f"rank{r}.npz"), args.seed))
+            for r in range(2)]
+        for p in ranks:
+            p.start()
+
+        def single_step(rows=batch8, group=None):
+            """The single-process step as dp_rank takes it (seed, lr 0, flags
+            1, 1) on ``rows``; its gradients and metrics."""
+            cfg = tr.TrainConfig(netg=DeepFillConfig(attention_impl="kernel"),
+                                 precision="highest", lr=0.0)
+            state = tr.init_train_state(cfg, seed=args.seed, device="cuda")
+            scale_weights_(state.nets["M"], state.nets["G"])
+            if group is not None:
+                distributed.broadcast_(distributed.train_state_tensors(state))
+            _, metrics = tr.train_step(state, tr.batch_to_device(rows, dev),
+                                       1, 1, cfg, group=group)
+            return ({f"{label}.{n}": p.grad.detach().clone()
+                     for label, net in state.nets.items()
+                     for n, p in net.named_parameters()},
+                    {k: float(v) for k, v in metrics.items()})
+
+        def dp_errors(grads, metrics, want_grads, want_metrics, check=True):
+            """Per net the worst relative L2 error of its gradient tensors
+            (with ``check``, each held to DP_GRAD_TOL; a zero tensor by its
+            max |error|), and the worst relative error of the losses (held
+            to 1e-4)."""
+            worst = {}
+            for k, w in want_grads.items():
+                d = grads[k].to(w.device) - w
+                norm = w.norm().item()
+                l2 = d.norm().item() / norm if norm else d.abs().max().item()
+                net = k.split(".")[0]
+                worst[net] = max(worst.get(net, 0.0), l2)
+                assert l2 <= DP_GRAD_TOL or not check, (k, l2)
+            rel = max(abs(metrics[k] - v) / max(abs(v), 1e-12)
+                      for k, v in want_metrics.items())
+            assert rel <= 1e-4, (metrics, want_metrics)
+            return worst, rel
+
+        # the references, in this process while the ranks run
+        g_one, m_one = single_step()
+        halves = [single_step({k: v[i * 4:(i + 1) * 4]
+                               for k, v in batch8.items()}) for i in range(2)]
+        g_halves = {k: (halves[0][0][k] + halves[1][0][k]) / 2 for k in g_one}
+        m_halves = {k: (halves[0][1][k] + halves[1][1][k]) / 2 for k in m_one}
+        for p in ranks:
+            p.join(600)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in ranks]
+        assert codes == [0, 0], codes
+        ranks_s = time.perf_counter() - t0
+        r0, r1 = (dict(np.load(os.path.join(dp_dir, f"rank{r}.npz")))
+                  for r in range(2))
+        for k in r0:
+            assert np.array_equal(r0[k], r1[k]), f"ranks disagree on {k}"
+        rank_counts = {k[6:]: int(v) for k, v in r0.items()
+                       if k.startswith("count.")}
+        assert rank_counts == expect(fwd=2, fwd_lse=1, dq=1, dkdv=1), (
+            rank_counts)
+        for k, v in rank_counts.items():
+            multi_launches[k] += 2 * v          # each rank's own launches
+        g_dp = {k: torch.from_numpy(r0[f"grad.{k}"]) for k in g_one}
+        m_dp = {k: float(r0[f"metric.{k}"]) for k in m_one}
+        worst_l2, loss_rel = dp_errors(g_dp, m_dp, g_halves, m_halves)
+        whole_l2, whole_loss_rel = dp_errors(g_dp, m_dp, g_one, m_one,
+                                             check=False)
+        del halves, g_halves
+
+        # one rank under NCCL (world of 1): its set-up, the broadcast and the
+        # all_reduce run on the card, and the step equals the one without group
+        host = distributed.init(0, 1, "nccl", distributed.free_tcp_address())
+        try:
+            assert torch.distributed.get_backend() == "nccl"
+            zero_counts(attention_cuda)
+            g_nccl, m_nccl = single_step(group=torch.distributed.group.WORLD)
+            torch.cuda.synchronize()
+            nccl_counts = counts(attention_cuda)
+            assert distributed.agree_max(3, host) == 3
+        finally:
+            distributed.close()
+        assert nccl_counts == expect(fwd=2, fwd_lse=1, dq=1, dkdv=1), (
+            nccl_counts)
+        for k, v in nccl_counts.items():
+            multi_launches[k] += v
+        nccl_l2, nccl_rel = dp_errors(g_nccl, m_nccl, g_one, m_one)
+        emit({"phase": "dp_train_step", "ranks": 2, "backend": "gloo",
+              "batch": 8, "hw": [256, 256], "dtype": "float32", "tf32": False,
+              "grad_rel_l2_max_vs_halves": worst_l2, "grad_tol": DP_GRAD_TOL,
+              "loss_rel_diff_max_vs_halves": loss_rel, "loss_rtol": 1e-4,
+              "grad_rel_l2_max_vs_whole_batch": whole_l2,
+              "loss_rel_diff_max_vs_whole_batch": whole_loss_rel,
+              "rank_launches": rank_counts, "ranks_seconds": round(ranks_s, 3),
+              "nccl_rank": {"world": 1, "launches": nccl_counts,
+                            "grad_rel_l2_max": nccl_l2,
+                            "loss_rel_diff_max": nccl_rel}})
+        del g_one, g_nccl
+
+    except BaseException:
+        os.killpg(proc.pid, signal.SIGKILL)      # no process outlives this
+        raise
+
+    watcher.join(600)
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    out = "".join(cli_out)
+    assert rc == 128 + signal.SIGTERM, (rc, out[-3000:])
+    assert "data-parallel over 2 ranks: cuda:0, cuda:0" in out, out[-3000:]
+    for once in ("epoch 1 iter 8 ", "epoch 1 iter 16 ",
+                 "saved the model at the end of epoch 1",
+                 "checkpointed on signal 15; exiting"):
+        assert out.count(once) == 1, (once, out[-3000:])
+    files = set(os.listdir(dp_run))
+    for label in "MGD":
+        assert {f"1_net_{label}.npz", f"latest_net_{label}.npz"} <= files
+    assert {"train_state_latest.pt", "iter.txt", "metrics.jsonl"} <= files
+    with open(os.path.join(dp_run, "metrics.jsonl")) as fh:
+        rows = [(r["epoch"], r["iter"]) for r in map(json.loads, fh)]
+    assert len(rows) == len(set(rows)) and rows[:2] == [(1, 8), (1, 16)], rows
+    emit({"phase": "dp_train_cli", "ranks": 2, "gpu_ids": [0, 0],
+          "batch": 8, "steps_logged": len(rows), "exit_code": rc,
+          "files": sorted(files),
+          "seconds": round(time.perf_counter() - t_cli, 3)})
 
     # 7. CLI --------------------------------------------------------------
     work = os.path.join(tmp.name, "cli")
@@ -1800,7 +2176,8 @@ def main():
             "route": "cuda",
             "source": "sketchedit_tpu_torch/csrc/contextual_attention_fwd.cu",
             "replaces": "sketchedit_tpu/ops/attention_pallas.py:53",
-            "launches": launches[str(dt).split(".")[-1]],
+            "launches": launches[str(dt).split(".")[-1]] + (
+                multi_launches["fwd"] if dt == torch.float32 else 0),
             **({"validation_launches": val_launches["fwd"]}
                if dt == torch.float32 else {}),
             "max_abs_err": errs[tag],
@@ -1848,7 +2225,8 @@ def main():
                 "source": "sketchedit_tpu_torch/csrc/contextual_attention_bwd.cu",
                 "replaces": f"sketchedit_tpu/ops/attention_pallas.py:{src_line}",
                 "launches": (split if k in ("dv", "dk")
-                             else train_launches[name])[k],
+                             else train_launches[name])[k] + (
+                    multi_launches[k] if dt == torch.float32 else 0),
                 "max_abs_err": bwd_errs[f"B8_64sq_{name}"][k],
                 "ms": row[f"{k}_ms"], "plain_ms": row[f"{k}_plain_ms"],
                 "bound_ms": row[f"{k}_bound_ms"],

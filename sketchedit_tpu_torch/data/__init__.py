@@ -20,9 +20,12 @@ again, and with it torch where that module imports it (as
 from __future__ import annotations
 
 import concurrent.futures as _futures
+import contextlib
 import itertools
 import multiprocessing as _mp
 import os
+import signal
+import threading
 
 import numpy as np
 
@@ -115,6 +118,45 @@ def _worker_init(dataset, base_seed, n_workers=1):
     _WORKER_STATE["seed"] = base_seed
 
 
+_STOP_SIGNALS = (signal.SIGINT, signal.SIGTERM)
+
+
+def _pool_worker_init(*args):
+    """A pool worker's initializer: ``_worker_init`` in a process that
+    leaves SIGINT and SIGTERM to the trainer. A worker shares the trainer's
+    process group, so a Ctrl-C in the terminal or a scheduler's signal to
+    the group reaches it too; the trainer's handler alone decides when to
+    stop (it checkpoints after the step in flight, whose successor may
+    already wait on the pool), and ``DataLoader.close`` ends the workers.
+    The worker starts with both signals blocked (``_stop_signals_blocked``)
+    and keeps them so; a thread takes each one and drops it, except a
+    SIGTERM from the trainer (how the pool ends its workers once one of
+    them has died) or any SIGTERM once the trainer is gone."""
+    signal.pthread_sigmask(signal.SIG_BLOCK, _STOP_SIGNALS)
+    threading.Thread(target=_drop_stop_signals, args=(os.getppid(),),
+                     daemon=True).start()
+    _worker_init(*args)
+
+
+def _drop_stop_signals(trainer: int):
+    while True:
+        info = signal.sigwaitinfo(_STOP_SIGNALS)
+        if info.si_signo == signal.SIGTERM and (
+                info.si_pid == trainer or os.getppid() != trainer):
+            os._exit(128 + signal.SIGTERM)
+
+
+@contextlib.contextmanager
+def _stop_signals_blocked():
+    """Block SIGINT and SIGTERM in this thread for the block: a worker that
+    the pool spawns from it starts with them blocked."""
+    saved = signal.pthread_sigmask(signal.SIG_BLOCK, _STOP_SIGNALS)
+    try:
+        yield
+    finally:
+        signal.pthread_sigmask(signal.SIG_SETMASK, saved)
+
+
 def _worker_get(args):
     idx, epoch = args
     ds = _WORKER_STATE["ds"]
@@ -143,11 +185,24 @@ class DataLoader:
     fork: the training process holds a CUDA context. A failed read raises
     in the caller. Every path reads with OpenCV on one thread, which for
     the serial and thread paths sets it so in the caller's process.
+
+    With ``world`` > 1 the loader is one rank's of a data-parallel run:
+    ``batch_size`` is the global batch, the order is the same on every
+    rank, and each batch holds this rank's ``batch_size // world`` rows of
+    it (rank r the r-th slice; the remainder batch is dropped, as
+    ``drop_last`` must then be). Every path then reseeds each item from
+    (seed, epoch, index), as the pool does, so an item does not depend on
+    which rank reads it: the ranks' rows together are the batch that a
+    single process reads through the pool.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 0, drop_last: bool = False, seed: int = 0,
-                 compact: bool = False):
+                 compact: bool = False, rank: int = 0, world: int = 1):
+        if world > 1 and (batch_size % world or not drop_last):
+            raise ValueError(f"a rank's loader needs drop_last and a batch "
+                             f"({batch_size}) that divides over {world} "
+                             "ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -155,6 +210,8 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.compact = compact
+        self.rank = rank
+        self.world = world
         self._epoch = 0
         self._pool = None
 
@@ -179,10 +236,20 @@ class DataLoader:
             idx = order[start:start + bs]
             if self.drop_last and len(idx) < bs:
                 return
+            if self.world > 1:
+                rows = bs // self.world
+                idx = idx[self.rank * rows:(self.rank + 1) * rows]
             yield idx
 
     def _collate(self, samples):
-        return collate(samples, self.batch_size, self.compact)
+        return collate(samples, self.batch_size // self.world, self.compact)
+
+    def _item(self, index, epoch):
+        """Item ``index``; a rank's loader reseeds it from (seed, epoch,
+        index) first, as a pool worker does."""
+        if self.world > 1 and hasattr(self.dataset, "reseed"):
+            self.dataset.reseed((self.seed, epoch, index))
+        return self.dataset[index]
 
     @property
     def mode(self) -> str:
@@ -198,37 +265,44 @@ class DataLoader:
         self._epoch += 1
         _one_opencv_thread()
         mode = self.mode
+        epoch = self._epoch
         if mode == "serial":
             for idx in self._index_batches():
-                yield self._collate([self.dataset[i] for i in idx])
+                yield self._collate([self._item(i, epoch) for i in idx])
             return
         if mode == "processes":
             yield from self._iter_processes()
             return
+
+        def read(idx):
+            return [self._item(i, epoch) for i in idx]
+
         with _futures.ThreadPoolExecutor(1) as pool:
             batches = self._index_batches()
-            inflight = [pool.map(self.dataset.__getitem__, idx)
+            inflight = [pool.submit(read, idx)
                         for idx in itertools.islice(batches, 2)]
             for nxt in batches:
                 current = inflight.pop(0)
-                inflight.append(pool.map(self.dataset.__getitem__, nxt))
-                yield self._collate(list(current))
+                inflight.append(pool.submit(read, nxt))
+                yield self._collate(current.result())
             for current in inflight:
-                yield self._collate(list(current))
+                yield self._collate(current.result())
 
     def _iter_processes(self):
         if self._pool is None:
             self._pool = _futures.ProcessPoolExecutor(
                 self.num_workers, mp_context=_mp.get_context("spawn"),
-                initializer=_worker_init,
+                initializer=_pool_worker_init,
                 initargs=(self.dataset, self.seed, self.num_workers))
         pool, epoch = self._pool, self._epoch
 
         def submit(idx):
-            # a batch in chunks across the workers: fewer, larger messages
+            # a batch in chunks across the workers: fewer, larger messages;
+            # a submit may spawn a worker
             chunks = np.array_split(np.asarray(idx, int), self.num_workers)
-            return [pool.submit(_worker_get_chunk, (c.tolist(), epoch))
-                    for c in chunks if len(c)]
+            with _stop_signals_blocked():
+                return [pool.submit(_worker_get_chunk, (c.tolist(), epoch))
+                        for c in chunks if len(c)]
 
         def gather(futs):
             return self._collate([s for f in futs for s in f.result()])
@@ -243,7 +317,9 @@ class DataLoader:
             yield gather(current)
 
 
-def create_dataloader(opt):
+def create_dataloader(opt, rank: int = 0, world: int = 1):
+    """The loader of ``opt.dataset_mode``; ``rank`` and ``world`` make it
+    one rank's of a data-parallel run (``DataLoader``)."""
     cls = find_dataset_using_name(opt.dataset_mode)
     instance = cls()
     instance.initialize(opt)
@@ -253,7 +329,7 @@ def create_dataloader(opt):
     return DataLoader(instance, batch_size=opt.batchSize,
                       shuffle=not opt.serial_batches,
                       num_workers=int(opt.nThreads), drop_last=train,
-                      compact=train)
+                      compact=train, rank=rank, world=world)
 
 
 def create_dataloader_trainval(opt):

@@ -10,7 +10,8 @@
    pmconv9...pmconv10), concatenated with (3) into the allconv decoder.
 
 Attribute names are the reference layer names. The contextual attention
-runs through the CUDA kernel or the dense version (``attention_impl``).
+runs through the CUDA kernel, the dense version, or the kernel with its
+query patches split over ``attention_devices`` (``attention_impl``).
 """
 
 from __future__ import annotations
@@ -25,9 +26,11 @@ from sketchedit_tpu_torch.ops.attention import (
     SplitCAMConfig, contextual_attention)
 from sketchedit_tpu_torch.ops.attention_cuda import contextual_attention_fused
 from sketchedit_tpu_torch.ops.image import avg_pool2d
+from sketchedit_tpu_torch.parallel.sharded_attention import (
+    contextual_attention_sharded)
 
 CNUM = 48
-ATTENTION_IMPLS = ("auto", "dense", "kernel")
+ATTENTION_IMPLS = ("auto", "dense", "kernel", "sharded")
 
 
 @dataclass(frozen=True)
@@ -39,14 +42,19 @@ class DeepFillConfig:
     no_mask_cc: bool = False
     no_mask_coarse: bool = False
     joint_train_inp: bool = True
-    # 'auto': the kernel on CUDA tensors, the dense version on the CPU
-    attention_impl: str = "auto"    # 'auto' | 'dense' | 'kernel'
+    # 'auto': the kernel on CUDA tensors, the dense version on the CPU;
+    # 'sharded': the query-patch axis split over attention_devices
+    attention_impl: str = "auto"    # 'auto' | 'dense' | 'kernel' | 'sharded'
+    attention_devices: tuple = ()   # torch.devices for 'sharded'
     attention: SplitCAMConfig = field(default_factory=SplitCAMConfig)
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of "
                              f"{ATTENTION_IMPLS}, got {self.attention_impl!r}")
+        if self.attention_impl == "sharded" and not self.attention_devices:
+            raise ValueError("attention_impl='sharded' needs "
+                             "attention_devices")
         if self.pool_type not in ("avg", "max"):
             raise NotImplementedError(self.pool_type)
         if not self.attention.is_released:
@@ -136,6 +144,9 @@ class DeepFillC2Generator(nn.Module):
             impl = "kernel" if x.is_cuda else "dense"
         if impl == "kernel":
             return contextual_attention_fused(x, x, mask_s)
+        if impl == "sharded":
+            return contextual_attention_sharded(
+                x, x, mask_s, self.config.attention_devices)
         return contextual_attention(x, x, mask_s)
 
     def forward(self, x, x2, mask, mask2, guide=None):

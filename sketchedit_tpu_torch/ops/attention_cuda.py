@@ -55,14 +55,17 @@ rounding.
 forward kernels' launches (``LAUNCHES_LSE`` those of any of them that also
 wrote the logsumexp), ``LAUNCHES_DQ``, ``LAUNCHES_DKDV``, ``LAUNCHES_DV``
 and ``LAUNCHES_DK`` the backward kernels', so a run can show that its main
-path went through them. Every launch runs with its tensors' device
-current, whichever device the caller has current.
+path went through them; they may be read and set from outside, and the
+wrappers add to them under a lock, since pipeline replicas launch from
+several threads. Every launch runs with its tensors' device current,
+whichever device the caller has current.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import torch
 
@@ -77,6 +80,7 @@ LAUNCHES_DQ = 0
 LAUNCHES_DKDV = 0
 LAUNCHES_DV = 0
 LAUNCHES_DK = 0
+_COUNT_LOCK = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _fns: dict = {}
@@ -91,6 +95,12 @@ _ENTRY_POINTS = {
     "dv": ("contextual_attention_bwd", 1, 7, 4),
     "dk": ("contextual_attention_bwd", 1, 9, 4),
 }
+
+
+def _count(counter: str, n: int = 1):
+    """Add ``n`` to the module's launch counter named ``counter``."""
+    with _COUNT_LOCK:
+        globals()[counter] += n
 
 
 def _kernel(name: str = "fwd"):
@@ -164,7 +174,6 @@ def _forward_on_device(name, Q, K, V, keep, softmax_scale, return_lse,
                        out_dtype, kscale):
     """Launch the forward kernel ``name`` (fwd, fwd_dsplit or fwd_shared; the
     last takes V alone) on checked CUDA tensors; returns (out, lse or None)."""
-    global LAUNCHES_LSE
     fn, err_str = _kernel(name)
     B, N, D = Q.shape
     P = K.shape[1]
@@ -185,7 +194,7 @@ def _forward_on_device(name, Q, K, V, keep, softmax_scale, return_lse,
         raise RuntimeError(f"contextual_attention_{name} launch failed "
                            f"(B={B}, N={N}, P={P}, D={D}, {Q.dtype}): "
                            f"{err_str(rc).decode()}")
-    LAUNCHES_LSE += return_lse
+    _count("LAUNCHES_LSE", int(return_lse))
     return out, lse
 
 
@@ -198,7 +207,6 @@ def attention_core(Q, K, V, keep, softmax_scale: float = 10.0,
     ``out_dtype`` (Q's dtype by default, or float32), and the (B,N)
     float32 logsumexp when ``return_lse``.
     """
-    global LAUNCHES
     out_dtype = out_dtype or Q.dtype
     _check(Q, K, V, keep, out_dtype, kscale)
     if not _on_device(Q, "attention_core"):
@@ -206,7 +214,7 @@ def attention_core(Q, K, V, keep, softmax_scale: float = 10.0,
                                         return_lse, out_dtype, kscale)
     out, lse = _forward_on_device("fwd", Q, K, V, keep, softmax_scale,
                                   return_lse, out_dtype, kscale)
-    LAUNCHES += 1
+    _count("LAUNCHES")
     return (out, lse) if return_lse else out
 
 
@@ -225,7 +233,6 @@ def attention_core_shared(V, kscale, keep, softmax_scale: float = 10.0,
     (B,N,D) is queries and values, the keys are V * kscale (kscale (B,D)
     float32), keep (B,N). A CUDA tensor launches the shared-tensor kernel,
     which takes the one pointer; a CPU tensor takes the plain version."""
-    global LAUNCHES_SHARED
     out_dtype = out_dtype or V.dtype
     _check(V, V, V, keep, out_dtype, kscale)
     if kscale is None:
@@ -235,7 +242,7 @@ def attention_core_shared(V, kscale, keep, softmax_scale: float = 10.0,
                                                return_lse, out_dtype)
     out, lse = _forward_on_device("fwd_shared", V, V, V, keep, softmax_scale,
                                   return_lse, out_dtype, kscale)
-    LAUNCHES_SHARED += 1
+    _count("LAUNCHES_SHARED")
     return (out, lse) if return_lse else out
 
 
@@ -276,7 +283,6 @@ def attention_core_dsplit(Q, K, V, keep, softmax_scale: float = 10.0,
     canvases; needs sm_90). No backward: it raises where autograd would
     need one. A CUDA tensor launches the kernel; a CPU tensor takes the
     plain version."""
-    global LAUNCHES_DSPLIT
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (Q, K, V, kscale)):
         raise RuntimeError(
@@ -290,7 +296,7 @@ def attention_core_dsplit(Q, K, V, keep, softmax_scale: float = 10.0,
                                                return_lse, out_dtype, kscale)
     out, lse = _forward_on_device("fwd_dsplit", Q, K, V, keep, softmax_scale,
                                   return_lse, out_dtype, kscale)
-    LAUNCHES_DSPLIT += 1
+    _count("LAUNCHES_DSPLIT")
     return (out, lse) if return_lse else out
 
 
@@ -480,7 +486,6 @@ def attention_core_dq(Q, K, V, keep, lse, delta, dO,
     """dQ (float32) of ``attention_core``, given the forward's logsumexp,
     delta = rowsum(dO O) and the float32 output gradient dO. A CUDA tensor
     launches the dQ kernel; a CPU tensor takes the plain version."""
-    global LAUNCHES_DQ
     _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
     if not _on_device(Q, "attention_core_dq"):
         return attention_core_dq_reference(Q, K, V, keep, lse, delta, dO,
@@ -488,7 +493,7 @@ def attention_core_dq(Q, K, V, keep, lse, delta, dO,
     dQ = torch.empty(Q.shape, dtype=torch.float32, device=Q.device)
     _launch_bwd("dq", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
                              lse, delta, dQ), softmax_scale)
-    LAUNCHES_DQ += 1
+    _count("LAUNCHES_DQ")
     return dQ
 
 
@@ -500,7 +505,6 @@ def attention_core_dkdv(Q, K, V, keep, lse, delta, dO,
     sum their partial S^T and dP^T through distributed shared memory; needs
     sm_90; ``dkdv_plan`` says how it runs a shape); a CPU tensor takes the
     plain version."""
-    global LAUNCHES_DKDV
     _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
     if not _on_device(Q, "attention_core_dkdv"):
         return attention_core_dkdv_reference(Q, K, V, keep, lse, delta, dO,
@@ -509,7 +513,7 @@ def attention_core_dkdv(Q, K, V, keep, lse, delta, dO,
               for _ in range(2))
     _launch_bwd("dkdv", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
                                lse, delta, dK, dV), softmax_scale)
-    LAUNCHES_DKDV += 1
+    _count("LAUNCHES_DKDV")
     return dK, dV
 
 
@@ -518,7 +522,6 @@ def attention_core_dv(Q, K, keep, lse, dO, softmax_scale: float = 10.0,
     """dV (float32) of ``attention_core`` alone: it needs neither V nor
     delta. A CUDA tensor launches the dV kernel; a CPU tensor takes the
     plain version."""
-    global LAUNCHES_DV
     # V and delta are not read: K and lse stand in for them in the checks
     _check_bwd(Q, K, K, keep, lse, lse, dO, kscale)
     if not _on_device(Q, "attention_core_dv"):
@@ -527,7 +530,7 @@ def attention_core_dv(Q, K, keep, lse, dO, softmax_scale: float = 10.0,
     dV = torch.empty(K.shape, dtype=torch.float32, device=K.device)
     _launch_bwd("dv", Q, K, (Q, K, keep, _kscale_or_ones(Q, kscale), dO, lse,
                              dV), softmax_scale)
-    LAUNCHES_DV += 1
+    _count("LAUNCHES_DV")
     return dV
 
 
@@ -536,7 +539,6 @@ def attention_core_dk(Q, K, V, keep, lse, delta, dO,
     """dK_eff (float32) of ``attention_core`` alone, the gradient of the
     keys K * kscale. A CUDA tensor launches the dK kernel; a CPU tensor
     takes the plain version."""
-    global LAUNCHES_DK
     _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
     if not _on_device(Q, "attention_core_dk"):
         return attention_core_dk_reference(Q, K, V, keep, lse, delta, dO,
@@ -544,7 +546,7 @@ def attention_core_dk(Q, K, V, keep, lse, delta, dO,
     dK = torch.empty(K.shape, dtype=torch.float32, device=K.device)
     _launch_bwd("dk", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
                              lse, delta, dK), softmax_scale)
-    LAUNCHES_DK += 1
+    _count("LAUNCHES_DK")
     return dK
 
 

@@ -3,7 +3,9 @@ with the port's execution flags).
 
 The flag vocabulary is the reference's, so ``test_celeb.sh``'s flags run
 unchanged. Added: ``--device`` (cuda unless asked for cpu). Changed:
-``--attention_impl`` chooses between the CUDA kernel and the dense version.
+``--attention_impl`` chooses between the CUDA kernel, the dense version and
+the kernel with its query patches split over the devices; ``--gpu_ids``
+names the cards that ``--data_parallel`` and ``sharded`` use.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ class BaseOptions:
                             help='zero the guide channel of the context '
                                  'stream (released checkpoints use this)')
         parser.add_argument('--gpu_ids', type=str, default='0',
-                            help='accepted for script compatibility; the '
-                                 'device is chosen by --device')
+                            help='the cards of a multi-GPU run, in order '
+                                 '(an id may repeat: two replicas or ranks '
+                                 'on one card); one id means every visible '
+                                 'card. Ignored with --device cpu')
         parser.add_argument('--checkpoints_dir', type=str,
                             default='./checkpoints')
         parser.add_argument('--model', type=str, default='editline2')
@@ -92,9 +96,18 @@ class BaseOptions:
                             help="'highest' turns TF32 off for convs and "
                                  "matmuls; 'default' allows it")
         parser.add_argument('--attention_impl', type=str, default='auto',
-                            choices=('auto', 'dense', 'kernel'),
+                            choices=('auto', 'dense', 'kernel', 'sharded'),
                             help="'auto': the CUDA kernel on the GPU, the "
-                                 "dense version on the CPU")
+                                 "dense version on the CPU; 'sharded' splits "
+                                 "the attention's query patches over the "
+                                 "devices (--gpu_ids, --data_parallel) "
+                                 "instead of the batch")
+        parser.add_argument('--data_parallel', type=int, default=0,
+                            help='split batches over N devices: replicas of '
+                                 'the nets for inference, ranks for '
+                                 'training (0 = every visible card if more '
+                                 'than one; with --device cpu, N copies on '
+                                 'the CPU)')
 
         self.initialized = True
         return parser

@@ -1,10 +1,5 @@
 """Training options (a copy of ``sketchedit_tpu/options/train_options.py``
-on the port's base options, which add ``--device``).
-
-Multi-GPU runs (``--data_parallel``, several ``--gpu_ids``) are registered
-so that the JAX CLI's command lines parse, but the port's train CLI raises
-on them: they are ROADMAP queue 1 item 12.
-"""
+on the port's base options, which add ``--device``)."""
 
 from sketchedit_tpu_torch.options.base_options import BaseOptions
 
@@ -95,9 +90,6 @@ class TrainOptions(BaseOptions):
         parser.add_argument('--metrics_log', type=str, default='auto',
                             help="JSONL metrics log: 'auto' = <run_dir>/"
                                  "metrics.jsonl, 'off' disables, else a path")
-        # multi-GPU: not ported (ROADMAP queue 1 item 12)
-        parser.add_argument('--data_parallel', type=int, default=0,
-                            help='not ported: the port raises above 1')
         # bookkeeping (IterationCounter)
         parser.add_argument('--save_epoch_freq', type=int, default=10)
         parser.add_argument('--save_latest_freq', type=int, default=5000)

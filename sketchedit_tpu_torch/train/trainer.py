@@ -21,6 +21,12 @@ the convs cast them per op. The G step takes its gradients with
 on the discriminator; its call to D does not move ``u``. The caller draws
 the G and D branch flags (``draw_flags``); the D step regenerates its fakes
 with the updated generator and its own flag, unless ``reuse_fake``.
+
+Given a process group, ``train_step`` averages the G and D gradients over
+its ranks before each optimizer step, and the returned metrics after it
+(``parallel/distributed.py``): each rank holds its rows of a global batch,
+and the step is the global batch's step, as the JAX step under a
+data-parallel mesh.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from sketchedit_tpu_torch.models.editline2 import DTYPES
 from sketchedit_tpu_torch.models.md_generator import MDGenerator
 from sketchedit_tpu_torch.ops.gated_conv import init_conv_
 from sketchedit_tpu_torch.ops.image import gaussian_blur3x3
+from sketchedit_tpu_torch.parallel.distributed import all_reduce_mean_
 from sketchedit_tpu_torch.train import losses
 
 _MASK_KEYS = ("mask", "edgegt", "random_mask", "random_mask2", "region_gt")
@@ -334,9 +341,13 @@ def decompress_batch(batch) -> dict:
     return {k: v.permute(0, 3, 1, 2).contiguous() for k, v in out.items()}
 
 
-def _set_grads(params, grads):
+def _set_grads(params, grads, group=None):
+    """Set each parameter's gradient (zeros for None); with a process group,
+    averaged over its ranks."""
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
+    if group is not None:
+        all_reduce_mean_([p.grad for p in params], group)
 
 
 def _step_optimizer(opt, base_lr, step, cfg: TrainConfig):
@@ -384,15 +395,17 @@ def d_step_grads(state: TrainState, batch, flag: int, cfg: TrainConfig,
 
 
 def train_step(state: TrainState, batch, flag_g: int, flag_d: int,
-               cfg: TrainConfig, vgg_params=None):
+               cfg: TrainConfig, vgg_params=None, group=None):
     """One G+D step in place. ``batch``: NHWC tensors (float or compact
     protocol) with keys image, gt, mask (sketch), edgegt, random_mask,
     random_mask2 and optionally region_gt. Returns (state, metrics), the
-    metrics as 0-d tensors (reading them waits for the device)."""
+    metrics as 0-d tensors (reading them waits for the device). With a
+    process ``group``, ``batch`` is this rank's rows of the global batch,
+    and the gradients and the metrics are averaged over the ranks."""
     batch = decompress_batch(batch)
     g_sum, G, g_grads, gen = g_step_grads(state, batch, flag_g, cfg,
                                           vgg_params)
-    _set_grads(*zip(*g_grads))
+    _set_grads(*zip(*g_grads), group=group)
     _step_optimizer(state.opt_g, cfg.g_lr(), state.step, cfg)
 
     metrics = {"G_total": g_sum.detach(),
@@ -402,10 +415,14 @@ def train_step(state: TrainState, batch, flag_g: int, flag_d: int,
                   if cfg.reuse_fake else None)
         _d_sum, d_fake, d_real, d_grads, new_u = d_step_grads(
             state, batch, flag_d, cfg, gen=reused)
-        _set_grads(*zip(*d_grads))
+        _set_grads(*zip(*d_grads), group=group)
         _step_optimizer(state.opt_d, cfg.d_lr(), state.step, cfg)
         discriminator.load_u_(state.nets["D"], new_u)
         metrics.update(D_Fake=d_fake.detach(), D_real=d_real.detach())
+    if group is not None:
+        values = [v.float() for v in metrics.values()]
+        all_reduce_mean_(values, group)
+        metrics = dict(zip(metrics, values))
     state.step += 1
     metrics["flag"] = torch.tensor(float(flag_g))
     return state, metrics

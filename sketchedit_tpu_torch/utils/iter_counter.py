@@ -27,7 +27,10 @@ import time
 class IterationCounter:
     """Tracks (epoch, step-in-epoch) with image-denominated triggers."""
 
-    def __init__(self, opt, dataset_size: int):
+    def __init__(self, opt, dataset_size: int, record: bool = True):
+        """``record`` False never writes iter.txt (a data-parallel rank
+        other than 0 keeps the clock but leaves the file to rank 0)."""
+        self.record = record
         self.batch_size = int(opt.batchSize)
         self.dataset_size = int(dataset_size)
         self.total_epochs = int(opt.niter) + int(
@@ -101,6 +104,8 @@ class IterationCounter:
             return None
 
     def _write_record(self, epoch: int, images: int):
+        if not self.record:
+            return
         with open(self.iter_record_path, "w") as fh:
             fh.write(f"{epoch}\n{images}\n")
         print(f"Saved current iteration count at {self.iter_record_path}.")

@@ -49,6 +49,16 @@ def test_scan_covers_the_serving_modules(rel):
     assert ROOT / "chip_smoke.py" in SCANNED
 
 
+@pytest.mark.parametrize("rel", [
+    "parallel/__init__.py", "parallel/mesh.py",
+    "parallel/sharded_attention.py", "parallel/distributed.py"])
+def test_scan_covers_the_parallel_modules(rel):
+    """The multi-device slice's modules are among the files that the two
+    parametrised checks below walk."""
+    assert ROOT / "sketchedit_tpu_torch" / rel in PORT_FILES
+    assert ROOT / "sketchedit_tpu_torch" / rel in SCANNED
+
+
 @pytest.mark.parametrize("path", SCANNED, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]

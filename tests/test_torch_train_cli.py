@@ -2,8 +2,8 @@
 that the JAX package loads (its forward then matches the port's), an exact
 resume of the training state, held-out validation with the metrics log and
 best checkpoints (loaded through the spawned loader pool), checkpoint-and-
-exit on SIGTERM, and the refusals (no GPU without --device cpu; multi-GPU
-not ported). Forward tolerance: atol 1e-4, float32 on both sides."""
+exit on SIGTERM, and the refusal of the default device without a GPU.
+Forward tolerance: atol 1e-4, float32 on both sides."""
 
 import argparse
 import json
@@ -237,8 +237,6 @@ def test_cli_validation_writes_val_rows_and_best_nets(tmp_path):
 
 @pytest.mark.parametrize("extra,error,match", [
     ((), RuntimeError, "CUDA is not available"),
-    (("--device", "cpu", "--gpu_ids", "0,1"), NotImplementedError,
-     "ROADMAP"),
 ])
 def test_cli_refusals(tmp_path, monkeypatch, extra, error, match):
     if not extra and torch.cuda.is_available():
