@@ -23,8 +23,12 @@ per-request HTTP cost amortizes over N images. Frames already at
 The model runs on the GPU unless --device cpu is given. GET /healthz
 answers once every batch bucket is warm; GET /stats reports the HTTP
 counters, the raw path's per-stage host times and the executor's.
---serve_artifact (serving from an exported program) is accepted and
-raises: it is not ported yet.
+
+Deployment hosts can serve from exported programs instead of checkpoints
+and model code (scripts/export_serving_artifact_torch.py), on one device:
+
+    python -m sketchedit_tpu_torch.cli.serve --serve_artifact celeb_b1.pt2 \
+        --serve_artifact celeb_b32.pt2 --port 9999
 """
 
 import base64
@@ -65,9 +69,11 @@ class ApiOptions(TestOptions):
         parser.add_argument('--max_wait_ms', type=float, default=5.0)
         parser.add_argument('--serve_artifact', action='append',
                             default=None, metavar='PATH',
-                            help='serve from an exported program instead '
-                                 'of checkpoints + model code: not ported '
-                                 'yet, raises')
+                            help='serve from exported .pt2 artifacts '
+                                 '(scripts/export_serving_artifact_torch.py) '
+                                 'instead of checkpoints + model code; '
+                                 'repeat for multiple batch sizes (one '
+                                 'artifact per batch bucket)')
         # serving default is the throughput configuration (bfloat16
         # activations, TF32 allowed where float32 remains); checkpoint-
         # parity evaluation (cli/infer.py) keeps float32/highest.
@@ -82,12 +88,13 @@ def main():
     edit_size = opt.edit_size
     if edit_size % 8:
         raise SystemExit(f"--edit_size {edit_size} must be a multiple of 8")
-    if opt.serve_artifact:
-        raise NotImplementedError(
-            "--serve_artifact: serving from an exported program is not "
-            "ported yet (ROADMAP.md queue 1 item 13)")
+    if opt.serve_artifact and (
+            opt.attention_impl == "sharded" or len(opt.gpu_ids) > 1
+            or opt.data_parallel > 1):
+        raise SystemExit("--serve_artifact serves on one device: it takes "
+                         "neither --attention_impl sharded nor several "
+                         "--gpu_ids or --data_parallel")
 
-    from sketchedit_tpu_torch.runner import build_pipeline
     from sketchedit_tpu_torch.server import rawproto
     from sketchedit_tpu_torch.server.executor import BatchingExecutor
     from sketchedit_tpu_torch.server.letterbox import (
@@ -112,7 +119,25 @@ def main():
         wd.daemon = True
         wd.start()
 
-    pipeline = build_pipeline(opt)
+    if opt.serve_artifact:
+        from sketchedit_tpu_torch.device import resolve_device
+        from sketchedit_tpu_torch.server.artifact import ArtifactPipeline
+        device = resolve_device(opt.device)
+        pipeline = ArtifactPipeline(opt.serve_artifact)
+        if pipeline.device.type != device.type:
+            raise SystemExit(f"the artifacts run on {pipeline.device}, "
+                             f"not on --device {opt.device}")
+        if pipeline.size != edit_size:
+            print(f"NOTE: --edit_size {edit_size} -> {pipeline.size} "
+                  "(the artifacts' exported size)")
+            edit_size = pipeline.size
+        if pipeline.max_batch < opt.max_batch:
+            opt.max_batch = pipeline.max_batch
+        print(f"serving from {len(opt.serve_artifact)} artifact(s), "
+              f"batch buckets {pipeline.batches}, size {edit_size}")
+    else:
+        from sketchedit_tpu_torch.runner import build_pipeline
+        pipeline = build_pipeline(opt)
     executor = BatchingExecutor(pipeline, max_batch=opt.max_batch,
                                 max_wait_ms=opt.max_wait_ms)
     print("warming batch buckets (kernel build, then one batch per "

@@ -9,9 +9,12 @@
 4. a stage-2 attention encoder (pmconv1...pmconv6, contextual attention,
    pmconv9...pmconv10), concatenated with (3) into the allconv decoder.
 
-Attribute names are the reference layer names. The contextual attention
-runs through the CUDA kernel, the dense version, or the kernel with its
-query patches split over ``attention_devices`` (``attention_impl``).
+Attribute names are the reference layer names. At the released splitcam
+configuration the contextual attention runs through the CUDA kernel, the
+dense version, or the kernel with its query patches split over
+``attention_devices`` (``attention_impl``); any other ``attention``
+configuration runs ``splitcam_attention`` (dense torch), whatever
+``attention_impl`` says, as the JAX netG does.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch.nn as nn
 
 from sketchedit_tpu_torch.models.md_generator import build_layers
 from sketchedit_tpu_torch.ops.attention import (
-    SplitCAMConfig, contextual_attention)
+    SplitCAMConfig, contextual_attention, splitcam_attention)
 from sketchedit_tpu_torch.ops.attention_cuda import contextual_attention_fused
 from sketchedit_tpu_torch.ops.image import avg_pool2d
 from sketchedit_tpu_torch.parallel.sharded_attention import (
@@ -57,10 +60,16 @@ class DeepFillConfig:
                              "attention_devices")
         if self.pool_type not in ("avg", "max"):
             raise NotImplementedError(self.pool_type)
+
+    def attention_route(self, device) -> str:
+        """How netG's attention runs on ``device``: 'splitcam' (a
+        non-released ``attention``), else ``attention_impl`` with 'auto'
+        resolved to 'kernel' on CUDA and 'dense' elsewhere."""
         if not self.attention.is_released:
-            raise NotImplementedError(
-                "only the released splitcam configuration is ported; the "
-                "rest of the space is ROADMAP.md queue 1 item 14")
+            return "splitcam"
+        if self.attention_impl == "auto":
+            return "kernel" if torch.device(device).type == "cuda" else "dense"
+        return self.attention_impl
 
 
 def _spec_encoder(prefix: str, cin0: int):
@@ -139,9 +148,10 @@ class DeepFillC2Generator(nn.Module):
         """Contextual attention over the pm features, gated by the hole
         mask pooled to feature resolution."""
         mask_s = avg_pool2d(mask, 4, 4)
-        impl = self.config.attention_impl
-        if impl == "auto":
-            impl = "kernel" if x.is_cuda else "dense"
+        impl = self.config.attention_route(x.device)
+        if impl == "splitcam":
+            return splitcam_attention(x, x, mask_s.detach(),
+                                      self.config.attention)
         if impl == "kernel":
             return contextual_attention_fused(x, x, mask_s)
         if impl == "sharded":

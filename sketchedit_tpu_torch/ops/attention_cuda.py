@@ -51,6 +51,18 @@ backward materialises K = V * kscale in the input type, bfloat16 included;
 here the keys stay float32 in every kernel, a documented difference of
 rounding.
 
+Every kernel is a ``torch.library`` custom op of the ``sketchedit``
+namespace (``attention_fwd``, ``attention_fwd_shared``,
+``attention_fwd_dsplit``, ``attention_dq``, ``attention_dkdv``,
+``attention_dv``, ``attention_dk``): its CUDA implementation launches the
+kernel, its CPU implementation is the plain version, and its fake
+implementation gives the output shapes, so ``torch.export`` traces a call
+into the graph (``server/artifact.py``). The dispatcher picks the
+implementation by the tensors' device; any device other than ``cuda`` or
+``cpu`` raises. The public functions below check their inputs and call the
+ops. A forward op always returns (out, lse), the lse an empty tensor when it
+was not asked for, since a custom op cannot return None.
+
 ``LAUNCHES``, ``LAUNCHES_SHARED`` and ``LAUNCHES_DSPLIT`` count the three
 forward kernels' launches (``LAUNCHES_LSE`` those of any of them that also
 wrote the logsumexp), ``LAUNCHES_DQ``, ``LAUNCHES_DKDV``, ``LAUNCHES_DV``
@@ -66,8 +78,10 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from typing import Optional
 
 import torch
+from torch import Tensor
 
 from sketchedit_tpu_torch.ops.attention import (
     background_norm, extract_patches, fold_patches, keep_gate)
@@ -168,6 +182,9 @@ def _check(Q, K, V, keep, out_dtype, kscale):
             raise ValueError(f"{name} must be contiguous")
         if t.device != Q.device:
             raise ValueError(f"{name} is on {t.device}, Q on {Q.device}")
+    if Q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the attention kernels run on cuda or cpu, not "
+                         f"{Q.device}")
 
 
 def _forward_on_device(name, Q, K, V, keep, softmax_scale, return_lse,
@@ -209,12 +226,8 @@ def attention_core(Q, K, V, keep, softmax_scale: float = 10.0,
     """
     out_dtype = out_dtype or Q.dtype
     _check(Q, K, V, keep, out_dtype, kscale)
-    if not _on_device(Q, "attention_core"):
-        return attention_core_reference(Q, K, V, keep, softmax_scale,
-                                        return_lse, out_dtype, kscale)
-    out, lse = _forward_on_device("fwd", Q, K, V, keep, softmax_scale,
-                                  return_lse, out_dtype, kscale)
-    _count("LAUNCHES")
+    out, lse = _fwd_op(Q, K, V, keep, kscale, float(softmax_scale),
+                       out_dtype, return_lse)
     return (out, lse) if return_lse else out
 
 
@@ -237,12 +250,8 @@ def attention_core_shared(V, kscale, keep, softmax_scale: float = 10.0,
     _check(V, V, V, keep, out_dtype, kscale)
     if kscale is None:
         raise ValueError("attention_core_shared needs kscale")
-    if not _on_device(V, "attention_core_shared"):
-        return attention_core_shared_reference(V, kscale, keep, softmax_scale,
-                                               return_lse, out_dtype)
-    out, lse = _forward_on_device("fwd_shared", V, V, V, keep, softmax_scale,
-                                  return_lse, out_dtype, kscale)
-    _count("LAUNCHES_SHARED")
+    out, lse = _fwd_shared_op(V, kscale, keep, float(softmax_scale),
+                              out_dtype, return_lse)
     return (out, lse) if return_lse else out
 
 
@@ -291,12 +300,8 @@ def attention_core_dsplit(Q, K, V, keep, softmax_scale: float = 10.0,
             "train, or call it under torch.no_grad()")
     out_dtype = out_dtype or Q.dtype
     _check(Q, K, V, keep, out_dtype, kscale)
-    if not _on_device(Q, "attention_core_dsplit"):
-        return attention_core_dsplit_reference(Q, K, V, keep, softmax_scale,
-                                               return_lse, out_dtype, kscale)
-    out, lse = _forward_on_device("fwd_dsplit", Q, K, V, keep, softmax_scale,
-                                  return_lse, out_dtype, kscale)
-    _count("LAUNCHES_DSPLIT")
+    out, lse = _fwd_dsplit_op(Q, K, V, keep, kscale, float(softmax_scale),
+                              out_dtype, return_lse)
     return (out, lse) if return_lse else out
 
 
@@ -475,10 +480,167 @@ def _launch_bwd(name, Q, K, tensors, softmax_scale):
                            f"{err_str(rc).decode()}")
 
 
-def _on_device(Q, what):
-    if Q.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{what} runs on cuda or cpu, not {Q.device}")
-    return Q.device.type == "cuda"
+# --- the kernels as torch.library custom ops ---------------------------------
+# Each op's CPU implementation is the plain version, its CUDA implementation
+# the launch (counted), its fake implementation the output shapes.
+
+
+def _with_lse(out, lse, like):
+    """(out, lse), an empty float32 lse standing for a forward that was not
+    asked for one."""
+    if lse is None:
+        lse = like.new_empty((0,), dtype=torch.float32)
+    return out, lse
+
+
+def _fwd_fake(Q, out_dtype, return_lse):
+    return (Q.new_empty(Q.shape, dtype=out_dtype),
+            Q.new_empty(Q.shape[:2] if return_lse else (0,),
+                        dtype=torch.float32))
+
+
+def _forward_op(name: str, plain, counter: str):
+    """The forward op ``sketchedit::attention_<name>`` over (Q, K, V, keep,
+    kscale, softmax_scale, out_dtype, return_lse) -> (out, lse)."""
+
+    def cpu(Q: Tensor, K: Tensor, V: Tensor, keep: Tensor,
+            kscale: Optional[Tensor], softmax_scale: float,
+            out_dtype: torch.dtype, return_lse: bool) -> tuple[Tensor, Tensor]:
+        res = plain(Q, K, V, keep, softmax_scale, return_lse, out_dtype,
+                    kscale)
+        return res if return_lse else _with_lse(res, None, Q)
+
+    op = torch.library.custom_op(f"sketchedit::attention_{name}", cpu,
+                                 mutates_args=(), device_types="cpu")
+
+    @op.register_kernel("cuda")
+    def _(Q, K, V, keep, kscale, softmax_scale, out_dtype, return_lse):
+        out, lse = _forward_on_device(name, Q, K, V, keep, softmax_scale,
+                                      return_lse, out_dtype, kscale)
+        _count(counter)
+        return _with_lse(out, lse, Q)
+
+    op.register_fake(lambda Q, K, V, keep, kscale, softmax_scale, out_dtype,
+                     return_lse: _fwd_fake(Q, out_dtype, return_lse))
+    return op
+
+
+_fwd_op = _forward_op("fwd", attention_core_reference, "LAUNCHES")
+_fwd_dsplit_op = _forward_op("fwd_dsplit", attention_core_dsplit_reference,
+                             "LAUNCHES_DSPLIT")
+
+
+@torch.library.custom_op("sketchedit::attention_fwd_shared", mutates_args=(),
+                         device_types="cpu")
+def _fwd_shared_op(V: Tensor, kscale: Tensor, keep: Tensor,
+                   softmax_scale: float, out_dtype: torch.dtype,
+                   return_lse: bool) -> tuple[Tensor, Tensor]:
+    res = attention_core_shared_reference(V, kscale, keep, softmax_scale,
+                                          return_lse, out_dtype)
+    return res if return_lse else _with_lse(res, None, V)
+
+
+@_fwd_shared_op.register_kernel("cuda")
+def _(V, kscale, keep, softmax_scale, out_dtype, return_lse):
+    out, lse = _forward_on_device("fwd_shared", V, V, V, keep, softmax_scale,
+                                  return_lse, out_dtype, kscale)
+    _count("LAUNCHES_SHARED")
+    return _with_lse(out, lse, V)
+
+
+@_fwd_shared_op.register_fake
+def _(V, kscale, keep, softmax_scale, out_dtype, return_lse):
+    return _fwd_fake(V, out_dtype, return_lse)
+
+
+def _f32_like(*tensors):
+    """Empty float32 tensors shaped like ``tensors``, on their device."""
+    out = [t.new_empty(t.shape, dtype=torch.float32) for t in tensors]
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def _backward_op(name: str, cpu, fake):
+    """The backward op ``sketchedit::attention_<name>``: ``cpu``, the plain
+    version, whose annotations make the schema; ``fake`` the outputs'
+    shapes. Its CUDA implementation is registered below."""
+    op = torch.library.custom_op(f"sketchedit::attention_{name}", cpu,
+                                 mutates_args=(), device_types="cpu")
+    op.register_fake(fake)
+    return op
+
+
+def _dq_cpu(Q: Tensor, K: Tensor, V: Tensor, keep: Tensor, lse: Tensor,
+            delta: Tensor, dO: Tensor, softmax_scale: float,
+            kscale: Optional[Tensor]) -> Tensor:
+    return attention_core_dq_reference(Q, K, V, keep, lse, delta, dO,
+                                       softmax_scale, kscale)
+
+
+def _dkdv_cpu(Q: Tensor, K: Tensor, V: Tensor, keep: Tensor, lse: Tensor,
+              delta: Tensor, dO: Tensor, softmax_scale: float,
+              kscale: Optional[Tensor]) -> tuple[Tensor, Tensor]:
+    return attention_core_dkdv_reference(Q, K, V, keep, lse, delta, dO,
+                                         softmax_scale, kscale)
+
+
+def _dv_cpu(Q: Tensor, K: Tensor, keep: Tensor, lse: Tensor, dO: Tensor,
+            softmax_scale: float, kscale: Optional[Tensor]) -> Tensor:
+    return attention_core_dv_reference(Q, K, keep, lse, dO, softmax_scale,
+                                       kscale)
+
+
+def _dk_cpu(Q: Tensor, K: Tensor, V: Tensor, keep: Tensor, lse: Tensor,
+            delta: Tensor, dO: Tensor, softmax_scale: float,
+            kscale: Optional[Tensor]) -> Tensor:
+    return attention_core_dk_reference(Q, K, V, keep, lse, delta, dO,
+                                       softmax_scale, kscale)
+
+
+_dq_op = _backward_op("dq", _dq_cpu, lambda Q, *_: _f32_like(Q))
+_dkdv_op = _backward_op("dkdv", _dkdv_cpu, lambda Q, K, *_: _f32_like(K, K))
+_dv_op = _backward_op("dv", _dv_cpu, lambda Q, K, *_: _f32_like(K))
+_dk_op = _backward_op("dk", _dk_cpu, lambda Q, K, *_: _f32_like(K))
+
+
+# the CUDA implementations: the C signatures' pointers in their order
+@_dq_op.register_kernel("cuda")
+def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
+    dQ = _f32_like(Q)
+    _launch_bwd("dq", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
+                             lse, delta, dQ), softmax_scale)
+    _count("LAUNCHES_DQ")
+    return dQ
+
+
+@_dkdv_op.register_kernel("cuda")
+def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
+    dK, dV = _f32_like(K, K)
+    _launch_bwd("dkdv", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
+                               lse, delta, dK, dV), softmax_scale)
+    _count("LAUNCHES_DKDV")
+    return dK, dV
+
+
+@_dv_op.register_kernel("cuda")
+def _(Q, K, keep, lse, dO, softmax_scale, kscale):
+    dV = _f32_like(K)
+    _launch_bwd("dv", Q, K, (Q, K, keep, _kscale_or_ones(Q, kscale), dO, lse,
+                             dV), softmax_scale)
+    _count("LAUNCHES_DV")
+    return dV
+
+
+@_dk_op.register_kernel("cuda")
+def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
+    dK = _f32_like(K)
+    _launch_bwd("dk", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
+                             lse, delta, dK), softmax_scale)
+    _count("LAUNCHES_DK")
+    return dK
+
+
+OPS = (_fwd_op, _fwd_shared_op, _fwd_dsplit_op, _dq_op, _dkdv_op, _dv_op,
+       _dk_op)
 
 
 def attention_core_dq(Q, K, V, keep, lse, delta, dO,
@@ -487,14 +649,7 @@ def attention_core_dq(Q, K, V, keep, lse, delta, dO,
     delta = rowsum(dO O) and the float32 output gradient dO. A CUDA tensor
     launches the dQ kernel; a CPU tensor takes the plain version."""
     _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
-    if not _on_device(Q, "attention_core_dq"):
-        return attention_core_dq_reference(Q, K, V, keep, lse, delta, dO,
-                                           softmax_scale, kscale)
-    dQ = torch.empty(Q.shape, dtype=torch.float32, device=Q.device)
-    _launch_bwd("dq", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
-                             lse, delta, dQ), softmax_scale)
-    _count("LAUNCHES_DQ")
-    return dQ
+    return _dq_op(Q, K, V, keep, lse, delta, dO, float(softmax_scale), kscale)
 
 
 def attention_core_dkdv(Q, K, V, keep, lse, delta, dO,
@@ -506,15 +661,8 @@ def attention_core_dkdv(Q, K, V, keep, lse, delta, dO,
     sm_90; ``dkdv_plan`` says how it runs a shape); a CPU tensor takes the
     plain version."""
     _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
-    if not _on_device(Q, "attention_core_dkdv"):
-        return attention_core_dkdv_reference(Q, K, V, keep, lse, delta, dO,
-                                             softmax_scale, kscale)
-    dK, dV = (torch.empty(K.shape, dtype=torch.float32, device=K.device)
-              for _ in range(2))
-    _launch_bwd("dkdv", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
-                               lse, delta, dK, dV), softmax_scale)
-    _count("LAUNCHES_DKDV")
-    return dK, dV
+    return _dkdv_op(Q, K, V, keep, lse, delta, dO, float(softmax_scale),
+                    kscale)
 
 
 def attention_core_dv(Q, K, keep, lse, dO, softmax_scale: float = 10.0,
@@ -524,14 +672,7 @@ def attention_core_dv(Q, K, keep, lse, dO, softmax_scale: float = 10.0,
     plain version."""
     # V and delta are not read: K and lse stand in for them in the checks
     _check_bwd(Q, K, K, keep, lse, lse, dO, kscale)
-    if not _on_device(Q, "attention_core_dv"):
-        return attention_core_dv_reference(Q, K, keep, lse, dO, softmax_scale,
-                                           kscale)
-    dV = torch.empty(K.shape, dtype=torch.float32, device=K.device)
-    _launch_bwd("dv", Q, K, (Q, K, keep, _kscale_or_ones(Q, kscale), dO, lse,
-                             dV), softmax_scale)
-    _count("LAUNCHES_DV")
-    return dV
+    return _dv_op(Q, K, keep, lse, dO, float(softmax_scale), kscale)
 
 
 def attention_core_dk(Q, K, V, keep, lse, delta, dO,
@@ -540,14 +681,7 @@ def attention_core_dk(Q, K, V, keep, lse, delta, dO,
     keys K * kscale. A CUDA tensor launches the dK kernel; a CPU tensor
     takes the plain version."""
     _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
-    if not _on_device(Q, "attention_core_dk"):
-        return attention_core_dk_reference(Q, K, V, keep, lse, delta, dO,
-                                           softmax_scale, kscale)
-    dK = torch.empty(K.shape, dtype=torch.float32, device=K.device)
-    _launch_bwd("dk", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
-                             lse, delta, dK), softmax_scale)
-    _count("LAUNCHES_DK")
-    return dK
+    return _dk_op(Q, K, V, keep, lse, delta, dO, float(softmax_scale), kscale)
 
 
 def attention_core_bwd(Q, K, V, keep, out, lse, dO,
@@ -650,6 +784,18 @@ def attention_inputs(f, b, mask, *, patch_size: int = 4, stride: int = 2,
     return Q, V, keep_gate(mask, k, s, th), kscale
 
 
+def forward_kernel(shared_tensor: bool = True) -> str:
+    """The forward kernel that ``contextual_attention_fused`` takes under
+    the environment's switches: 'shared' (``SKETCHEDIT_SHARED_ATTN=1``,
+    where foreground and background are one tensor), else 'dsplit'
+    (``SKETCHEDIT_DSPLIT_ATTN=1``), else 'default'."""
+    if shared_tensor and os.environ.get("SKETCHEDIT_SHARED_ATTN") == "1":
+        return "shared"
+    if os.environ.get("SKETCHEDIT_DSPLIT_ATTN") == "1":
+        return "dsplit"
+    return "default"
+
+
 def contextual_attention_fused(f, b, mask, *, patch_size: int = 4,
                                stride: int = 2, softmax_scale: float = 10.0,
                                th: float = 0.1):
@@ -660,19 +806,21 @@ def contextual_attention_fused(f, b, mask, *, patch_size: int = 4,
     float32 and rounded once to the input dtype (the JAX package's Pallas
     path rounds K and the output to bfloat16).
 
-    The forward kernel is chosen on every call as in the JAX package:
-    ``SKETCHEDIT_SHARED_ATTN=1`` takes the shared-tensor kernel where
-    ``f is b``; otherwise ``SKETCHEDIT_DSPLIT_ATTN=1`` takes the D-split
-    kernel (inference only); otherwise the default kernel."""
+    The forward kernel is chosen on every call as in the JAX package
+    (``forward_kernel``): ``SKETCHEDIT_SHARED_ATTN=1`` takes the
+    shared-tensor kernel where ``f is b``; otherwise
+    ``SKETCHEDIT_DSPLIT_ATTN=1`` takes the D-split kernel (inference only);
+    otherwise the default kernel. ``torch.export`` bakes the choice into
+    its graph."""
     H, W = b.shape[2:]
     Q, V, keep, kscale = attention_inputs(f, b, mask, patch_size=patch_size,
                                           stride=stride, th=th)
-    shared = f is b and os.environ.get("SKETCHEDIT_SHARED_ATTN", "0") == "1"
-    if not shared and os.environ.get("SKETCHEDIT_DSPLIT_ATTN", "0") == "1":
+    kernel = forward_kernel(f is b)
+    if kernel == "dsplit":
         out = attention_core_dsplit(Q, V, V, keep, softmax_scale,
                                     out_dtype=torch.float32, kscale=kscale)
     else:
-        out = attention_core_differentiable(Q, V, V, keep, softmax_scale,
-                                            kscale=kscale,
-                                            shared_kernel=shared)
+        out = attention_core_differentiable(
+            Q, V, V, keep, softmax_scale, kscale=kscale,
+            shared_kernel=kernel == "shared")
     return fold_patches(out, (H, W), patch_size, stride).to(f.dtype)

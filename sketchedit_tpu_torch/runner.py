@@ -21,7 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from sketchedit_tpu_torch.device import resolve_device
+from sketchedit_tpu_torch.device import resolve_device, set_precision
 from sketchedit_tpu_torch.models import editline2
 from sketchedit_tpu_torch.models.deepfill_c2 import DeepFillConfig
 from sketchedit_tpu_torch.models.editline2 import EditLine2, EditLine2Config
@@ -74,15 +74,6 @@ def config_from_opt(opt) -> EditLine2Config:
                    else "highest"),
         compute_dtype=getattr(opt, "compute_dtype", "float32"),
     )
-
-
-def set_precision(precision: str | None):
-    """'highest' turns TF32 off in cuDNN convs and cuBLAS matmuls; cuDNN's
-    TF32 default would put ~1e-3 of error into every float32 conv. These
-    are process-wide PyTorch flags. None ('default') allows TF32."""
-    allow = precision is None
-    torch.backends.cudnn.allow_tf32 = allow
-    torch.backends.cuda.matmul.allow_tf32 = allow
 
 
 def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:

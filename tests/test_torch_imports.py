@@ -59,6 +59,18 @@ def test_scan_covers_the_parallel_modules(rel):
     assert ROOT / "sketchedit_tpu_torch" / rel in SCANNED
 
 
+@pytest.mark.parametrize("rel", [
+    "sketchedit_tpu_torch/server/artifact.py",
+    "sketchedit_tpu_torch/ops/attention.py",
+    "sketchedit_tpu_torch/ops/attention_cuda.py",
+    "scripts/convergence_check_torch.py",
+    "scripts/export_serving_artifact_torch.py"])
+def test_scan_covers_the_artifact_splitcam_and_convergence_files(rel):
+    """The modules and scripts of the artifact, splitcam and convergence
+    slice are among the files that the import checks walk."""
+    assert ROOT / rel in SCANNED
+
+
 @pytest.mark.parametrize("path", SCANNED, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]

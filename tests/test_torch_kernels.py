@@ -781,3 +781,103 @@ def test_kernel_rejects_cpu_mix(cuda):
     Q, K, V, keep = _inputs(0, 1, 8, 8, 8, 1.0, torch.float32, cuda)
     with pytest.raises(ValueError):
         attention_core(Q, K, V, keep.cpu())
+
+
+def _op_args(op_name, device, seed=0, B=2, N=130, P=150, D=70):
+    """Inputs of the custom op ``op_name`` on ``device``, at ragged
+    shapes."""
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy((rs.randn(*shape) * s).astype(np.float32)
+                                ).to(device)
+
+    Q, K, V = t(B, N, D, s=D ** -0.5), t(B, P, D), t(B, P, D)
+    keep = torch.from_numpy((rs.rand(B, P) > 0.3).astype(np.float32)
+                            ).to(device)
+    ks = torch.from_numpy((rs.rand(B, D) + 0.5).astype(np.float32)).to(device)
+    dO, delta = t(B, N, D), t(B, N)
+    lse = torch.logsumexp(torch.bmm(Q, (K * ks[:, None]).transpose(1, 2))
+                          * keep[:, None] * 10.0, -1)
+    f32 = torch.float32
+    return {
+        "fwd": (Q, K, V, keep, ks, 10.0, f32, True),
+        "fwd_shared": (V, ks, keep, 10.0, f32, True),
+        "fwd_dsplit": (Q, K, V, keep, ks, 10.0, f32, True),
+        "dq": (Q, K, V, keep, lse, delta, dO, 10.0, ks),
+        "dkdv": (Q, K, V, keep, lse, delta, dO, 10.0, ks),
+        "dv": (Q, K, keep, lse, dO, 10.0, ks),
+        "dk": (Q, K, V, keep, lse, delta, dO, 10.0, ks),
+    }[op_name]
+
+
+OP_COUNTERS = {"fwd": "LAUNCHES", "fwd_shared": "LAUNCHES_SHARED",
+               "fwd_dsplit": "LAUNCHES_DSPLIT", "dq": "LAUNCHES_DQ",
+               "dkdv": "LAUNCHES_DKDV", "dv": "LAUNCHES_DV",
+               "dk": "LAUNCHES_DK"}
+
+
+@pytest.mark.parametrize("op_name", sorted(OP_COUNTERS))
+def test_custom_op_on_cuda_matches_its_cpu_implementation(cuda, op_name):
+    """Each torch.library op launches its kernel on CUDA tensors (one count)
+    and agrees with its CPU implementation, the plain version, on the same
+    inputs: forwards (out and lse) at the forward tolerance, backwards at
+    2e-4 of each output's max |value|."""
+    op = getattr(torch.ops.sketchedit, f"attention_{op_name}")
+    args = _op_args(op_name, cuda)
+    counter = OP_COUNTERS[op_name]
+    before = getattr(attention_cuda, counter)
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert getattr(attention_cuda, counter) == before + 1
+    want = op(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+        tol = (TOL[torch.float32] if op_name.startswith("fwd")
+               else dict(rtol=0, atol=2e-4 * w.abs().max().item()))
+        torch.testing.assert_close(g.cpu(), w, **tol)
+
+
+@pytest.mark.parametrize("op_name", sorted(OP_COUNTERS))
+def test_opcheck_on_cuda(cuda, op_name):
+    """torch.library.opcheck on CUDA inputs: the schema, the fake
+    implementation against the kernel's outputs, and the traced graph."""
+    op = getattr(torch.ops.sketchedit, f"attention_{op_name}").default
+    result = torch.library.opcheck(op, _op_args(op_name, cuda, N=40, P=50,
+                                                D=36))
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_artifact_exported_and_loaded_on_the_card(cuda, tmp_path):
+    """server/artifact.py on the card: the loaded program launches the
+    forward kernel once per call and gives the live edit's uint8 output
+    within 1 LSB (the same kernels and convs on the same card)."""
+    from sketchedit_tpu_torch.models import editline2
+    from sketchedit_tpu_torch.server.artifact import (
+        export_edit_artifact, load_edit_artifact)
+    model = editline2.EditLine2(device=cuda)
+    editline2.init_nets_(model, ("M", "G"), 0, init_type="kaiming")
+    with torch.no_grad():
+        for net, gain in ((model.netM, 1.8), (model.netG, 1.5)):
+            for conv in net.children():
+                conv.weight.mul_(gain)
+    model.eval()
+    path = str(tmp_path / "edit.pt2")
+    meta = export_edit_artifact(model, path, size=64, batch=2)
+    assert meta["platforms"] == ["cuda"] and meta["forward_kernel"] == "default"
+    call = load_edit_artifact(path)
+    rs = np.random.RandomState(3)
+    img = torch.from_numpy(rs.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8))
+    sk = torch.from_numpy(((rs.rand(2, 64, 64, 1) > 0.9) * 255).astype(
+        np.uint8))
+    before = attention_cuda.LAUNCHES
+    with torch.inference_mode():
+        got = call(img, sk)
+        torch.cuda.synchronize()
+        assert attention_cuda.LAUNCHES == before + 1
+        want = editline2.edit_u8(model, img.to(cuda), sk.to(cuda))
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == torch.uint8
+        assert (g.int() - w.int()).abs().max().item() <= 1

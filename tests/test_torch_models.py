@@ -21,7 +21,6 @@ from sketchedit_tpu.models import md_generator as j_m
 from sketchedit_tpu_torch.models.deepfill_c2 import (
     DeepFillC2Generator, DeepFillConfig)
 from sketchedit_tpu_torch.models.md_generator import MDGenerator
-from sketchedit_tpu_torch.ops.attention import SplitCAMConfig
 from sketchedit_tpu_torch.params.convert import jax_params_to_state_dict
 
 HIGH = jax.lax.Precision.HIGHEST
@@ -132,8 +131,3 @@ def test_layer_names_match_jax():
         got = {k: tuple(v.shape) for k, v in t_net.state_dict().items()
                if k.endswith(".weight")}
         assert got == want
-
-
-def test_non_released_attention_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeepFillConfig(attention=SplitCAMConfig(nn_hard=True))

@@ -298,8 +298,9 @@ def test_healthz_and_stats(api_server):
 
 def test_serve_defaults_and_refusals(tmp_path, monkeypatch):
     """Serving defaults (bfloat16, TF32 allowed, the card); no card and no
-    --device cpu raises; --serve_artifact and a ragged --edit_size are
-    refused before anything is built."""
+    --device cpu raises, for the model and for --serve_artifact (before
+    any artifact is read); a ragged --edit_size is refused before anything
+    is built."""
     opt = parse_argv(serve.ApiOptions, ["--checkpoints_dir", str(tmp_path)])
     assert (opt.device, opt.compute_dtype, opt.precision) == (
         "cuda", "bfloat16", "default")
@@ -311,8 +312,8 @@ def test_serve_defaults_and_refusals(tmp_path, monkeypatch):
     monkeypatch.setattr(sys, "argv", base)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main()
-    monkeypatch.setattr(sys, "argv", base + ["--serve_artifact", "a.shlo"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    monkeypatch.setattr(sys, "argv", base + ["--serve_artifact", "a.pt2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main()
     monkeypatch.setattr(sys, "argv", base + ["--edit_size", "100"])
     with pytest.raises(SystemExit, match="multiple of 8"):
