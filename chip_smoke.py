@@ -80,6 +80,22 @@ Phases, in order; any failure raises and the exit code is not 0:
    `convergence`, scripts/convergence_check_torch.py in bfloat16 on the
    kernel route for 900 steps (its other defaults), which must end
    CONVERGES, with the exact launch counts;
+8c. `packing`: the space-to-depth packed fronts and tails
+   (ops/packed_tail.py) against the plain layers: edit_u8 and netM and
+   netG with pack on and off at 256^2 (B = 1 and 4, both dtypes; netG's
+   five-layer tails under SKETCHEDIT_PACK_MID=1) and at 252^2 (the nets'
+   packed grids at 126^2), each route's net outputs held to a float64
+   evaluation of the same weights, each packed group (front pair, three-
+   and five-layer tail) against its plain layers on the same input, one
+   forward launch per packed edit; one G+D train step at 256^2, B = 8,
+   packed against plain from the train state's own initialisation (losses;
+   every gradient within relative L2 1e-2; exact launch counts); a float32
+   artifact exported packed, run in a fresh process, against the live
+   packed edit; then the ABBA times (``edit_ab``, ``train_ab``; also
+   scripts/packing_ab_torch.py), packed and plain in turns, of the edit per
+   dtype at B = 1, 4, 8, 32 and 64 (launches per call, and at B = 8
+   float32 the three costliest conv kernels of each route) and of the
+   train step at B = 8 in bfloat16 and in float32 with and without TF32;
 9. times: CUDA events after warm-up (inference and train step, each
    kernel, its plain version and one PyTorch call computing the same
    function, the three forwards at 256^2 (B = 1 and 8), 512^2 and 1024^2
@@ -104,6 +120,7 @@ import argparse
 import base64
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import multiprocessing
@@ -187,6 +204,25 @@ SPLITCAM_VARIANTS = {
 # could flip on a near tie; the top two weights of these inputs lie
 # percents apart.
 SPLITCAM_TOL = 1e-3
+# packed against plain fronts and tails (ops/packed_tail.py): the same math
+# in another summation order through ~50 convs. At 256^2 with these
+# weights the plain float32 route itself lies ~1e-3 from float64 on netM's
+# image (an absolute 1e-4 between the routes does not hold for either
+# order), so each net output of each route is held to a float64 evaluation
+# of the same weights: the packed route's relative L2 distance at most
+# PACK_F64_RATIO times the plain route's, or within PACK_F64_FLOOR, where
+# both sit at float32 roundoff (netG's coarse output: 1.3e-6 plain, 2.7e-6
+# packed at B = 4, 2.6e-6 and 1.4e-6 at B = 1). Float32 composites within
+# 1 LSB.
+PACK_F64_RATIO = 2.0
+PACK_F64_FLOOR = 1e-5
+# each packed group (a front pair, a three- or five-layer tail) against its
+# plain layers on the same input, max |packed - plain| over max |plain|:
+# float32, summation order only; bfloat16, a few bfloat16 ulps (2^-7 at
+# 1.0) from the layers' own roundings, the packed upsample kernels' summed
+# taps rounded once instead of per tap
+PACK_GROUP_TOL = {"float32": 1e-5, "bfloat16": 4 * 2.0 ** -7}
+PACK_AB_BATCHES = (1, 4, 8, 32, 64)
 
 lines: list[str] = []
 T0 = time.perf_counter()
@@ -350,6 +386,139 @@ def train_batch(B, H, seed):
     return out
 
 
+# --- packed against plain fronts and tails (ops/packed_tail.py) ----------
+
+PACK_ROUTES = (("packed", "1"), ("plain", "0"))     # SKETCHEDIT_PACK
+
+
+def packed_groups():
+    """Every packed group of the nets: (net, kind, layer names), kind
+    'front' (an encoder's first two layers), 'tail' (a decoder's last
+    three) or 'tail5' (netG's decoders' last five, under
+    SKETCHEDIT_PACK_MID)."""
+    from sketchedit_tpu_torch.models import deepfill_c2 as dg
+    from sketchedit_tpu_torch.models import md_generator as md
+
+    def names(specs):
+        return [s[0] for s in specs]
+
+    out = [("M", "front", names(md._ENCODER[:2]))]
+    out += [("M", "tail", names(d[-3:]))
+            for d in (md._IMAGE_DECODER, md._MASK_DECODER)]
+    out += [("G", "front", names(e[:2])) for e in (
+        dg._SPEC_CONV, dg._SPEC_WCONV, dg._SPEC_XCONV, dg._SPEC_PMCONV)]
+    out += [("G", kind, names(d[-n:])) for d in (dg._SPEC_CONV_DEC,
+                                                 dg._SPEC_ALLCONV_DEC)
+            for kind, n in (("tail", 3), ("tail5", 5))]
+    return out
+
+
+def packed_group_errors(nets, run_plain):
+    """Each packed group of ``nets`` ({'M': netM, 'G': netG}) against its
+    plain layers on the input that the group's first layer got in
+    ``run_plain()``, a plain forward of the nets (captured by hooks): per
+    group, max |packed - plain| / max |plain| (both in the nets' dtype).
+    Call it without autograd."""
+    from sketchedit_tpu_torch.ops import packed_tail as pt
+    run = {"front": pt.packed_encoder_front, "tail": pt.packed_decoder_tail,
+           "tail5": pt.packed_decoder_tail5}
+    groups = packed_groups()
+    seen, hooks = {}, []
+    for label, _, layers in groups:
+        key = (label, layers[0])
+        hooks.append(getattr(nets[label], layers[0]).register_forward_pre_hook(
+            lambda mod, args, key=key: seen.setdefault(key, args[0])))
+    try:
+        run_plain()
+    finally:
+        for h in hooks:
+            h.remove()
+    errors = {}
+    for label, kind, layers in groups:
+        mods = [getattr(nets[label], n) for n in layers]
+        x = want = seen[(label, layers[0])]
+        for mod in mods:
+            want = mod(want)
+        got = run[kind](*mods, x).float()
+        want = want.float()
+        errors[f"{label}.{layers[0]}.{kind}"] = (
+            (got - want).abs().max() / want.abs().max()).item()
+    return errors
+
+
+def reps_for(batch: int) -> int:
+    """Calls per timed turn: about 32 images' worth, at least 2."""
+    return max(2, 32 // batch)
+
+
+def profiled(fn, top: bool):
+    """Kernel launches of one call of fn, and its three costliest conv
+    kernels (name, ms) when ``top`` (scripts/profile_rows_torch.py files
+    them)."""
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from profile_rows_torch import category, kernel_times
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, launches = kernel_times(prof.events())
+    convs = [(name[:120], ms) for name, ms in kernels
+             if category(name) == "conv"][:3]
+    return launches, (convs if top else None)
+
+
+def edit_ab(model, batch: int, seed: int, top: bool = False,
+            rounds: int = 1):
+    """Packed against plain edits (``edit_u8`` at 256^2 on device uint8
+    tensors), the route forced with SKETCHEDIT_PACK, in turns: packed,
+    plain, plain, packed, ``rounds`` times. {route: row}: ms per call in
+    each turn (CUDA events over ``reps_for(batch)`` calls after warm-up),
+    launches per call and, with ``top``, the three costliest conv
+    kernels."""
+    from sketchedit_tpu_torch.models import editline2 as e2
+    dev = next(model.parameters()).device
+    r = np.random.RandomState(seed)
+    img = torch.from_numpy(r.randint(0, 256, (batch, 256, 256, 3)).astype(
+        np.uint8)).to(dev)
+    sk = torch.from_numpy(((r.rand(batch, 256, 256, 1) > 0.92) * 255).astype(
+        np.uint8)).to(dev)
+    flags = dict(PACK_ROUTES)
+    reps = reps_for(batch)
+    rows = {route: {"ms": []} for route in flags}
+    with torch.inference_mode():
+        turns = ("packed", "plain", "plain", "packed") * rounds
+        for i, route in enumerate(turns):
+            with env(SKETCHEDIT_PACK=flags[route]):
+                rows[route]["ms"].append(cuda_ms(
+                    lambda: e2.edit_u8(model, img, sk), reps,
+                    warmup=2 if i < 2 else 1))
+        for route, row in rows.items():
+            with env(SKETCHEDIT_PACK=flags[route]):
+                row["launches"], row["top_conv_kernels"] = profiled(
+                    lambda: e2.edit_u8(model, img, sk), top)
+    for row in rows.values():
+        row["reps"] = reps
+        if row["top_conv_kernels"] is None:
+            del row["top_conv_kernels"]
+    return rows
+
+
+def train_ab(state, cfg, batch: dict, reps: int = 3):
+    """{route: ms per step in both turns (packed, plain, plain, packed)}
+    for ``train_step`` on one state (flags 1, 1) and one device batch, the
+    route forced with SKETCHEDIT_PACK."""
+    from sketchedit_tpu_torch.train import trainer as tr
+    rows = {route: [] for route, _ in PACK_ROUTES}
+    flags = dict(PACK_ROUTES)
+    for route in ("packed", "plain", "plain", "packed"):
+        with env(SKETCHEDIT_PACK=flags[route]):
+            rows[route].append(cuda_ms(
+                lambda: tr.train_step(state, batch, 1, 1, cfg), reps,
+                warmup=1))
+    return rows
 
 
 def photo_like(rs, size):
@@ -462,7 +631,7 @@ def main():
         dkdv_plan, dq_plan, dsplit_plan, fwd_plan)
     from sketchedit_tpu_torch.options import parse_argv
     from sketchedit_tpu_torch.options.test_options import TestOptions
-    from sketchedit_tpu_torch.runner import build_pipeline
+    from sketchedit_tpu_torch.runner import build_pipeline, set_precision
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -913,30 +1082,35 @@ def main():
     from sketchedit_tpu_torch.params import checkpoint as ckpt
     from sketchedit_tpu_torch.train import trainer as tr
 
-    def train_state(dtype, impl, device="cuda", precision="highest"):
+    def train_state(dtype, impl, device="cuda", precision="highest",
+                    scaled=True):
+        """A seeded train state, netM's and netG's weights scaled as the
+        module docstring says unless not ``scaled`` (the state's own
+        initialisation, as a training run starts)."""
         cfg = tr.TrainConfig(netg=DeepFillConfig(
             attention_impl=impl,
             attention_devices=SHARDS if impl == "sharded" else ()),
             compute_dtype=dtype, precision=precision)
         state = tr.init_train_state(cfg, seed=args.seed, device=device)
-        scale_weights_(state.nets["M"], state.nets["G"])
+        if scaled:
+            scale_weights_(state.nets["M"], state.nets["G"])
         return state, cfg
 
-    def one_step(dtype, impl, batch, flags, device="cuda"):
+    def one_step(dtype, impl, batch, flags, device="cuda", scaled=True):
         """One train_step from a fresh state (its metrics and launch
         counts), and its gradients: the step's two halves on another fresh
         state, the D half before the G update, so that both attention paths
         regenerate the fakes from the same generator weights (after the
         update they differ where Adam's first step takes the sign of a
         noise-level gradient)."""
-        state, cfg = train_state(dtype, impl, device)
+        state, cfg = train_state(dtype, impl, device, scaled=scaled)
         before = counts(attention_cuda)
         _, metrics = tr.train_step(state, tr.batch_to_device(batch, device),
                                    *flags, cfg)
         if device == "cuda":
             torch.cuda.synchronize()
         used = {k: v - before[k] for k, v in counts(attention_cuda).items()}
-        state, cfg = train_state(dtype, impl, device)
+        state, cfg = train_state(dtype, impl, device, scaled=scaled)
         tb = tr.decompress_batch(tr.batch_to_device(batch, device))
         _, _, g_pairs, _ = tr.g_step_grads(state, tb, flags[0], cfg)
         _, _, _, d_pairs, _ = tr.d_step_grads(state, tb, flags[1], cfg)
@@ -2208,6 +2382,204 @@ def main():
     assert conv_launches == expect(fwd=2 * steps, fwd_lse=steps, dq=steps,
                                    dkdv=steps), conv_launches
 
+    # 8c. `packing`: the space-to-depth packed fronts and tails
+    # (ops/packed_tail.py) against the plain layers, the route forced with
+    # SKETCHEDIT_PACK / SKETCHEDIT_PACK_MID (read on every call) or the
+    # nets' ``pack``. The same math: each packed group held to its plain
+    # layers on the same input (PACK_GROUP_TOL), each route's nets to
+    # float64 (PACK_F64_RATIO), float32 composites within 1 LSB. Then the
+    # ABBA times that set use_packing's crossover.
+    pack_launches = {"float32": expect(), "bfloat16": expect()}
+
+    def add_launches(dt, used):
+        for k, v in used.items():
+            pack_launches[dt][k] += v
+
+    def net_outputs(nets, dtype, it, st, hard, pack):
+        """netM's (soft mask, image) and netG's (coarse, fine) on the same
+        inputs, netG on the given hard mask, as float64."""
+        x = it.permute(0, 3, 1, 2).to(dtype) / 127.5 - 1.0
+        s_ = (st.permute(0, 3, 1, 2) > 0).to(dtype)
+        hd = hard.to(dtype)
+        outs = [*nets[0](x, s_, pack=pack),
+                *nets[1](x, x, hd, hd, s_, pack=pack)]
+        return [o.double() for o in outs]
+
+    def pack_vs_plain(dt, B, H, seed, mid=False):
+        """One packed and one plain edit_u8; each packed group against its
+        plain layers on the inputs of the plain nets' run; the nets on the
+        edit's inputs held to a float64 evaluation of the same weights
+        (netG on the dense attention): the row of differences, checked,
+        with the launches counted."""
+        model = pipes[dt].model
+        ref_g = DeepFillC2Generator(dataclasses.replace(
+            model.netG.config, attention_impl="dense"), device=dev,
+            dtype=torch.float64)
+        ref_g.load_state_dict(model.netG.state_dict())
+        ref_m = type(model.netM)(device=dev, dtype=torch.float64)
+        ref_m.load_state_dict(model.netM.state_dict())
+        img, sk = batch(B, H, H, seed)
+        it, st = (torch.from_numpy(a).to(dev) for a in (img, sk))
+        with torch.inference_mode(), env(SKETCHEDIT_PACK_MID=str(int(mid))):
+            zero_counts(attention_cuda)
+            with env(SKETCHEDIT_PACK="1"):
+                got = e2.edit_u8(model, it, st)
+            torch.cuda.synchronize()
+            used = counts(attention_cuda)
+            with env(SKETCHEDIT_PACK="0"):
+                want = e2.edit_u8(model, it, st)
+                hard = e2.generate(
+                    model, it.permute(0, 3, 1, 2) / 127.5 - 1.0,
+                    (st.permute(0, 3, 1, 2) > 0).float())["mask_inpaint"]
+            nets = (model.netM, model.netG)
+            outs = [net_outputs(nets, model.config.dtype, it, st, hard, p)
+                    for p in (True, False)]
+            ref = net_outputs((ref_m, ref_g), torch.float64, it, st, hard,
+                              False)
+            groups = packed_group_errors(
+                {"M": model.netM, "G": model.netG},
+                lambda: net_outputs(nets, model.config.dtype, it, st, hard,
+                                    False))
+        assert used == expect(fwd=1), used
+        add_launches(dt, used)
+        d_c = u8_diff(got[0].cpu().numpy(), want[0].cpu().numpy())
+        d_m = u8_diff(got[1].cpu().numpy(), want[1].cpu().numpy())
+        # per output: max |packed - plain|, and each route's L2 distance
+        # from float64 over the float64 output's L2 norm
+        diff = [(a - b).abs().max().item() for a, b in zip(*outs)]
+        dist = {route: [((o - r).norm() / r.norm()).item()
+                        for o, r in zip(o_, ref)]
+                for route, o_ in zip(("packed", "plain"), outs)}
+        row = {"phase": "packing", "check": "nets", "dtype": dt, "batch": B,
+               "hw": [H, H], "mid": mid, "launches": used,
+               "outputs": ["netM_mask", "netM_image", "netG_coarse",
+                           "netG_fine"],
+               "max_abs_diff_packed_vs_plain": diff,
+               "max_u8_steps_packed_vs_plain": [
+                   d * (255.0 if i == 0 else 127.5)
+                   for i, d in enumerate(diff)],
+               "group_rel_err": groups,
+               "group_tol": PACK_GROUP_TOL[dt],
+               "rel_l2_vs_float64": dist, "f64_ratio": PACK_F64_RATIO,
+               "f64_floor": PACK_F64_FLOOR,
+               "max_u8_diff_composite": int(d_c.max()),
+               "max_u8_diff_mask": int(d_m.max()),
+               "frac_u8_diff_composite": float((d_c > 0).mean())}
+        emit(row)
+        assert all(np.isfinite(diff)), row
+        assert all(e <= PACK_GROUP_TOL[dt] for e in groups.values()), row
+        for p_, q_ in zip(dist["packed"], dist["plain"]):
+            assert p_ <= max(PACK_F64_RATIO * q_, PACK_F64_FLOOR), row
+        if dt == "float32":
+            assert d_m.max() <= 1 and d_c.max() <= 1, row
+        del ref_g, ref_m
+
+    t_pack = time.perf_counter()
+    for dt in ("float32", "bfloat16"):
+        set_precision("highest" if dt == "float32" else None)
+        for B in (1, 4):
+            pack_vs_plain(dt, B, 256, args.seed + 1300 + B)
+        pack_vs_plain(dt, 1, 256, args.seed + 1310, mid=True)
+    set_precision("highest")
+    # 252^2: the edit pads it to 256^2; the nets called at 252^2 run their
+    # packed layers on 126^2 grids (and the attention at 63^2)
+    pack_vs_plain("float32", 1, 252, args.seed + 1320)
+
+    # one G+D step at 256^2, B = 8, float32 (TF32 off), packed against
+    # plain, from the train state's own initialisation (as a training run
+    # starts): the losses as train_step_kernel_vs_dense holds them, every
+    # gradient within GRAD_TOL, the exact launch counts. (From the scaled
+    # weights of the other checks, netM's float32 forward lies several
+    # hundred roundings from float64 (4.4e-5 on its image), its L1 losses
+    # change sign on the pixels that moves, and its gradients differ by
+    # 1.2-1.5e-2 between the routes under any cuDNN setting, deterministic
+    # or off included: scripts/packing_grad_numerics_torch.py.)
+    steps_pm = {}
+    for route, flag in PACK_ROUTES:
+        with env(SKETCHEDIT_PACK=flag):
+            steps_pm[route] = one_step("float32", "kernel", batch8, (1, 1),
+                                       scaled=False)
+        assert steps_pm[route][2] == expect(fwd=2, fwd_lse=1, dq=1,
+                                            dkdv=1), steps_pm[route][2]
+        add_launches("float32", steps_pm[route][2])
+    row = {"phase": "packing", "check": "train_step", "hw": [256, 256],
+           "batch": 8, "dtype": "float32", "flag": 1,
+           "weights": "init_train_state",
+           "max_loss_rel_diff": losses_agree(steps_pm["packed"][0],
+                                             steps_pm["plain"][0]),
+           "grad_err": grad_errors(steps_pm["packed"][1],
+                                   steps_pm["plain"][1]),
+           "grad_tol": GRAD_TOL, "launches": steps_pm["packed"][2]}
+    emit(row)
+    del steps_pm
+
+    # a float32 artifact exported packed, run in a fresh process, against
+    # the live packed edit
+    path = os.path.join(art_dir, "float32_b1_packed.pt2")
+    with env(SKETCHEDIT_PACK="1"):
+        meta = export_edit_artifact(pipes["float32"].model, path, size=256,
+                                    batch=1)
+    assert meta["pack"] is True, meta
+    img, sk = batch(1, 256, 256, args.seed + 1330)
+    inputs = os.path.join(art_dir, "packed.npz")
+    np.savez(inputs, image=img, sketch=sk)
+    with open(spec_path, "w") as f:
+        json.dump([{"tag": "packed", "path": path, "inputs": inputs}], f)
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.artifact_probe(*sys.argv[1:])", spec_path, probe_out],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    with open(probe_out + ".json") as f:
+        report = json.load(f)
+    got = np.load(probe_out)
+    it, st = (torch.from_numpy(a).to(dev) for a in (img, sk))
+    with torch.inference_mode(), env(SKETCHEDIT_PACK="1"):
+        live_c, live_m = (t.cpu().numpy()
+                          for t in e2.edit_u8(pipes["float32"].model, it, st))
+    used = report["packed"]["launches"]
+    diff = max(u8_diff(got["packed.composite"], live_c).max(),
+               u8_diff(got["packed.mask"], live_m).max())
+    emit({"phase": "packing", "check": "artifact", "dtype": "float32",
+          "batch": 1, "hw": [256, 256], "pack": report["packed"]["meta"][
+              "pack"], "bytes": meta["bytes"], "launches_per_call": used,
+          "max_u8_diff_vs_live_packed": int(diff),
+          "model_modules_imported": report["model_modules"], **card})
+    assert report["packed"]["meta"]["pack"] is True
+    assert report["model_modules"] == [], report["model_modules"]
+    assert used == expect(fwd=1), used
+    assert diff <= 1, diff
+    add_launches("float32", used)
+    check_s = time.perf_counter() - t_pack
+
+    # the ABBA times: the edit per dtype and batch, the train step per mode
+    # (the timing calls' launches are not counted)
+    saved = counts(attention_cuda)
+    for dt in ("float32", "bfloat16"):
+        set_precision("highest" if dt == "float32" else None)
+        for B in PACK_AB_BATCHES:
+            rows = edit_ab(pipes[dt].model, B, args.seed + 1400 + B,
+                           top=(dt, B) == ("float32", 8))
+            for route, row in rows.items():
+                emit({"phase": "packing", "check": "ab", "path": "edit",
+                      "dtype": dt, "batch": B, "hw": [256, 256],
+                      "route": route, **row, **card})
+    for dt, precision in (("bfloat16", "highest"), ("float32", None),
+                          ("float32", "highest")):
+        state, cfg = train_state(dt, "auto", precision=precision)
+        set_precision(precision)
+        for route, ms in train_ab(state, cfg, tr.batch_to_device(
+                batch8, dev)).items():
+            emit({"phase": "packing", "check": "ab", "path": "train_step",
+                  "dtype": dt, "tf32": precision is None, "batch": 8,
+                  "hw": [256, 256], "route": route, "ms": ms, **card})
+        del state
+    set_precision("highest")
+    set_counts(attention_cuda, saved)
+    emit({"phase": "packing", "check": "done", "launches": pack_launches,
+          "check_seconds": round(check_s, 1),
+          "seconds": round(time.perf_counter() - t_pack, 1)})
+
     # 9. times ------------------------------------------------------------
     for B in (1, 4):
         img, sk = batch(B, 256, 256, args.seed + 50 + B)
@@ -2530,7 +2902,9 @@ def main():
             "launches": launches[str(dt).split(".")[-1]] + (
                 multi_launches["fwd"] if dt == torch.float32
                 else conv_launches["fwd"])
-                + art_launches[str(dt).split(".")[-1]],
+                + art_launches[str(dt).split(".")[-1]]
+                + pack_launches[str(dt).split(".")[-1]]["fwd"],
+            "packing_launches": pack_launches[str(dt).split(".")[-1]]["fwd"],
             **({"validation_launches": val_launches["fwd"]}
                if dt == torch.float32
                else {"convergence_launches": conv_launches["fwd"]}),
@@ -2583,7 +2957,7 @@ def main():
                 "launches": (split if k in ("dv", "dk")
                              else train_launches[name])[k] + (
                     multi_launches[k] if dt == torch.float32
-                    else conv_launches[k]),
+                    else conv_launches[k]) + pack_launches[name][k],
                 "max_abs_err": bwd_errs[f"B8_64sq_{name}"][k],
                 "ms": row[f"{k}_ms"], "plain_ms": row[f"{k}_plain_ms"],
                 "bound_ms": row[f"{k}_bound_ms"],

@@ -14,7 +14,11 @@ configuration the contextual attention runs through the CUDA kernel, the
 dense version, or the kernel with its query patches split over
 ``attention_devices`` (``attention_impl``); any other ``attention``
 configuration runs ``splitcam_attention`` (dense torch), whatever
-``attention_impl`` says, as the JAX netG does.
+``attention_impl`` says, as the JAX netG does. With ``pack`` (None:
+``use_packing`` of the batch, dtype and mode) the front pair of all four
+encoders and the tails of both decoders run on the space-to-depth packed
+grid (``ops/packed_tail.py``; five-layer tails under
+``use_mid_packing``).
 """
 
 from __future__ import annotations
@@ -22,13 +26,13 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import torch
-import torch.nn as nn
 
-from sketchedit_tpu_torch.models.md_generator import build_layers
+from sketchedit_tpu_torch.models.md_generator import SpecNet, build_layers
 from sketchedit_tpu_torch.ops.attention import (
     SplitCAMConfig, contextual_attention, splitcam_attention)
 from sketchedit_tpu_torch.ops.attention_cuda import contextual_attention_fused
 from sketchedit_tpu_torch.ops.image import avg_pool2d
+from sketchedit_tpu_torch.ops.packed_tail import use_mid_packing, use_packing
 from sketchedit_tpu_torch.parallel.sharded_attention import (
     contextual_attention_sharded)
 
@@ -132,17 +136,12 @@ LAYER_SPECS = (_SPEC_CONV + _SPEC_CONV_DEC + _SPEC_WCONV + _SPEC_XCONV
                + _SPEC_PMCONV + _SPEC_PM_POST + _SPEC_ALLCONV_DEC)
 
 
-class DeepFillC2Generator(nn.Module):
+class DeepFillC2Generator(SpecNet):
     def __init__(self, config: DeepFillConfig = DeepFillConfig(), *,
                  device=None, dtype=None):
         super().__init__()
         self.config = config
         build_layers(self, LAYER_SPECS, device=device, dtype=dtype)
-
-    def _run(self, x, specs):
-        for spec in specs:
-            x = getattr(self, spec[0])(x)
-        return x
 
     def _attention(self, x, mask):
         """Contextual attention over the pm features, gated by the hole
@@ -159,12 +158,17 @@ class DeepFillC2Generator(nn.Module):
                 x, x, mask_s, self.config.attention_devices)
         return contextual_attention(x, x, mask_s)
 
-    def forward(self, x, x2, mask, mask2, guide=None):
+    def forward(self, x, x2, mask, mask2, guide=None, pack=None):
         """x, x2 (B, 3, H, W) in [-1, 1]; mask, mask2 (B, 1, H, W) with
-        1 = region to synthesize; guide (B, 1, H, W), ones if absent.
-        Returns (x_stage1, x_stage2), both (B, 3, H, W) in (-1, 1)."""
+        1 = region to synthesize; guide (B, 1, H, W), ones if absent;
+        ``pack``: the packed fronts and tails on or off (None:
+        ``use_packing(B, dtype, self.training)``). Returns (x_stage1,
+        x_stage2), both (B, 3, H, W) in (-1, 1)."""
         cfg = self.config
         B, _, H, W = x.shape
+        if pack is None:
+            pack = use_packing(B, x.dtype, self.training)
+        mid = pack and use_mid_packing()
         if not cfg.no_mask_cc:
             x2 = x2 * mask2
         x = x * (1.0 - mask)
@@ -173,25 +177,28 @@ class DeepFillC2Generator(nn.Module):
                   if guide is None else guide)
         guide2 = ones_x * 0.0 if cfg.joint_train_inp else ones_x
 
-        h = self._run(torch.cat([x, ones_x, mask], dim=1), _SPEC_CONV)
-        h2 = self._run(torch.cat([x2, guide2, mask2], dim=1), _SPEC_WCONV)
+        h = self._run_encoder(torch.cat([x, ones_x, mask], dim=1),
+                              _SPEC_CONV, pack)
+        h2 = self._run_encoder(torch.cat([x2, guide2, mask2], dim=1),
+                               _SPEC_WCONV, pack)
         if cfg.pool_type == "avg":
             lat = h2.mean(dim=(2, 3), keepdim=True)
         else:
             lat = h2.amax(dim=(2, 3), keepdim=True)
         h = torch.cat([h, lat.expand_as(h2)], dim=1)
-        x_stage1 = torch.tanh(self._run(h, _SPEC_CONV_DEC))
+        x_stage1 = torch.tanh(self._run_decoder(h, _SPEC_CONV_DEC, pack, mid))
 
         xnow = x_stage1 if cfg.no_mask_coarse else (
             x_stage1 * mask + xin * (1.0 - mask))
-        x_hallu = self._run(xnow, _SPEC_XCONV)
-        pm = self._run(xnow, _SPEC_PMCONV)
+        x_hallu = self._run_encoder(xnow, _SPEC_XCONV, pack)
+        pm = self._run_encoder(xnow, _SPEC_PMCONV, pack)
         if cfg.use_cam:
             pm = self._attention(pm, mask)
         pm = self._run(pm, _SPEC_PM_POST)
 
         h = torch.cat([x_hallu, pm], dim=1)
-        x_stage2 = torch.tanh(self._run(h, _SPEC_ALLCONV_DEC))
+        x_stage2 = torch.tanh(self._run_decoder(h, _SPEC_ALLCONV_DEC, pack,
+                                                mid))
         return x_stage1, x_stage2
 
 

@@ -9,7 +9,10 @@ kept: the image decoder (conv11...conv17) reads the conv9 output, and only
 the mask decoder (conv_mask_11...17) reads the conv10 bottleneck.
 
 Attribute names are the reference layer names, so a reference state dict
-loads strictly.
+loads strictly. With ``pack`` (None: ``use_packing`` of the batch, dtype
+and mode) the full-resolution front pair and the last three layers of each
+decoder run on the space-to-depth packed grid (``ops/packed_tail.py``): the
+same math and the same parameters.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ import torch
 import torch.nn as nn
 
 from sketchedit_tpu_torch.ops.gated_conv import GatedConv2d
+from sketchedit_tpu_torch.ops.packed_tail import (
+    packed_decoder_tail, packed_decoder_tail5, packed_encoder_front,
+    use_packing)
 
 CNUM = 48
 
@@ -62,27 +68,58 @@ def build_layers(module: nn.Module, specs, *, device=None, dtype=None):
             device=device, dtype=dtype))
 
 
-class MDGenerator(nn.Module):
-    def __init__(self, *, device=None, dtype=None):
-        super().__init__()
-        build_layers(self, LAYER_SPECS, device=device, dtype=dtype)
+class SpecNet(nn.Module):
+    """A net of spec-table layers, run plain or with packed fronts and
+    tails."""
 
     def _run(self, x, specs):
         for spec in specs:
             x = getattr(self, spec[0])(x)
         return x
 
-    def forward(self, image, sketch, mask_dtype=None):
+    def _layers(self, specs):
+        return [getattr(self, spec[0]) for spec in specs]
+
+    def _run_encoder(self, x, specs, pack: bool):
+        """An encoder; packed, its first two layers (the full-resolution
+        conv and the stride-2 one) run on the packed grid."""
+        if pack:
+            x = packed_encoder_front(*self._layers(specs[:2]), x)
+            specs = specs[2:]
+        return self._run(x, specs)
+
+    def _run_decoder(self, x, specs, pack: bool, mid: bool = False):
+        """A decoder; packed, its last three layers (upsample, conv, head)
+        run on the packed grid, or with ``mid`` its last five (both
+        upsamples)."""
+        tail = (5 if mid else 3) if pack else 0
+        if tail:
+            x = self._run(x, specs[:-tail])
+            run_tail = packed_decoder_tail5 if mid else packed_decoder_tail
+            return run_tail(*self._layers(specs[-tail:]), x)
+        return self._run(x, specs)
+
+
+class MDGenerator(SpecNet):
+    def __init__(self, *, device=None, dtype=None):
+        super().__init__()
+        build_layers(self, LAYER_SPECS, device=device, dtype=dtype)
+
+    def forward(self, image, sketch, mask_dtype=None, pack=None):
         """image (B, 3, H, W) in [-1, 1], sketch (B, 1, H, W) in {0, 1}.
         Returns (soft_mask (B, 1, H, W), mask_image (B, 3, H, W)).
         ``mask_dtype`` widens the sigmoid (training passes float32 under
         bfloat16 compute: a bf16 sigmoid is exactly 0 or 1 past |logit| ~
         6.3, which kills the mask-BCE gradient on confidently wrong
-        pixels)."""
-        x = self._run(torch.cat([image, sketch], dim=1), _ENCODER[:-1])
+        pixels). ``pack``: the packed fronts and tails on or off (None:
+        ``use_packing(B, dtype, self.training)``)."""
+        x = torch.cat([image, sketch], dim=1)
+        if pack is None:
+            pack = use_packing(x.shape[0], x.dtype, self.training)
+        x = self._run_encoder(x, _ENCODER[:-1], pack)
         x_bneck = self.conv10_atrous(x)     # only the mask branch reads it
-        mask_image = torch.tanh(self._run(x, _IMAGE_DECODER))
-        logits = self._run(x_bneck, _MASK_DECODER)
+        mask_image = torch.tanh(self._run_decoder(x, _IMAGE_DECODER, pack))
+        logits = self._run_decoder(x_bneck, _MASK_DECODER, pack)
         if mask_dtype is not None:
             logits = logits.to(mask_dtype)
         return torch.sigmoid(logits), mask_image

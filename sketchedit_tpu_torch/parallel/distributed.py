@@ -71,9 +71,14 @@ def close():
 
 
 def broadcast_(tensors, src: int = 0, group=None):
-    """Every rank's ``tensors`` become rank ``src``'s, in place."""
-    for t in tensors:
-        dist.broadcast(t, src, group=group)
+    """Every rank's ``tensors`` become rank ``src``'s, in place. A
+    collective's write does not move a tensor's version counter, so each
+    is moved here: what is kept from a tensor's old values (the packed
+    kernels of ``ops/packed_tail.py``) is then formed again."""
+    with torch.no_grad():
+        for t in tensors:
+            dist.broadcast(t, src, group=group)
+            torch.autograd.graph.increment_version(t)
 
 
 def train_state_tensors(state):
@@ -82,7 +87,7 @@ def train_state_tensors(state):
     resumed state has them), in an order that is the same on every rank.
     Adam's step count, a CPU tensor, is left out: it is ``state.step`` on
     every rank."""
-    out = [t.data for label in sorted(state.nets)
+    out = [t for label in sorted(state.nets)
            for t in (*state.nets[label].parameters(),
                      *state.nets[label].buffers())]
     for opt in (state.opt_g, state.opt_d):

@@ -13,12 +13,13 @@ hand-written kernel as the live model; the forward kernel that the
 ``SKETCHEDIT_*`` switches chose at export time is baked in, as the JAX
 artifact bakes its Pallas call.
 
-An artifact pins its device type, size, batch, dtype, attention route and
-float32 precision: one file per served configuration, as the executor's
-buckets. The metadata travels inside the file (``extra_files``) and, for
-reading, in a ``.json`` sidecar. Loading imports the kernels' op module
-and no model module. TF32 is a process-wide PyTorch switch, outside the
-graph, so the loader applies the artifact's precision itself.
+An artifact pins its device type, size, batch, dtype, attention route,
+packed or plain fronts and tails (``pack``) and float32 precision: one
+file per served configuration, as the executor's buckets. The metadata
+travels inside the file (``extra_files``) and, for reading, in a ``.json``
+sidecar. Loading imports the kernels' op module and no model module. TF32
+is a process-wide PyTorch switch, outside the graph, so the loader applies
+the artifact's precision itself.
 """
 
 from __future__ import annotations
@@ -40,8 +41,13 @@ def export_edit_artifact(model, out_path: str, *, size: int = 256,
                          batch: int = 1, config=None) -> dict:
     """Save ``edit_u8(model, ...)`` at a fixed (batch, size) on the model's
     device to ``out_path`` (+ a ``.json`` sidecar); returns the metadata.
-    ``config`` is the model's ``EditLine2Config`` (its own by default)."""
+    ``config`` is the model's ``EditLine2Config`` (its own by default).
+    The nets' route (``pack``) is ``use_packing`` of ``batch`` and the
+    dtype under the model's float32 precision (which loading applies),
+    fixed in the program."""
     from sketchedit_tpu_torch.models import editline2
+    from sketchedit_tpu_torch.ops.packed_tail import (
+        frozen_packed_params, use_packing)
 
     config = model.config if config is None else config
     if config != model.config:
@@ -51,7 +57,6 @@ def export_edit_artifact(model, out_path: str, *, size: int = 256,
     if route == "sharded":
         raise ValueError("an artifact runs on one device: export a model "
                          "with attention_impl 'kernel', 'dense' or 'auto'")
-
     class EditU8(torch.nn.Module):
         def __init__(self):
             super().__init__()
@@ -64,8 +69,20 @@ def export_edit_artifact(model, out_path: str, *, size: int = 256,
                         device=device),
             torch.zeros((batch, size, size, 1), dtype=torch.uint8,
                         device=device))
-    with torch.no_grad():
-        program = torch.export.export(EditU8().eval(), args)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    set_precision(config.precision)
+    try:
+        pack = use_packing(batch, config.dtype)     # an eval-mode net's
+        with torch.no_grad():
+            # one eager call keeps the packed kernels of the current
+            # weights, which the program then holds as constants
+            EditU8().eval()(*args)
+            with frozen_packed_params():
+                program = torch.export.export(EditU8().eval(), args)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
     meta = {
         "size": size, "batch": batch, "platforms": [device.type],
         "compute_dtype": config.compute_dtype,
@@ -73,6 +90,7 @@ def export_edit_artifact(model, out_path: str, *, size: int = 256,
         "forward_kernel": (attention_cuda.forward_kernel()
                            if route == "kernel" else None),
         "precision": config.precision or "default",
+        "pack": pack,
         "input": "uint8 image (B,S,S,3) + uint8 sketch (B,S,S,1)",
         "output": "uint8 composite (B,S,S,3) + uint8 mask (B,S,S,1)",
     }

@@ -64,7 +64,10 @@ def test_scan_covers_the_parallel_modules(rel):
     "sketchedit_tpu_torch/ops/attention.py",
     "sketchedit_tpu_torch/ops/attention_cuda.py",
     "scripts/convergence_check_torch.py",
-    "scripts/export_serving_artifact_torch.py"])
+    "scripts/export_serving_artifact_torch.py",
+    "sketchedit_tpu_torch/ops/packed_tail.py",
+    "scripts/packing_ab_torch.py",
+    "scripts/packing_grad_numerics_torch.py"])
 def test_scan_covers_the_artifact_splitcam_and_convergence_files(rel):
     """The modules and scripts of the artifact, splitcam and convergence
     slice are among the files that the import checks walk."""
