@@ -20,8 +20,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    dK/dV kernel's key tile, cluster shape and resident clusters at each
    training shape, a `dq_plan` line the dQ kernel's rows per block, column
    slabs, resident blocks per SM and shared memory, `dk_dv_plan` lines the
-   same for the dV and dK kernels, and `dq_ptxas` and `dk_dv_ptxas` lines
-   the dQ, dV and dK instantiations' registers and spills;
+   same for the dV and dK kernels, and `dq_ptxas`, `dk_dv_ptxas` and
+   `dkdv_ptxas` lines the dQ, dV and dK and fused dK/dV instantiations'
+   registers and spills;
 4. inference path: the runner's EditPipeline on uint8 batches at 256^2
    (B = 1 and 4, float32 and bfloat16) and 252^2, one forward launch per
    netG forward, checked against the same pipeline with dense attention
@@ -79,7 +80,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    no attention launch (the released one: one forward launch);
    `convergence`, scripts/convergence_check_torch.py in bfloat16 on the
    kernel route for 900 steps (its other defaults), which must end
-   CONVERGES, with the exact launch counts;
+   CONVERGES, with the exact launch counts, and the L1 ratios logged at
+   step 450 (the default run's length) reported;
 8c. `packing`: the space-to-depth packed fronts and tails
    (ops/packed_tail.py) against the plain layers: edit_u8 and netM and
    netG with pack on and off at 256^2 (B = 1 and 4, both dtypes; netG's
@@ -117,6 +119,7 @@ when CUDA is unavailable or the package is missing.
 from __future__ import annotations
 
 import argparse
+import ast
 import base64
 import concurrent.futures
 import contextlib
@@ -658,10 +661,12 @@ def main():
     emit({"phase": "build", "seconds": round(build_s, 3),
           "nvcc_seconds": _build.build_seconds, **card})
     # registers and spills of each dQ instantiation (ca_dq_kernel<T, kSame,
-    # kVec>) and each dV and dK one (ca_dk_or_dv_kernel<T, kDK, kSame,
-    # kVec>), where this run built the library
+    # kVec>), each dV and dK one (ca_dk_or_dv_kernel<T, kDK, kSame, kVec>)
+    # and each fused dK/dV one (ca_dkdv_kernel<T, kSame, kVec>), where this
+    # run built the library
     for phase, kernel in (("dq_ptxas", "ca_dq_kernel"),
-                          ("dk_dv_ptxas", "ca_dk_or_dv_kernel")):
+                          ("dk_dv_ptxas", "ca_dk_or_dv_kernel"),
+                          ("dkdv_ptxas", "ca_dkdv_kernel")):
         entry, found = None, []
         for ln in _build.build_log.get("contextual_attention_bwd",
                                        "").splitlines():
@@ -2374,8 +2379,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     conv_lines = buf.getvalue().strip().splitlines()
     result = json.loads(conv_lines[-1])
+    # the L1 ratios at step 450 of the printout (the default run's length)
+    logged = {int(ln.split(" ", 1)[0]): ast.literal_eval(ln.split(" ", 1)[1])
+              for ln in conv_lines if ln.split(" ", 1)[0].isdigit()}
     emit({"phase": "convergence", "exit_code": rc,
           "printout": conv_lines[:-1], **result,
+          "ratios_at_step_450": {k: logged[450][k] / logged[0][k]
+                                 for k in ("L1c", "L1f")},
           "launches_counted": conv_launches})
     steps = result["steps"]
     assert rc == 0 and result["converges"], conv_lines[-2]

@@ -17,18 +17,17 @@
 // The gate rules are the forward's: keep = 0 gives logit 0 (P = exp(-lse))
 // and a zero dS multiplier; keys past P contribute nothing; ragged N, P and
 // D are bounds checks, never padded copies. Q, K and V are float32 or
-// bfloat16; dO, lse, delta and every output are float32. The dq, dv and dk
-// kernels' products run on the tensor cores in split TF32 (float32-accurate,
-// as the forwards'); the fused dkdv kernel's arithmetic is float32 on the
-// CUDA cores. dO is not rounded to the input type (the
-// JAX package streams it in the input type to halve its DMA): these kernels
-// are bound by operations, not bytes, so the rounding would buy nothing.
+// bfloat16; dO, lse, delta and every output are float32. All four kernels'
+// products run on the tensor cores in split TF32 (float32-accurate, as the
+// forwards'). dO is not rounded to the input type (the JAX package streams
+// it in the input type to halve its DMA): these kernels are bound by
+// operations, not bytes, so the rounding would buy nothing.
 //
 // What bounds them on an H100. At 256^2 (N = P = 961, D = 1536) the dq
 // kernel runs three products of N P D multiply-adds (6 N P D = 8.5 GFLOP
 // per image, 0.127 ms at the SXM's 67 TFLOP/s of float32, 0.052 ms as split
-// TF32 at three passes of 495 TFLOP/s) and the dkdv
-// kernel four (11.4 GFLOP, 0.169 ms), against ~30 MB of float32 traffic
+// TF32 at three passes of 495 TFLOP/s) and the dkdv kernel four (11.4
+// GFLOP, 0.169 ms, 0.069 ms as split TF32), against ~30 MB of float32 traffic
 // (~0.009 ms): both are bound by operations. The dv kernel runs two
 // products and the dk kernel three, five together where the fused kernel
 // runs four, since both recompute S and P.
@@ -73,29 +72,41 @@
 //   Keys past the last real one of a tile are skipped. At D = 1536 a block
 //   takes 206 KB of shared memory and runs alone on its SM; D up to 1920
 //   fits, a wider D takes more column slabs, each recomputing S and dP.
-// - dkdv: one cluster of two blocks per (image, R-key tile). The block of
-//   rank h owns columns [h Dh, min(D, (h + 1) Dh)) of D, Dh = ceil(D / 2)
-//   rounded up to 4, and holds that half of the two float32 accumulators,
-//   dK_eff and dV, in shared memory (2 x 32 x 768 x 4 = 192 KB at R = 32,
-//   D = 1536). Per tile of 64 queries each block contracts its half of D by
-//   the tile product (kscale on the staged K chunk, R rows where the Q
-//   chunk has 64) into partial S^T and dP^T; the pair sums them through
-//   distributed shared memory, so every logit is still computed once and
-//   both blocks form the same P^T and dS^T; each accumulates
-//   dV += P^T dO and dK_eff += dS^T Q over its own columns, streaming them
-//   from L2. A cluster reads all of Q and dO once per 32 keys where a
-//   full-D block of 16 keys (the design this replaced) read them twice per
-//   16, and the 32-key tile gives the tile product an 8 x 4 register
-//   micro-tile. Beside the accumulators there is room for one more area
-//   (the block uses 223,232 of the 232,448 bytes it may): the tile
-//   products stage 64-wide D-chunks there, then the partials go there with
-//   a cluster barrier before the peer reads them, then P^T and dS^T after
-//   a second one, once the peer is done reading. R = 32 where those
-//   clusters give every SM a block, else 16, else 8 (the D-split forward's
-//   rule). Each block owns its output columns outright, so the result
-//   repeats bit for bit. With one 8-warp block per SM, the tile products
-//   run at about a quarter of the FMA rate and the accumulation at about
-//   half (256^2, B = 8; scripts/dkdv_variants.py clocks each phase).
+// - dkdv: one cluster of two blocks per (image, 16-key tile), 8 keys where
+//   16-key clusters would leave SMs idle and 8-key ones all fit at once
+//   (at 256^2, B = 1: 61 clusters of 16 in one wave, not 121 of 8 in two);
+//   the dK and dV kernels' block with D split over the pair. The block of
+//   rank h contracts columns [h Dc, min(D, (h + 1) Dc)) of D, Dc = ceil(D /
+//   2) rounded up to 4, for partial S^T = (K kscale) Q^T and dP^T = V dO^T,
+//   each warp 1/8 of that half (96 columns at D = 1536) through
+//   dk_dv_partial, the owned K rows of the half raw in the input type
+//   (kscale put on as S^T's A fragments are formed), S^T's partial moved to
+//   shared memory before dP^T runs so one partial at a time is held in
+//   registers. The eight warps' partials are summed in warp order and the
+//   pair adds its two sums through distributed shared memory (own + peer in
+//   both blocks: the same bits, as float addition commutes), so every logit
+//   is computed once and both blocks form the same P^T and dS^T. Each block
+//   then accumulates dV += P^T dO and dK_eff += dS^T Q over its 768 output
+//   columns, 96 a warp as 2 x 12 m16n8 fragments in registers (96 floats a
+//   thread, the dK and dV kernels' budget), one loop staging 8 rows of Q
+//   and of dO at the warp's columns with cp.async. All four products are
+//   split TF32 through mma_tile, a fresh accumulator per k8 step; in
+//   bfloat16 Q and K enter whole and only dO and K kscale are split. Two
+//   steps are in flight in each phase (14.5 KB a warp in float32): one or
+//   three measured slower (scripts/dkdv_variants.py); staging the
+//   accumulation's first steps before the weights are formed, or splitting
+//   a cluster barrier into its arrive and wait halves, measured no faster
+//   (PERF.md). A D wider than two 768-column halves takes more column slabs
+//   (clusters along y), each recomputing S^T and dP^T; the K tile over half
+//   of D bounds D at about 2800 in float32 and 6400 in bfloat16 (the
+//   forward kernels stop first, near 1750). Each block owns its output
+//   columns outright, so the result repeats bit for bit; a block takes
+//   186,880 bytes of shared memory in float32 at D = 1536 and runs alone on
+//   its SM. Like the dK and dV kernels, each warp is held back by its own
+//   chain of loads, splits, mma passes and FADDs: at 256^2, B = 8 the
+//   accumulation takes ~45% of a query tile, S^T and dP^T ~20% each, the
+//   reduction and exchange the rest (clocks on an NVIDIA H100 80GB HBM3,
+//   700.00 W).
 // - dv and dk: dq's block with the roles of owned and streamed rows
 //   swapped: 8 warps over kRows = 16 key rows (8 where 16-row blocks would
 //   leave SMs idle), all queries in tiles of kT = 64, a slab of up to 1536
@@ -134,9 +145,8 @@
 //   to dq's 48 for the same mma (scripts/dk_dv_variants.py clocks each
 //   phase; 16-row blocks, 8 where 16 leave SMs idle, 64-query tiles and a
 //   12.8 KB area measured best).
-// A dkdv block (8 warps, 218 KB of shared memory at R = 32) runs alone on
-// its SM, as a dq, dv or dk block does. The dkdv cluster needs sm_90.
-// Moving the fused dK/dV onto the tensor cores is later work.
+// A dkdv block runs alone on its SM, as a dq, dv or dk block does. The dkdv
+// cluster needs sm_90.
 
 #include <cooperative_groups.h>
 
@@ -479,203 +489,6 @@ ca_dq_kernel(const T* Q, const T* K, const T* V, const float* keep,
   }
 }
 
-// The fused dK/dV kernel's tile: 64-wide D-chunks, which fit beside a
-// 32-key tile's accumulators because P^T and dS^T share the staging area;
-// each accumulation covers kNC = 3 columns a thread, a whole half of
-// D = 1536 in one pass, unrolled 8 streamed rows deep; P^T and dS^T rows
-// padded to kWLd = R + 4 floats, so the float4 rows that eight neighbouring
-// lanes store fall on distinct banks. scripts/dkdv_variants.py times each
-// choice against the others.
-template <int R> struct DkdvTile {
-  static constexpr int kDC = 64;
-  static constexpr int kSD = kDC + 4;
-  static constexpr int kNC = 3;
-  static constexpr int kUnroll = 8;
-  static constexpr int kWLd = R + 4;
-  // floats of the area where the tile products stage their chunks and
-  // P^T and dS^T (the partials first) go afterwards
-  static constexpr int kArea = (R + kT) * kSD > 2 * kT * kWLd
-                                   ? (R + kT) * kSD : 2 * kT * kWLd;
-};
-
-// A dK/dV block's shared memory, for its half of Dh columns: the two
-// accumulators, the shared area, lse and delta.
-template <int R>
-size_t dkdv_smem_bytes(int Dh) {
-  return sizeof(float) * (2 * (size_t)R * Dh + DkdvTile<R>::kArea + 2 * kT);
-}
-
-// kCPT register columns of a micro-tile row, one picked by the lane's
-// D-group g: no divergence, no local memory.
-__device__ __forceinline__ float pick(const float (&v)[kCPT], int g) {
-  return g == 0 ? v[0] : g == 1 ? v[1] : g == 2 ? v[2] : v[3];
-}
-
-template <int N>
-__device__ __forceinline__ void store_row(float* dst, const float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q)
-      reinterpret_cast<float4*>(dst)[q] =
-          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  } else {
-#pragma unroll
-    for (int a = 0; a < N; ++a) dst[a] = v[a];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_row(const float* src, float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-      const float4 x = reinterpret_cast<const float4*>(src)[q];
-      v[4 * q] = x.x;
-      v[4 * q + 1] = x.y;
-      v[4 * q + 2] = x.z;
-      v[4 * q + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int a = 0; a < N; ++a) v[a] = src[a];
-  }
-}
-
-// One cluster of two blocks: R key rows of one image, all queries. The
-// block of rank `half` contracts columns [c_lo, c_hi) of D for partial S^T
-// and dP^T, sums them with its peer's through distributed shared memory,
-// and accumulates those columns of dV and dK_eff.
-template <typename T, int R>
-__global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(kThreads, 1)
-ca_dkdv_kernel(const T* Q, const T* K, const T* V, const float* keep,
-               const float* kscale, const float* dO, const float* lse,
-               const float* delta, float* dK, float* dV, int N, int P, int D,
-               int Dh, float scale) {
-  using Tl = DkdvTile<R>;
-  constexpr int RPT = R / 4;
-  constexpr int kWLd = Tl::kWLd;
-  cooperative_groups::cluster_group cluster =
-      cooperative_groups::this_cluster();
-  const int half = blockIdx.y;              // == cluster.block_rank()
-  const int c_lo = half * Dh;
-  const int nc = max(0, min(D, c_lo + Dh) - c_lo);  // 0 when D <= Dh (half 1)
-
-  extern __shared__ __align__(16) float smem[];
-  float* dk_acc = smem;                     // [R][Dh]
-  float* dv_acc = dk_acc + (size_t)R * Dh;  // [R][Dh]
-  float* as = dv_acc + (size_t)R * Dh;      // [R][kSD]
-  float* bs = as + R * Tl::kSD;             // [kT][kSD]
-  float* p_s = as;                // [kT][kWLd]: P^T, the partial S^T first
-  float* ds_s = p_s + kT * kWLd;  // [kT][kWLd]: dS^T, the partial dP^T first
-  float* lse_s = as + Tl::kArea;            // [kT]
-  float* delta_s = lse_s + kT;              // [kT]
-  const float* peer_p = cluster.map_shared_rank(p_s, half ^ 1);
-  const float* peer_ds = cluster.map_shared_rank(ds_s, half ^ 1);
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int j0 = blockIdx.x * R;
-  const T* Qb = Q + (size_t)b * N * D;
-  const T* Kb = K + (size_t)b * P * D;
-  const T* Vb = V + (size_t)b * P * D;
-  const float* dOb = dO + (size_t)b * N * D;
-  const float* ks_b = kscale + (size_t)b * D;
-
-  for (int i = tid; i < 2 * R * Dh; i += kThreads) dk_acc[i] = 0.f;
-
-  const int lane = tid & 31;
-  const int g = lane >> 3;
-  const int rg = (tid >> 5) >> 1;
-  const int kg = (((tid >> 5) & 1) << 3) | (lane & 7);
-  // Every lane of a D-group ends tile_dot with the same sums, so the lanes
-  // of group g take column c = g of the micro-tile: query ii, keys
-  // rg * RPT + a. Their gates (keep * scale; keys past P are out) are fixed
-  // for the block.
-  const int ii = kg + 16 * g;
-  const int off = ii * kWLd + rg * RPT;
-  float gm[RPT];
-  bool key_in[RPT];
-#pragma unroll
-  for (int a = 0; a < RPT; ++a) {
-    const int j = j0 + rg * RPT + a;
-    key_in[a] = j < P;
-    gm[a] = key_in[a] ? keep[(size_t)b * P + j] * scale : 0.f;
-  }
-
-  for (int i0 = 0; i0 < N; i0 += kT) {
-    // read after the barrier that ends the tile products; the previous
-    // tile's readers passed its second cluster barrier
-    if (tid < kT) {
-      const int i = i0 + tid;
-      const bool in = i < N;
-      lse_s[tid] = in ? lse[(size_t)b * N + i] : 0.f;
-      delta_s[tid] = in ? delta[(size_t)b * N + i] : 0.f;
-    }
-    // tile_dot begins each chunk with a barrier, so the last tile's
-    // accumulation is done with P^T and dS^T before chunks are staged over
-    // them (an empty half stages nothing)
-    float s[RPT][kCPT], dp[RPT][kCPT];
-    tile_dot<T, T, R, 1, Tl::kDC>(Kb, j0, P, Qb, i0, N, ks_b, D, c_lo,
-                                  c_lo + nc, as, bs, s);
-    tile_dot<T, float, R, 0, Tl::kDC>(Vb, j0, P, dOb, i0, N, nullptr, D, c_lo,
-                                      c_lo + nc, as, bs, dp);
-    __syncthreads();  // every thread is done with the last chunk
-    // the partials go where P^T and dS^T will
-    float sp[RPT], dpp[RPT], peer_sp[RPT], peer_dpp[RPT];
-#pragma unroll
-    for (int a = 0; a < RPT; ++a) {
-      sp[a] = pick(s[a], g);
-      dpp[a] = pick(dp[a], g);
-    }
-    store_row(p_s + off, sp);
-    store_row(ds_s + off, dpp);
-    cluster.sync();  // both blocks' partials are written
-    load_row(peer_p + off, peer_sp);
-    load_row(peer_ds + off, peer_dpp);
-    // S = own + peer and dP = own + peer: the same bits in both blocks,
-    // since float addition commutes, so both form the same P and dS
-    const int i = i0 + ii;
-    float p[RPT], ds[RPT];
-#pragma unroll
-    for (int a = 0; a < RPT; ++a) {
-      p[a] = 0.f;
-      ds[a] = 0.f;
-      if (key_in[a] && i < N) {
-        p[a] = expf((sp[a] + peer_sp[a]) * gm[a] - lse_s[ii]);
-        ds[a] = p[a] * (dpp[a] + peer_dpp[a] - delta_s[ii]) * gm[a];
-      }
-    }
-    // The peer has read this block's partials: overwrite them. This also
-    // keeps each block's shared memory alive until its peer is done with
-    // it, so nothing after the last tile needs another barrier.
-    cluster.sync();
-    store_row(p_s + off, p);
-    store_row(ds_s + off, ds);
-    __syncthreads();
-    if (nc > 0) {
-      const int qn = min(kT, N - i0);
-      const size_t row0 = (size_t)i0 * D + c_lo;
-      // dV += P^T dO and dK_eff += dS^T Q over this block's columns
-      accumulate<float, R, Tl::kNC, false, Tl::kUnroll, kWLd>(
-          dv_acc, Dh, nc, dOb + row0, D, qn, p_s, nullptr);
-      accumulate<T, R, Tl::kNC, false, Tl::kUnroll, kWLd>(
-          dk_acc, Dh, nc, Qb + row0, D, qn, ds_s, nullptr);
-    }
-  }
-
-  // each thread writes the columns it accumulated
-  for (int rr = 0; rr < R; ++rr) {
-    const int j = j0 + rr;
-    if (j >= P) break;
-    float* krow = dK + ((size_t)b * P + j) * D + c_lo;
-    float* vrow = dV + ((size_t)b * P + j) * D + c_lo;
-    for (int c = tid; c < nc; c += kThreads) {
-      krow[c] = dk_acc[rr * Dh + c];
-      vrow[c] = dv_acc[rr * Dh + c];
-    }
-  }
-}
-
 // The dK and dV kernels' per-warp staging area, kDkArea bytes (dQ's), holds
 // one of three things in turn: steps of one partial product (the block's kTq
 // streamed Q or dO rows at 16 columns of D, and V's owned rows at the same
@@ -693,10 +506,12 @@ template <typename T> using DkTile = T;
 constexpr int kWLd = kTq + 4;         // weight rows (P^T or dS^T): 68 floats
 constexpr int kQLd = kTq + 8;         // partial rows: 72 floats
 
-// Steps in flight in the dK/dV area for a step of `bytes`.
-template <int kBytes> __host__ __device__ constexpr int dk_stages() {
-  static_assert(kBytes <= kDkArea, "a step must fit");
-  return kDkArea / kBytes;
+// Steps in flight in a staging area of kArea bytes for a step of kBytes, at
+// most kMax.
+template <int kBytes, int kArea = kDkArea, int kMax = kArea / kBytes>
+__host__ __device__ constexpr int dk_stages() {
+  static_assert(kBytes <= kArea, "a step must fit");
+  return kArea / kBytes < kMax ? kArea / kBytes : kMax;
 }
 
 // Shared-memory bytes of a dK or dV block: the owned K tile, the warps'
@@ -711,28 +526,30 @@ size_t dk_dv_smem_bytes(int D) {
 // One partial product of the dK/dV kernels over this warp's columns
 // [d_lo, d_lo + 16 nstep) of D, into acc[kTq / 8][4]: the block's kRows
 // owned rows (m16, keys) against the kTq streamed rows of the tile (n8
-// tiles of queries i0 ..), acc[j] the lane's C fragment of n8 tile j. The A rows are
-// the owned K tile's (kOwnA; times kscale where kScaleA, for S, its 16
-// values staged with the step) or V's owned rows, staged with the step (dP
-// where V is not K); the B rows are Bb's (Q in T for S, dO in float32 for
-// dP), staged with cp.async in the warp's own area, steps ahead. An operand holding float32 values is split
-// (K kscale always; K, V and Q in float32; dO always), one holding bfloat16
-// data enters whole. Lane (g, t) reads columns 4t .. 4t + 3 of a step: k =
-// t and t + 4 of k8 step h are 4t + 2h and + 1 on both sides. Two n8 tiles
-// a pass (four independent mma); tiles past the tile's last real query are
-// skipped.
-template <typename T, typename TB, bool kOwnA, bool kScaleA, bool kVec>
+// tiles of queries i0 ..), acc[j] the lane's C fragment of n8 tile j. The A
+// rows are the owned K tile's (kOwnA; its column 0 is column k_lo of D;
+// times kscale where kScaleA, for S, its 16 values staged with the step) or
+// V's owned rows, staged with the step (dP where V is not K); the B rows
+// are Bb's (Q in T for S, dO in float32 for dP), staged with cp.async in
+// the warp's own area of kArea bytes, steps ahead. Columns at or past dcap
+// are staged as 0. An operand holding float32 values is split (K kscale
+// always; K, V and Q in float32; dO always), one holding bfloat16 data
+// enters whole. Lane (g, t) reads columns 4t .. 4t + 3 of a step: k = t and
+// t + 4 of k8 step h are 4t + 2h and + 1 on both sides. Two n8 tiles a pass
+// (four independent mma); tiles past the tile's last real query are
+// skipped. At most kMaxStages steps are in flight.
+template <typename T, typename TB, bool kOwnA, bool kScaleA, bool kVec,
+          int kArea = kDkArea, int kMaxStages = 64>
 __device__ __forceinline__ void dk_dv_partial(
     float (&acc)[kTq / 8][4], char* mine, const DkTile<T>* ktile, int ldk,
-    const T* Vb,
-    const float* ks_b, const TB* Bb, int i0, int N, int qn, int j0, int rows,
-    int P, int D, int d_lo, int nstep) {
+    int k_lo, const T* Vb, const float* ks_b, const TB* Bb, int i0, int N,
+    int qn, int j0, int rows, int P, int D, int dcap, int d_lo, int nstep) {
   constexpr bool kSplitA = kScaleA || sizeof(T) == sizeof(float);
   constexpr bool kSplitB = sizeof(TB) == sizeof(float);
   constexpr int kStepB = kTq * 16 * (int)sizeof(TB);
   constexpr int kStepV = kStepB + (kScaleA ? 16 * (int)sizeof(float) : 0);
   constexpr int kStep = kStepV + (kOwnA ? 0 : kRows * 16 * (int)sizeof(T));
-  constexpr int kStages = dk_stages<kStep>();
+  constexpr int kStages = dk_stages<kStep, kArea, kMaxStages>();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   auto stage = [&](int i) {
     if (i < nstep) {
@@ -744,12 +561,12 @@ __device__ __forceinline__ void dk_dv_partial(
       for (int n = 0; n < kTq * 4 / 32; ++n) {
         const int r = (lane >> 2) + 8 * n;
         copy4<kVec>(bd + r * 16 + q, Bb + r0 + (size_t)(8 * n) * D,
-                    i0 + r < N, d0 + q, D);
+                    i0 + r < N, d0 + q, dcap);
       }
       if constexpr (kScaleA) {
         if (lane < 4)
           copy4<kVec>(reinterpret_cast<float*>(slot + kStepB) + 4 * lane,
-                      ks_b, true, d0 + 4 * lane, D);
+                      ks_b, true, d0 + 4 * lane, dcap);
       }
       if constexpr (!kOwnA) {
         T* vd = reinterpret_cast<T*>(slot + kStepV);
@@ -757,7 +574,7 @@ __device__ __forceinline__ void dk_dv_partial(
         for (int n = 0; n < kRows * 4 / 32; ++n) {
           const int r = (lane >> 2) + 8 * n;
           copy4<kVec>(vd + r * 16 + q, Vb + (size_t)(j0 + r) * D,
-                      r < rows && j0 + r < P, d0 + q, D);
+                      r < rows && j0 + r < P, d0 + q, dcap);
         }
       }
     }
@@ -779,8 +596,8 @@ __device__ __forceinline__ void dk_dv_partial(
     const int d = d_lo + 16 * i + 4 * t;
     float4 xa, xb;
     if constexpr (kOwnA) {
-      xa = lds4(ktile + g * ldk + d);
-      xb = lds4(ktile + (g + 8) * ldk + d);
+      xa = lds4(ktile + g * ldk + d - k_lo);
+      xb = lds4(ktile + (g + 8) * ldk + d - k_lo);
     } else {
       const T* vs = reinterpret_cast<const T*>(slot + kStepV) + 4 * t;
       xa = lds4(vs + g * 16);
@@ -912,14 +729,14 @@ ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
     // 1. this warp's partial S^T = (K kscale) Q^T and, for dK, dP^T =
     // V dO^T over columns [d_lo, d_hi) of D
     float s[kTq / 8][4];
-    dk_dv_partial<T, T, true, true, kVec>(s, mine, kt, ldk, nullptr, ks_b,
-                                          Qb, i0, N, qn, j0, rows, P, D,
-                                          d_lo, nstep);
+    dk_dv_partial<T, T, true, true, kVec>(s, mine, kt, ldk, 0, nullptr,
+                                          ks_b, Qb, i0, N, qn, j0, rows, P,
+                                          D, D, d_lo, nstep);
     float dp[kTq / 8][4];
     if constexpr (kDK)
       dk_dv_partial<T, float, kSame, false, kVec>(
-          dp, mine, kt, ldk, V + (size_t)b * P * D, ks_b, dOb, i0, N, qn,
-          j0, rows, P, D, d_lo, nstep);
+          dp, mine, kt, ldk, 0, V + (size_t)b * P * D, ks_b, dOb, i0, N, qn,
+          j0, rows, P, D, D, d_lo, nstep);
 #pragma unroll
     for (int j = 0; j < kTq / 8; ++j) {
       float* ps = part + g * kQLd + 8 * j + 2 * t;
@@ -1053,6 +870,320 @@ ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
   }
 }
 
+// The fused dK/dV kernel: kDkdvStages steps in flight in each phase. Each
+// warp accumulates kHalfGroups 32-column groups, a block kHalfCols columns.
+constexpr int kDkdvStages = 2;
+constexpr int kHalfGroups = kGroups / 2;               // 96 columns a warp
+constexpr int kHalfCols = kWarps * kHalfGroups * 32;   // 768 a block
+// A step of the accumulation: 8 streamed rows of Q (T) and of dO (float)
+// at a warp's columns, rows padded as dQ's K steps; a step of dP^T: 64 dO
+// rows at 16 columns, and V's 16 owned rows where V is not K; a warp's
+// partial S^T or dP^T [kRows][kQLd].
+template <typename T>
+constexpr int kDkdvLdQ = kHalfGroups * 32 + 32 / (int)sizeof(T);
+constexpr int kDkdvLdO = kHalfGroups * 32 + 8;
+template <typename T>
+constexpr int kDkdvStep3 = 8 * (kDkdvLdQ<T> * (int)sizeof(T) +
+                                kDkdvLdO * (int)sizeof(float));
+template <typename T>
+constexpr int kDkdvStepP =
+    (kTq * (int)sizeof(float) + kRows * (int)sizeof(T)) * 16;
+constexpr int kPartBytes = kRows * kQLd * (int)sizeof(float);
+// The per-warp staging area holds, in turn, steps of S^T (dk_dv_partial's),
+// then S^T's partial at its head and steps of dP^T behind it, then both
+// partials [2][kRows][kQLd], then steps of the accumulation: sized for
+// kDkdvStages steps of each (14,848 bytes in float32, 13,824 in bfloat16).
+// More steps in flight measured slower (scripts/dkdv_variants.py).
+template <typename T>
+constexpr int dkdv_area() {
+  const int acc = kDkdvStages * kDkdvStep3<T>;
+  const int dp = kPartBytes + kDkdvStages * kDkdvStepP<T>;
+  const int most = acc > dp ? acc : dp;
+  return most > 2 * kPartBytes ? most : 2 * kPartBytes;
+}
+template <typename T> constexpr int kDkdvArea = dkdv_area<T>();
+
+// Shared-memory bytes of a dK/dV block: the owned K tile over the block's
+// contraction half of D (in the input type), the warps' areas, P^T and dS^T
+// [kRows][kWLd] each, the block's summed S^T and dP^T for the peer (the
+// same), lse and delta per streamed query.
+template <typename T>
+size_t dkdv_smem_bytes(int D) {
+  return (size_t)kRows * mma_q_ld(half_cut(D)) * sizeof(T) +
+         (size_t)kWarps * kDkdvArea<T> +
+         sizeof(float) * (4 * kRows * kWLd + 2 * kTq);
+}
+
+// One cluster of two blocks: key rows [j0, j0 + rows) of one image (rows is
+// 16, or 8 with the lower half of every A tile zero), all queries. The
+// block of rank h contracts columns [h Dc, min(D, (h + 1) Dc)) of D, Dc =
+// half_cut(D), for partial S^T and dP^T, sums them with its peer's through
+// distributed shared memory, and accumulates dV and dK_eff over columns
+// [s kSlab + h kHalfCols, + kHalfCols) of D, s = blockIdx.y / 2 the column
+// slab. kSame: V is K (one pointer), so dP^T takes its A rows from the
+// owned K tile. kVec: D is a multiple of 4 and every pointer is 16-byte
+// aligned.
+template <typename T, bool kSame, bool kVec>
+__global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(kThreads, 1)
+ca_dkdv_kernel(const T* Q, const T* K, const T* V, const float* keep,
+               const float* kscale, const float* dO, const float* lse,
+               const float* delta, float* dK, float* dV, int rows, int N,
+               int P, int D, float scale) {
+  constexpr bool kSplitQ = sizeof(T) == sizeof(float);   // dO is always
+  constexpr int kLdQ = kDkdvLdQ<T>, kLdO = kDkdvLdO;
+  constexpr int kOOff = 8 * kLdQ * (int)sizeof(T);       // dO's rows, bytes
+  constexpr int kStep3 = kDkdvStep3<T>;
+  constexpr int kArea = kDkdvArea<T>;
+  constexpr int kStages3 = dk_stages<kStep3, kArea, kDkdvStages>();
+  constexpr int kChunks = kHalfGroups * 8;   // four-element chunks of a row
+  static_assert(kChunks <= 32, "a row's chunks a copy");
+  static_assert(2 * kPartBytes <= kArea, "the partials must fit");
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int rank = blockIdx.y & 1;               // == cluster.block_rank()
+  const int Dc = half_cut(D);
+  const int c_lo = rank * Dc, c_hi = min(D, c_lo + Dc);   // contracted
+  const int Ds = mma_cols(Dc), ldk = mma_q_ld(Dc), kcols = kWarps * Ds;
+  T* kt = reinterpret_cast<T*>(smem);                     // [kRows][ldk]
+  char* areas = reinterpret_cast<char*>(kt + kRows * ldk);
+  float* wp_s = reinterpret_cast<float*>(areas + kWarps * kArea);
+  float* wds_s = wp_s + kRows * kWLd;            // P^T and dS^T [kRows][kWLd]
+  float* xs = wds_s + kRows * kWLd;              // [2][kRows][kWLd]
+  float* lse_s = xs + 2 * kRows * kWLd;          // [kTq]
+  float* delta_s = lse_s + kTq;                  // [kTq]
+  const float* peer_xs = cluster.map_shared_rank(xs, rank ^ 1);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z;
+  const int j0 = blockIdx.x * rows;
+  const T* Qb = Q + (size_t)b * N * D;
+  const T* Kb = K + (size_t)b * P * D;
+  const float* dOb = dO + (size_t)b * N * D;
+  const float* ks_b = kscale + (size_t)b * D;
+  char* mine = areas + w * kArea;                // this warp's area
+  float* part = reinterpret_cast<float*>(mine);  // [2][kRows][kQLd]
+
+  // the owned K rows over this block's half of D, raw; rows past the tile
+  // or P and columns past the half are 0
+  for (int i = tid; i < kRows * kcols; i += kThreads) {
+    const int r = i / kcols, d = i % kcols;
+    store(kt + r * ldk + d,
+          r < rows && j0 + r < P && c_lo + d < c_hi
+              ? to_f(Kb[(size_t)(j0 + r) * D + c_lo + d]) : 0.f);
+  }
+  __syncthreads();  // the K tile is written
+  // the weights: warp w forms keys 2w and 2w + 1, 16 lanes a key, 4 queries
+  // a lane; a key past the tile or P, or a gated one (g = 0), has weight 0
+  // in dS^T, and a key past the tile or P in P^T
+  const int srow = 2 * w + (lane >> 4), sq = 4 * (lane & 15);
+  const bool key_in = srow < rows && j0 + srow < P;
+  const float gm = key_in ? keep[(size_t)b * P + j0 + srow] * scale : 0.f;
+
+  float acc_v[kHalfGroups][4][4], acc_k[kHalfGroups][4][4];
+#pragma unroll
+  for (int c = 0; c < kHalfGroups; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_v[c][j][e] = acc_k[c][j][e] = 0.f;
+  const int d_lo = c_lo + w * Ds, d_hi = min(c_hi, d_lo + Ds);
+  const int nstep = d_hi > d_lo ? (d_hi - d_lo + 15) / 16 : 0;
+  const int cw = (blockIdx.y >> 1) * kSlab + rank * kHalfCols +
+                 w * (kHalfGroups * 32);         // the warp's output columns
+
+  for (int i0 = 0; i0 < N; i0 += kTq) {
+    const int qn = min(kTq, N - i0);             // real queries of the tile
+    // read after the barrier that ends the partial products; the previous
+    // tile's readers passed the barrier after its weights
+    if (tid < kTq) {
+      const bool in = tid < qn;
+      lse_s[tid] = in ? lse[(size_t)b * N + i0 + tid] : 0.f;
+      delta_s[tid] = in ? delta[(size_t)b * N + i0 + tid] : 0.f;
+    }
+    // 1. this warp's partial S^T = (K kscale) Q^T and dP^T = V dO^T over
+    // columns [d_lo, d_hi) of this block's half of D; S^T's partial goes to
+    // the head of the area before dP^T stages behind it, so one partial at
+    // a time is held in registers. Lane (g, t) holds rows g and g + 8,
+    // queries 8j + 2t and + 1 of n8 tile j.
+    const auto put = [&](float* pt, const float (&x)[kTq / 8][4]) {
+#pragma unroll
+      for (int j = 0; j < kTq / 8; ++j) {
+        float* pj = pt + g * kQLd + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(pj) = make_float2(x[j][0], x[j][1]);
+        *reinterpret_cast<float2*>(pj + 8 * kQLd) =
+            make_float2(x[j][2], x[j][3]);
+      }
+    };
+    {
+      float s[kTq / 8][4];
+      dk_dv_partial<T, T, true, true, kVec, kArea, kDkdvStages>(
+          s, mine, kt, ldk, c_lo, nullptr, ks_b, Qb, i0, N, qn, j0, rows, P,
+          D, c_hi, d_lo, nstep);
+      put(part, s);
+    }
+    {
+      float dp[kTq / 8][4];
+      dk_dv_partial<T, float, kSame, false, kVec, kArea - kPartBytes,
+                    kDkdvStages>(
+          dp, mine + kPartBytes, kt, ldk, c_lo, V + (size_t)b * P * D, ks_b,
+          dOb, i0, N, qn, j0, rows, P, D, c_hi, d_lo, nstep);
+      put(part + kRows * kQLd, dp);
+    }
+    __syncthreads();  // every partial is written
+
+    // 2. this block's S^T and dP^T: the eight partials, summed in warp
+    // order, put where the peer reads them (it passed the last tile's
+    // second cluster barrier once it was done with the last tile's)
+    const float* p0 = reinterpret_cast<const float*>(areas) + srow * kQLd + sq;
+    float4 sx = lds4(p0), dx = lds4(p0 + kRows * kQLd);
+#pragma unroll
+    for (int u = 1; u < kWarps; ++u) {
+      const float* pu =
+          reinterpret_cast<const float*>(areas + u * kArea) +
+          srow * kQLd + sq;
+      const float4 y = lds4(pu), z = lds4(pu + kRows * kQLd);
+      sx.x += y.x; sx.y += y.y; sx.z += y.z; sx.w += y.w;
+      dx.x += z.x; dx.y += z.y; dx.z += z.z; dx.w += z.w;
+    }
+    *reinterpret_cast<float4*>(xs + srow * kWLd + sq) = sx;
+    *reinterpret_cast<float4*>(xs + (kRows + srow) * kWLd + sq) = dx;
+    cluster.sync();  // both blocks' sums are written; every partial is read
+
+    // 3. S^T = own + peer and dP^T = own + peer: the same bits in both
+    // blocks, since float addition commutes, so both form the same weights
+    // P = exp(S g - lse) and dS = P (dP - delta) g; queries past N weigh 0
+    {
+      const float4 py = lds4(peer_xs + srow * kWLd + sq);
+      const float4 pz = lds4(peer_xs + (kRows + srow) * kWLd + sq);
+      float wv[4], wd[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        wv[e] = wd[e] = 0.f;
+        if (key_in && sq + e < qn) {
+          const float p =
+              expf((elem(sx, e) + elem(py, e)) * gm - lse_s[sq + e]);
+          wv[e] = p;
+          wd[e] = p * (elem(dx, e) + elem(pz, e) - delta_s[sq + e]) * gm;
+        }
+      }
+      *reinterpret_cast<float4*>(wp_s + srow * kWLd + sq) =
+          make_float4(wv[0], wv[1], wv[2], wv[3]);
+      *reinterpret_cast<float4*>(wds_s + srow * kWLd + sq) =
+          make_float4(wd[0], wd[1], wd[2], wd[3]);
+    }
+    // The peer has read this block's sums: the next tile may overwrite
+    // them. This also keeps each block's shared memory alive until its peer
+    // is done with it, so nothing after the last tile needs another
+    // barrier; and the weights are written.
+    cluster.sync();
+
+    // 4. dV += P^T dO and dK_eff += dS^T Q over this warp's columns, 8
+    // queries a step: step i stages rows i0 + 8i .. + 7 of Q and dO at the
+    // warp's columns, kStages3 - 1 steps ahead; group c's rows t and t + 4
+    // at columns 32c + 4g .. + 3 give the B fragments of its four n8 tiles
+    // (tile e's column n is 32c + 4n + e), for dO and for Q
+    const int nstep3 = cw < D ? (qn + 7) / 8 : 0;
+    auto stage3 = [&](int i) {
+      if (i < nstep3) {
+        char* slot = mine + (i % kStages3) * kStep3;
+        T* qd = reinterpret_cast<T*>(slot);
+        float* od = reinterpret_cast<float*>(slot + kOOff);
+        const int r0 = i0 + 8 * i;
+        // a row a copy, lanes past its chunks idle: one column offset a
+        // lane (six a lane cost the float32 builds spills)
+        const int q = 4 * lane;
+#pragma unroll (kVec ? 8 : 1)
+        for (int r = 0; r < 8 && lane < kChunks; ++r) {
+          const bool ok = r0 + r < N;
+          copy4<kVec>(qd + r * kLdQ + q, Qb + (size_t)(r0 + r) * D, ok,
+                      cw + q, D);
+          copy4<kVec>(od + r * kLdO + q, dOb + (size_t)(r0 + r) * D, ok,
+                      cw + q, D);
+        }
+      }
+      cp_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < kStages3 - 1; ++i) stage3(i);
+#pragma unroll 1
+    for (int i = 0; i < nstep3; ++i) {
+      stage3(i + kStages3 - 1);
+      cp_wait<kStages3 - 1>();
+      __syncwarp();                    // step i is staged, by every lane
+      uint32_t aph[1][4], apl[1][4], adh[1][4], adl[1][4];
+      // A fragments {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int o = (g + 8 * (r & 1)) * kWLd + 8 * i + t + 4 * (r >> 1);
+        to_tf32<true>(wp_s[o], aph[0][r], apl[0][r]);
+        to_tf32<true>(wds_s[o], adh[0][r], adl[0][r]);
+      }
+      const char* slot = mine + (i % kStages3) * kStep3;
+      const T* qb = reinterpret_cast<const T*>(slot);
+      const float* ob = reinterpret_cast<const float*>(slot + kOOff);
+#pragma unroll
+      for (int c = 0; c < kHalfGroups; ++c) {
+        uint32_t bh[4][2], bl[4][2];
+        float x[4][4];
+        fence();
+        const float4 oa = lds4(ob + t * kLdO + 32 * c + 4 * g);
+        const float4 oc = lds4(ob + (t + 4) * kLdO + 32 * c + 4 * g);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          to_tf32<true>(elem(oa, e), bh[e][0], bl[e][0]);
+          to_tf32<true>(elem(oc, e), bh[e][1], bl[e][1]);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) x[e][n] = 0.f;
+        }
+        mma_tile<true, true, 4, 1>(x, aph, apl, bh, bl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) add_into(acc_v[c][e], x[e]);
+        fence();
+        const float4 qa = lds4(qb + t * kLdQ + 32 * c + 4 * g);
+        const float4 qc = lds4(qb + (t + 4) * kLdQ + 32 * c + 4 * g);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          to_tf32<kSplitQ>(elem(qa, e), bh[e][0], bl[e][0]);
+          to_tf32<kSplitQ>(elem(qc, e), bh[e][1], bl[e][1]);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) x[e][n] = 0.f;
+        }
+        mma_tile<true, kSplitQ, 4, 1>(x, adh, adl, bh, bl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) add_into(acc_k[c][e], x[e]);
+      }
+      __syncwarp();                    // every lane is done with step i
+    }
+    cp_wait<0>();
+    __syncwarp();
+  }
+
+  // each thread writes the columns it accumulated, as accumulated (dK_eff
+  // is the gradient of the keys K kscale)
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = g + 8 * hi;
+    if (r >= rows || j0 + r >= P) continue;
+    float* krow = dK + ((size_t)b * P + j0 + r) * D;
+    float* vrow = dV + ((size_t)b * P + j0 + r) * D;
+#pragma unroll
+    for (int c = 0; c < kHalfGroups; ++c) {
+      const int col = cw + 32 * c + 8 * t;  // tile e, n = 2t (+1): col + e (+4)
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        const int e2 = 2 * hi + o;
+        store4<kVec>(krow, col + 4 * o, D,
+                     make_float4(acc_k[c][0][e2], acc_k[c][1][e2],
+                                 acc_k[c][2][e2], acc_k[c][3][e2]));
+        store4<kVec>(vrow, col + 4 * o, D,
+                     make_float4(acc_v[c][0][e2], acc_v[c][1][e2],
+                                 acc_v[c][2][e2], acc_v[c][3][e2]));
+      }
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   const float *keep, *kscale, *dO, *lse, *delta;
@@ -1102,19 +1233,50 @@ int launch_dq_rows(const Args& a) {
              : launch_dq<T, false, false>(a, rows);
 }
 
-template <typename T, int R>
-int launch_dkdv_r(const Args& a) {
-  const int Dh = half_cut(a.D);
-  const size_t smem = dkdv_smem_bytes<R>(Dh);
-  const auto kernel = ca_dkdv_kernel<T, R>;
+// The fused dK/dV kernel with `rows` key rows a cluster; with a.plan, the
+// launch plan instead.
+template <typename T, bool kSame, bool kVec>
+int launch_dkdv(const Args& a, int rows) {
+  const size_t smem = dkdv_smem_bytes<T>(a.D);
+  const auto kernel = ca_dkdv_kernel<T, kSame, kVec>;
   if (int err = opt_in_smem(kernel, smem)) return err;
-  const dim3 grid((a.P + R - 1) / R, 2, a.B);
-  if (a.plan != nullptr) return cluster_plan(kernel, grid, smem, R, a.plan);
+  const dim3 grid((a.P + rows - 1) / rows, 2 * ((a.D + kSlab - 1) / kSlab),
+                  a.B);
+  if (a.plan != nullptr) return cluster_plan(kernel, grid, smem, rows, a.plan);
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.keep, a.kscale, a.dO, a.lse, a.delta,
-      a.out, a.out2, a.N, a.P, a.D, Dh, a.scale);
+      a.out, a.out2, rows, a.N, a.P, a.D, a.scale);
   return (int)cudaGetLastError();
+}
+
+// dK_eff and dV together, in clusters of two blocks that run one per SM:
+// 16-key clusters where they give every SM a block, or where 8-key ones
+// would not all fit at once (at 256^2, B = 1: 61 clusters of 16 keys in one
+// wave, not 121 of 8 in two); 8 keys otherwise (the D-split forward's
+// rule). dK's builds: one whose owned K rows serve S^T and dP^T where V is
+// K (the main path's call), one that stages V's rows; 16-byte copies where
+// D is a multiple of 4 and every pointer is aligned, else element by
+// element.
+template <typename T>
+int launch_dkdv_rows(const Args& a) {
+  if (a.B > 65535) return (int)cudaErrorInvalidValue;
+  const auto blocks = [&](int tile) {
+    return 2LL * ((a.D + kSlab - 1) / kSlab) * a.B * ((a.P + tile - 1) / tile);
+  };
+  const int rows =
+      blocks(kRows) >= sm_count() || blocks(8) > sm_count() ? kRows : 8;
+  const auto aligned = [](const void* p) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = a.D % 4 == 0 && aligned(a.q) && aligned(a.k) &&
+                   aligned(a.v) && aligned(a.dO) && aligned(a.kscale) &&
+                   aligned(a.out) && aligned(a.out2);
+  if (a.k != a.v)
+    return vec ? launch_dkdv<T, false, true>(a, rows)
+               : launch_dkdv<T, false, false>(a, rows);
+  return vec ? launch_dkdv<T, true, true>(a, rows)
+             : launch_dkdv<T, true, false>(a, rows);
 }
 
 // dK_eff (kDK) or dV with `rows` key rows a block; with a.plan, the launch
@@ -1159,13 +1321,6 @@ int launch_dk_dv_rows(const Args& a) {
 }
 
 // which: 0 dq, 1 dkdv, 2 dv, 3 dk.
-// dq: launch_dq_rows; dv and dk: launch_dk_dv_rows. dkdv, whose blocks come
-// in clusters of two and run one per SM: 32-key tiles, which read Q and dO
-// half as often as 16-key ones, where their clusters give every SM a block
-// and their accumulators fit; then 16 keys where those do, or where 8-key
-// clusters would not all fit at once (at 256^2, B = 1: 61 clusters of 16
-// keys in one wave, not 121 of 8 in two); 8 keys otherwise (the D-split
-// forward's rule).
 template <typename T>
 int launch(int which, const Args& a) {
   if (a.B <= 0 || a.N <= 0 || a.P <= 0 || a.D <= 0)
@@ -1173,19 +1328,8 @@ int launch(int which, const Args& a) {
   switch (which) {
     case 0:
       return launch_dq_rows<T>(a);
-    case 1: {
-      if (a.B > 65535) return (int)cudaErrorInvalidValue;
-      const int Dh = half_cut(a.D);
-      const auto pairs = [&](int tile) {   // blocks of the grid
-        return 2LL * a.B * ((a.P + tile - 1) / tile);
-      };
-      if (pairs(32) >= sm_count() && dkdv_smem_bytes<32>(Dh) <= kMaxSmem)
-        return launch_dkdv_r<T, 32>(a);
-      if ((pairs(16) >= sm_count() || pairs(8) > sm_count()) &&
-          dkdv_smem_bytes<16>(Dh) <= kMaxSmem)
-        return launch_dkdv_r<T, 16>(a);
-      return launch_dkdv_r<T, 8>(a);
-    }
+    case 1:
+      return launch_dkdv_rows<T>(a);
     case 2:
       return launch_dk_dv_rows<T, false>(a);
     case 3:
@@ -1238,9 +1382,10 @@ int sketchedit_contextual_attention_dkdv(int dtype, const void* q,
 }
 
 // The fused dK/dV kernel's launch plan for these shapes on the current
-// device, without a launch: plan[0] tile keys, [1] blocks per cluster, [2]
-// the most clusters resident at once (cudaOccupancyMaxActiveClusters), [3]
-// dynamic shared-memory bytes per block, [4] clusters in the grid.
+// device, without a launch (V taken to be K, as on the main path): plan[0]
+// tile keys, [1] blocks per cluster, [2] the most clusters resident at once
+// (cudaOccupancyMaxActiveClusters), [3] dynamic shared-memory bytes per
+// block, [4] clusters in the grid.
 int sketchedit_contextual_attention_dkdv_plan(int dtype, int B, int N, int P,
                                               int D, int* plan) {
   Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,

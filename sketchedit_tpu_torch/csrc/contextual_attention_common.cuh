@@ -2,10 +2,10 @@
 // (contextual_attention_fwd.cu and contextual_attention_bwd.cu): the tile
 // product, the online softmax over one key tile, and the accumulation of a
 // weighted sum of streamed rows into a shared-memory accumulator, all float32
-// on the CUDA cores; and the float32-accurate tensor-core product (split
-// TF32 on mma.sync) that the two full-width forwards, dQ, dK and dV are
-// built on, with their block shape, per-warp cp.async staging and launch
-// plan. Every
+// on the CUDA cores (the D-split forward's); and the float32-accurate
+// tensor-core product (split TF32 on mma.sync) that the two full-width
+// forwards and the four backward kernels are built on, with their block
+// shape, per-warp cp.async staging and launch plans. Every
 // kernel runs kThreads = 256 threads a block and walks its streamed axis in
 // tiles of kT = 64.
 
@@ -279,18 +279,20 @@ __device__ __forceinline__ void accumulate(float* acc, int ld, int ncols,
 // bit), accumulated in float32: about 22 bits, where one pass keeps 11. A
 // bfloat16 value (8 exponent bits, 7 mantissa bits) is exact in TF32, so an
 // operand that holds one enters whole and its product takes two passes.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
+//
 // x as a TF32 operand: (hi, lo) when kSplit, else x whole (exact in TF32).
+// The rounding is done on the bits: hi = x plus half an ulp of TF32 with the
+// low 13 bits cleared, lo = (x - hi) plus half an ulp with its low bits left
+// for the mma to drop. Both are cvt.rna.tf32.f32's roundings (to nearest,
+// ties away from zero) for every x but a NaN (one with a small payload may
+// come out as inf; a NaN input gives a non-finite result either way), in
+// four instructions where cvt.rna, which the compiler expands with a check
+// for inf and NaN, takes seven.
 template <bool kSplit>
 __device__ __forceinline__ void to_tf32(float x, uint32_t& hi, uint32_t& lo) {
   if constexpr (kSplit) {
-    hi = tf32_rna(x);
-    lo = tf32_rna(x - __uint_as_float(hi));
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
   } else {
     hi = __float_as_uint(x);
     lo = 0;
@@ -484,7 +486,9 @@ int sm_count() {
 
 // The width of the first half of D in the kernels whose clusters split D:
 // ceil(D / 2), rounded up to 4 (float4 rows).
-int half_cut(int D) { return ((D + 1) / 2 + 3) / 4 * 4; }
+__host__ __device__ inline int half_cut(int D) {
+  return ((D + 1) / 2 + 3) / 4 * 4;
+}
 
 template <typename Kernel>
 int opt_in_smem(Kernel kernel, size_t smem) {
@@ -518,7 +522,7 @@ int cluster_plan(Kernel kernel, dim3 grid, size_t smem, int rows, int* plan) {
   plan[1] = 2;
   plan[2] = clusters;
   plan[3] = (int)smem;
-  plan[4] = (int)(grid.x * grid.z);
+  plan[4] = (int)(grid.x * (grid.y / 2) * grid.z);
   return 0;
 }
 

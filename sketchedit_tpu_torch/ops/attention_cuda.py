@@ -18,7 +18,8 @@ runs a shape). The flash-style backward comes in the same two forms:
 ``_dkdv_kernel``; the dQ kernel runs its three products on the tensor cores
 in split TF32, as the default forward does, and ``dq_plan`` says how it
 runs a shape; the dK/dV kernel is a two-block cluster over D, like the
-D-split forward, and ``dkdv_plan`` says how it runs a shape) on CUDA
+D-split forward, with its four products on the tensor cores in split
+TF32, and ``dkdv_plan`` says how it runs a shape) on CUDA
 tensors and take their plain versions on CPU ones, as do the single-output
 ``attention_core_dv`` and
 ``attention_core_dk`` (``_dv_kernel``, ``_dk_kernel``: dQ's block with

@@ -464,19 +464,20 @@ def _bwd_case(seed, B, N, P, D, keep_p, dtype, device):
     return _bwd_args(Q, K, V, keep, dO, kscale)
 
 
-def _dkdv_tile(sms, B, P):
-    """The key tile the launch rule picks on a card with ``sms`` SMs."""
-    pairs = lambda r: 2 * B * -(-P // r)
-    if pairs(32) >= sms:
-        return 32
-    return 16 if pairs(16) >= sms or pairs(8) > sms else 8
+def _dkdv_tile(sms, B, P, D=1536):
+    """The key tile the launch rule picks on a card with ``sms`` SMs: 16
+    keys a cluster where those clusters give every SM a block or where
+    8-key ones would not all fit at once, else 8 (a cluster per column slab
+    of 1536)."""
+    blocks = lambda r: 2 * -(-D // 1536) * B * -(-P // r)
+    return 16 if blocks(16) >= sms or blocks(8) > sms else 8
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tile_rows,keys_per_sm_pair", [
-    (32, 32),     # 32-key clusters fill the SMs
-    (16, 16),     # 16-key clusters fill them, 32-key ones do not
-    (16, 8),      # neither does; 8-key clusters would take two waves
+    (16, 32),     # twice the keys 16-key clusters need to fill the SMs
+    (16, 16),     # 16-key clusters fill them
+    (16, 8),      # they do not; 8-key clusters would take two waves
     (8, 0),       # few enough 8-key clusters to fit at once
 ])
 def test_dkdv_kernel_ragged_at_each_tile_height(cuda, dtype, tile_rows,
@@ -512,7 +513,7 @@ def test_dkdv_kernel_halves_form_the_same_weights(cuda, dtype):
     second, so both blocks of a cluster contract the same partials and
     accumulate the same values: dK_eff's and dV's two halves are equal bit
     for bit only if both blocks formed P^T and dS^T from the same sums."""
-    B, N, P, D = 9, 130, 500, 1536          # 32-key tiles
+    B, N, P, D = 9, 130, 500, 1536          # 16-key tiles
     cut = dsplit_cut(D)
     assert 2 * cut == D
     Q, K, V, keep = _inputs(21, B, N, P, D, 0.8, dtype, cuda)
@@ -541,7 +542,7 @@ def test_dkdv_kernel_repeats_bit_for_bit(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dkdv_kernel_all_keys_gated(cuda, dtype):
-    """Every key gated, at 32-key tiles: logits 0, so P is uniform and dV
+    """Every key gated, at 16-key tiles: logits 0, so P is uniform and dV
     the column sums of dO over P; the dS multiplier is 0, so dK_eff is 0."""
     args = _bwd_case(23, 9, 130, 500, 1536, 0.0, dtype, cuda)
     assert not args[3].any()
@@ -549,11 +550,12 @@ def test_dkdv_kernel_all_keys_gated(cuda, dtype):
     assert not dK.any()
 
 
-@pytest.mark.parametrize("B,tile_rows_132", [(1, 16), (8, 32)])
+@pytest.mark.parametrize("B,tile_rows_132", [(1, 16), (8, 16)])
 def test_dkdv_plan_at_the_main_path_shapes(cuda, B, tile_rows_132):
-    """256^2 training (N = P = 961, D = 1536): 32-key clusters at B = 8,
-    16-key ones at B = 1 (on a 132-SM card; the rule's pick elsewhere),
-    every block within the shared memory a block may opt into."""
+    """256^2 training (N = P = 961, D = 1536): 16-key clusters at B = 8,
+    and at B = 1, where 8-key ones would take two waves (on a 132-SM card;
+    the rule's pick elsewhere), every block within the shared memory a
+    block may opt into."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         plan = dkdv_plan(B, 961, 961, 1536, dtype)
@@ -564,6 +566,108 @@ def test_dkdv_plan_at_the_main_path_shapes(cuda, B, tile_rows_132):
         assert plan["grid_clusters"] == B * -(-961 // want)
         assert 0 < plan["smem_bytes"] <= 232448
         assert plan["max_active_clusters"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1544, 1928])
+def test_dkdv_kernel_beyond_one_slab(cuda, dtype, D):
+    """D past two 768-column halves: a second column slab of clusters,
+    each recomputing S^T and dP^T over all of D, and a block's owned K
+    tile over half of D (964 columns at 1928)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B, N, P = 2, 150, 90
+    plan = dkdv_plan(B, N, P, D, dtype)
+    tile = _dkdv_tile(sms, B, P, D)
+    assert plan["tile_rows"] == tile and plan["cluster_blocks"] == 2, plan
+    assert plan["grid_clusters"] == 2 * B * -(-P // tile), plan
+    assert 0 < plan["smem_bytes"] <= 232448, plan
+    # lse and delta from the plain forward: the forward kernel's block
+    # holds all of D and fits up to about 1750 columns
+    Q, K, V, keep = _inputs(D, B, N, P, D, 0.8, dtype, cuda)
+    rs = np.random.RandomState(D + 7)
+    dO = torch.from_numpy(rs.randn(B, N, D).astype(np.float32)).to(cuda)
+    kscale = torch.from_numpy((0.5 + rs.rand(B, D)).astype(np.float32)
+                              ).to(cuda)
+    out, lse = attention_core_reference(Q, K, V, keep, return_lse=True,
+                                        out_dtype=torch.float32,
+                                        kscale=kscale)
+    _check_dkdv((Q, K, V, keep, lse, (dO * out).sum(-1), dO, 10.0, kscale),
+                f"D{D}")
+
+
+@pytest.mark.parametrize("dtype,widest", [(torch.float32, 2816),
+                                          (torch.bfloat16, 6400)])
+def test_dkdv_kernel_widest_d(cuda, dtype, widest):
+    """The owned K tile over half of D bounds D: the widest D whose block
+    fits the card's shared memory runs and matches the plain version, one
+    step wider fails with the launch's error rather than a wrong result.
+    The forward kernels stop first, near D = 1750."""
+    B, N, P = 1, 70, 20
+    for D in (widest, widest + 4):
+        Q, K, V, keep = _inputs(D, B, N, P, D, 0.8, dtype, cuda)
+        rs = np.random.RandomState(D + 7)
+        dO = torch.from_numpy(rs.randn(B, N, D).astype(np.float32)).to(cuda)
+        kscale = torch.from_numpy((0.5 + rs.rand(B, D)).astype(np.float32)
+                                  ).to(cuda)
+        out, lse = attention_core_reference(Q, K, V, keep, return_lse=True,
+                                            out_dtype=torch.float32,
+                                            kscale=kscale)
+        args = (Q, K, V, keep, lse, (dO * out).sum(-1), dO, 10.0, kscale)
+        if D == widest:
+            assert dkdv_plan(B, N, P, D, dtype)["smem_bytes"] <= 232448
+            _check_dkdv(args, f"D{D}")
+        else:
+            with pytest.raises(RuntimeError, match="dkdv launch failed"):
+                attention_core_dkdv(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dkdv_kernel_v_apart_from_k(cuda, dtype):
+    """The build that stages V's owned rows with every dP^T step (K and V
+    apart) on the main path's inputs: the same values in the same order as
+    the one-tensor build, whose dP^T takes its A rows from the K tile, so
+    the same bits, and within tolerance of the plain version."""
+    args = _main_path_bwd(33, 8, 64, dtype, cuda)
+    Q, K, V, *rest = args
+    apart = (Q, K.clone(), V.clone(), *rest)
+    got = _check_dkdv(apart, "v_apart")
+    one = attention_core_dkdv(*args)
+    print("dkdv v_apart max|apart - one tensor|",
+          [(a - b).abs().max().item() for a, b in zip(got, one)])
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+
+
+def _float64_dkdv(args):
+    """dK_eff and dV evaluated in float64 from the same inputs (the
+    forward kernel's lse and delta)."""
+    Q, K, V, keep, lse, delta, dO, scale, ks = (
+        t.double() if torch.is_tensor(t) else t for t in args)
+    g = keep[:, None, :] * scale
+    S = torch.bmm(Q, (K * ks[:, None, :]).transpose(1, 2))
+    P = torch.exp(S * g - lse[..., None])
+    dS = P * (torch.bmm(dO, V.transpose(1, 2)) - delta[..., None]) * g
+    return torch.bmm(dS.transpose(1, 2), Q), torch.bmm(P.transpose(1, 2), dO)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(1, 64), (3, 29)])
+def test_dkdv_kernel_as_close_to_float64_as_dk_dv(cuda, dtype, B, H):
+    """At the main path's one-tensor call, the fused kernel's dK_eff and dV
+    lie no further from a float64 evaluation of the same function than
+    twice the dK and dV kernels' (all four on the tensor cores in split
+    TF32), each as a share of the largest value."""
+    args = _main_path_bwd(B * 100 + H + 5, B, H, dtype, cuda)
+    Q, K, _, keep, lse, _, dO, _, ks = args
+    want = _float64_dkdv(args)
+    fused = attention_core_dkdv(*args)
+    alone = (attention_core_dk(*args),
+             attention_core_dv(Q, K, keep, lse, dO, 10.0, ks))
+    dist = lambda a, w: ((a.double() - w).abs().max() / w.abs().max()).item()
+    for name, f, a, w in zip(("dK_eff", "dV"), fused, alone, want):
+        d_fused, d_alone = dist(f, w), dist(a, w)
+        print("dkdv float64", B, H, str(dtype), name, "fused", d_fused,
+              "alone", d_alone)
+        assert d_fused <= 2 * d_alone, (name, d_fused, d_alone)
 
 
 def test_launches_run_on_the_tensors_device(cuda):
@@ -604,6 +708,10 @@ def test_launches_run_on_the_tensors_device(cuda):
 @pytest.mark.parametrize("shape,keep_p", SHAPES + [
     ((9, 130, 500, 1536), 0.8),       # the model's D, 16-row blocks
     ((2, 50, 70, 1537), 0.8),         # D past one 1536-column slab (odd)
+    # the fused kernel's tiles at the model's D: 8-key clusters, and
+    # 16-key ones over two column slabs
+    ((1, 150, 77, 1536), 0.8),
+    ((2, 50, 70, 1544), 0.8),
     # the training path's one-tensor call (Q = K = V from attention_inputs)
     # at 256^2, B = 1 (8-row blocks) and 8 (16-row ones), and a ragged 29^2
     (("main", 1, 64), None),
