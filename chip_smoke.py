@@ -20,9 +20,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    dK/dV kernel's key tile, cluster shape and resident clusters at each
    training shape, a `dq_plan` line the dQ kernel's rows per block, column
    slabs, resident blocks per SM and shared memory, `dk_dv_plan` lines the
-   same for the dV and dK kernels, and `dq_ptxas`, `dk_dv_ptxas` and
-   `dkdv_ptxas` lines the dQ, dV and dK and fused dK/dV instantiations'
-   registers and spills;
+   same for the dV and dK kernels, and `dq_ptxas`, `dk_dv_ptxas`,
+   `dkdv_ptxas` and `dsplit_ptxas` lines the dQ, dV and dK, fused dK/dV
+   and D-split instantiations' registers and spills;
 4. inference path: the runner's EditPipeline on uint8 batches at 256^2
    (B = 1 and 4, float32 and bfloat16) and 252^2, one forward launch per
    netG forward, checked against the same pipeline with dense attention
@@ -102,7 +102,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    kernel, its plain version and one PyTorch call computing the same
    function, the three forwards at 256^2 (B = 1 and 8), 512^2 and 1024^2
    with a `fwd_plan` line each (the default forward's rows per block,
-   column slabs, resident blocks per SM and shared memory), served
+   column slabs, resident blocks per SM and shared memory) and, at 256^2
+   B = 1 and 512^2, the default and D-split forwards' distance from a
+   float64 evaluation of the same function (`fwd_vs_float64`), served
    throughput per --max_batch and client count, the editimage loader's
    steady img/s per --nThreads over 50-batch epochs of 512^2 photo-like
    PNGs, alone and feeding the bfloat16 train loop, beside the loop over
@@ -661,14 +663,17 @@ def main():
     emit({"phase": "build", "seconds": round(build_s, 3),
           "nvcc_seconds": _build.build_seconds, **card})
     # registers and spills of each dQ instantiation (ca_dq_kernel<T, kSame,
-    # kVec>), each dV and dK one (ca_dk_or_dv_kernel<T, kDK, kSame, kVec>)
-    # and each fused dK/dV one (ca_dkdv_kernel<T, kSame, kVec>), where this
-    # run built the library
-    for phase, kernel in (("dq_ptxas", "ca_dq_kernel"),
-                          ("dk_dv_ptxas", "ca_dk_or_dv_kernel"),
-                          ("dkdv_ptxas", "ca_dkdv_kernel")):
+    # kVec>), each dV and dK one (ca_dk_or_dv_kernel<T, kDK, kSame, kVec>),
+    # each fused dK/dV one (ca_dkdv_kernel<T, kSame, kVec>) and each D-split
+    # one (ca_fwd_dsplit_kernel<T, TO, kMT, kVec>), where this run built the
+    # library
+    for phase, stem, kernel in (
+            ("dq_ptxas", "bwd", "ca_dq_kernel"),
+            ("dk_dv_ptxas", "bwd", "ca_dk_or_dv_kernel"),
+            ("dkdv_ptxas", "bwd", "ca_dkdv_kernel"),
+            ("dsplit_ptxas", "fwd", "ca_fwd_dsplit_kernel")):
         entry, found = None, []
-        for ln in _build.build_log.get("contextual_attention_bwd",
+        for ln in _build.build_log.get(f"contextual_attention_{stem}",
                                        "").splitlines():
             if "Compiling entry function" in ln:
                 entry = ln.split("'")[1]
@@ -2852,6 +2857,36 @@ def main():
         row["dsplit_x_fwd"] = row["dsplit_ms"] / row["fwd_ms"]
         fwd_times[(B, hw, dt)] = row
         emit(row)
+        if B == 1 and hw in (64, 128):
+            # the default and D-split forwards against the same function
+            # in float64 on the same (bf16-rounded) inputs: both run split
+            # TF32, so the D-split, whose two halves contract apart, must
+            # be as close as the default kernel over the whole output
+            # (relative L2 within 1.5x); the largest |difference|, one
+            # element's rounding, is reported beside it
+            Vd = V.double()
+            logits = torch.bmm(Q.double(), (Vd * ksc.double()[:, None, :])
+                               .transpose(1, 2))
+            logits = logits * keep.double()[:, None, :] * 10.0
+            exact = torch.bmm(torch.softmax(logits, -1), Vd)
+            del logits, Vd
+            dist = {}
+            for k, fn in (("fwd", attention_core),
+                          ("dsplit", attention_core_dsplit)):
+                got = fn(Q, V, V, keep, out_dtype=f32, kscale=ksc).double()
+                dist[f"{k}_max_abs_vs_float64"] = (
+                    got - exact).abs().max().item()
+                dist[f"{k}_rel_l2_vs_float64"] = (
+                    (got - exact).norm() / exact.norm()).item()
+                del got
+            for m in ("max_abs", "rel_l2"):
+                dist[f"dsplit_x_fwd_{m}"] = (dist[f"dsplit_{m}_vs_float64"]
+                                             / dist[f"fwd_{m}_vs_float64"])
+            emit({"phase": "fwd_vs_float64", "image_hw": [4 * hw, 4 * hw],
+                  "shape_BNPD": [B, N, N, D], "dtype": row["dtype"], **dist,
+                  **card})
+            assert dist["dsplit_x_fwd_rel_l2"] <= 1.5, dist
+            del exact
     set_counts(attention_cuda, saved)        # timing launches do not count
 
     # served throughput in process at 256^2 with the serve defaults

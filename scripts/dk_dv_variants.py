@@ -131,8 +131,8 @@ VARIANTS = {
     "area16k": [("constexpr int kDkArea = 12800;",
                  "constexpr int kDkArea = 16000;")],
     "q32": [("constexpr int kTq = kT;", "constexpr int kTq = 32;")],
-    "tile_f32": [("template <typename T> using DkTile = T;",
-                  "template <typename T> using DkTile = float;")],
+    "tile_f32": [("template <typename T> using DkOwned = T;",
+                  "template <typename T> using DkOwned = float;")],
     "ks_global": [
         ("""      const float4 ks =
           lds4(reinterpret_cast<const float*>(slot + kStepB) + 4 * t);""",

@@ -2,8 +2,9 @@
 """Time design choices of the D-split attention forward against each other on
 one GPU, in one run, in turns.
 
-    python3 scripts/dsplit_variants.py [--variants committed chunk64 ...]
+    python3 scripts/dsplit_variants.py [--variants committed rows16 ...]
         [--parent DIR]
+    python3 scripts/dsplit_variants.py --precision
 
 Each variant is this checkout's sketchedit_tpu_torch with a few textual
 edits to csrc/contextual_attention_fwd.cu (an edit whose anchor is missing
@@ -13,31 +14,41 @@ parent commit, say) as the variant ``parent``. All variants build in
 parallel; then each is timed in its own process, in the order given and
 then in reverse. Variants:
 
-  committed  the kernel as committed: a 32-row tile stages 128-wide
-             D-chunks and unrolls its accumulation 8 streamed rows deep;
-             16-row tiles where 8-row clusters would take two waves
-  chunk64    32-row tiles stage 64-wide chunks
-  unroll2    32-row tiles unroll the accumulation 2 deep (the shared rule)
-  first      32-wide chunks, unroll 2 and the old tile rule (8 rows
-             wherever 16 leave SMs idle): the cluster kernel as first
-             written
-  small8     the old tile rule alone
-  rows16     no 32-row tiles: 16 rows where they fill the SMs
-  wide16     16-row tiles stage 64-wide chunks too
+  committed  the kernel as committed: a cluster of two blocks per query
+             tile, each contracting half of D for a partial S and
+             accumulating its half of the output, 96 columns a warp in
+             registers; both products split TF32 on the tensor cores;
+             32-row tiles (two m16 tiles a block, which share each K and V
+             fragment) where their clusters give every SM a block, else
+             16 rows; K steps in flight three (float32) or five
+             (bfloat16) ahead, V steps one or three ahead
+  rows16     16-row clusters at every shape (no 32-row tiles)
   clocks     the committed kernel with clock64() counters read back after
              one call of the D-split: thread 0's cycles per key tile in the
-             partial S, the cluster barrier, the exchange, the softmax and
-             P V (scripts/fwd_variants.py clocks the default forward)
+             partial S (its block barrier included), the warp sum into the
+             exchange slot, the exchange (the cluster barrier), the softmax
+             (the peer's sum, P and alpha, and the block barrier) and P V
+             (scripts/fwd_variants.py clocks the default forward)
 
-One JSON line per variant, shape and dtype: the D-split's and the default
-forward's ms (CUDA events after warm-up), their ratio, the largest
-|difference| between the two outputs, and the card's name and power limit;
-a `ptxas` line per D-split instantiation gives registers and spills.
-Shapes as on the main path (chip_smoke.py's inputs): 256^2 (B = 1 and 8),
-512^2 and 1024^2, D = 1536, float32, and 512^2 in bfloat16. Needs a GPU.
+One JSON line per variant, shape and dtype: the D-split's, the default
+forward's and the library call's ms (CUDA events after warm-up;
+``F.scaled_dot_product_attention`` on the same function, which the port
+never calls), the D-split's ratios to the other two, the largest
+|difference| between the two kernels' outputs, and the card's name and
+power limit; a `ptxas` line per D-split instantiation gives registers and
+spills. Shapes as on the main path (chip_smoke.py's inputs): 256^2 (B = 1
+and 8), 512^2 and 1024^2, D = 1536, float32, and 512^2 in bfloat16. Needs
+a GPU.
+
+``--precision`` times nothing: at the main path's call (256^2, B = 1, and
+512^2; float32 and bfloat16; seeds 0-3 of chip_smoke.py's features and
+hole mask) it prints the D-split's, the default forward's and the float32
+plain version's distance from a float64 evaluation of the same function on
+the same inputs: the largest |difference| and the relative L2 distance,
+and the ratio of the D-split's to the default forward's.
 
 The build-and-time harness (`make`, `report_ptxas`, `card`, `drive`) also
-serves scripts/dkdv_variants.py.
+serves scripts/dkdv_variants.py and the other variant scripts.
 """
 
 from __future__ import annotations
@@ -55,50 +66,42 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "results", "dsplit_variants")
 FWD = os.path.join("sketchedit_tpu_torch", "csrc", "contextual_attention_fwd.cu")
 
-CHUNK = ("static constexpr int kDC = TQ == 32 ? 128 : Tile<TQ>::kDC;",
-         "static constexpr int kDC = TQ == 32 ? {} : Tile<TQ>::kDC;")
-UNROLL = ("TQ == 32 ? 8 : accumulate_unroll<TQ, kSplitNC>();",
-          "TQ == 32 ? {} : accumulate_unroll<TQ, kSplitNC>();")
-RULE8 = ("    if (2 * blocks(16) >= sm_count() || 2 * blocks(8) > sm_count())",
-         "    if (2 * blocks(16) >= sm_count())")
+ROWS32 = ("    if (2 * blocks(2 * kRows) >= sm_count() &&\n",
+          "    if (false &&\n")
 CLOCKS = [
     ("namespace {\n", "namespace {\n__device__ unsigned long long g_clk[16];\n"),
-    # the D-split: partial S, cluster barrier, exchange, softmax, P V
-    ("""  for (int k0 = 0, t = 0; k0 < P; k0 += kT, t ^= 1) {
-    float s[RPT][kCPT];
+    # the D-split: partial S, warp sum, exchange, softmax, P V
+    ("""  for (int k0 = 0, par = 0; k0 < P; k0 += kT, par ^= 1) {
 """, """  unsigned long long ph[6] = {0, 0, 0, 0, 0, 0};
-  for (int k0 = 0, t = 0; k0 < P; k0 += kT, t ^= 1) {
+  for (int k0 = 0, par = 0; k0 < P; k0 += kT, par ^= 1) {
     const long long c0 = clock64();
-    float s[RPT][kCPT];
 """),
-    ("""    float* mine = part + t * kPart;
-""", """    const long long c1 = clock64();
-    float* mine = part + t * kPart;
+    ("""    __syncthreads();  // every warp's partial is written
+""", """    __syncthreads();  // every warp's partial is written
+    const long long c1 = clock64();
 """),
-    ("""    cluster.sync();
-    const float4* own4""", """    cluster.sync();
-    const long long c2 = clock64();
-    const float4* own4"""),
-    ("""    __syncthreads();
-    softmax_tile<TQ>(blk.bs, keep_b, k0, P, scale, blk.m_run, blk.l_run,
-                     blk.ps, blk.alpha_s);
-    if (c_hi > c_lo)
-""", """    __syncthreads();
+    ("""    cluster.sync();  // both blocks' sums are written; every partial is read
+""", """    const long long c2 = clock64();
+    cluster.sync();  // both blocks' sums are written; every partial is read
     const long long c3 = clock64();
-    softmax_tile<TQ>(blk.bs, keep_b, k0, P, scale, blk.m_run, blk.l_run,
-                     blk.ps, blk.alpha_s);
-    const long long c4 = clock64();
-    if (c_hi > c_lo)
 """),
-    ("""          min(kT, P - k0), blk.ps, blk.alpha_s);
+    ("""    __syncthreads();  // P and alpha are written
+""", """    __syncthreads();  // P and alpha are written
+    const long long c4 = clock64();
+"""),
+    ("""      cp_wait<0>();
+    }
   }
-  cluster.sync();""", """          min(kT, P - k0), blk.ps, blk.alpha_s);
+
+  // l per row""", """      cp_wait<0>();
+    }
     ph[0] += c1 - c0; ph[1] += c2 - c1; ph[2] += c3 - c2; ph[3] += c4 - c3;
     ph[4] += clock64() - c4; ph[5] += 1;
   }
   if (threadIdx.x == 0)
     for (int i = 0; i < 6; ++i) atomicAdd(&g_clk[8 + i], ph[i]);
-  cluster.sync();"""),
+
+  // l per row"""),
     ("const char* sketchedit_cuda_error_string(int code) {",
      """int sketchedit_clock_read(unsigned long long* out) {
   const unsigned long long zero[16] = {0};
@@ -110,15 +113,7 @@ const char* sketchedit_cuda_error_string(int code) {"""),
 ]
 VARIANTS = {
     "committed": [],
-    "chunk64": [(CHUNK[0], CHUNK[1].format(64))],
-    "unroll2": [(UNROLL[0], UNROLL[1].format(2))],
-    "first": [(CHUNK[0], CHUNK[1].format(32)),
-              (UNROLL[0], UNROLL[1].format(2)), RULE8],
-    "small8": [RULE8],
-    "rows16": [("    if (2 * blocks(32) >= sm_count()) return "
-                "launch_dsplit<T, TO, 32>(a);\n", "")],
-    "wide16": [(CHUNK[0], "static constexpr int kDC = TQ == 8 ? 64 : 128 "
-                          "/ (32 / TQ);")],
+    "rows16": [ROWS32],
     "clocks": CLOCKS,
 }
 SHAPES = ((1, 64, "float32"), (8, 64, "float32"), (1, 128, "float32"),
@@ -192,6 +187,7 @@ def time_variant(root: str, name: str):
     sys.path[:0] = [root, ROOT]
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from chip_smoke import cuda_ms, features, hole_mask
     from sketchedit_tpu_torch.ops import _build
@@ -208,13 +204,22 @@ def time_variant(root: str, name: str):
         fwd = lambda: attention_core(Q, V, V, keep, out_dtype=f32, kscale=ksc)
         dsplit = lambda: attention_core_dsplit(Q, V, V, keep, out_dtype=f32,
                                                kscale=ksc)
+        Ks = (V.float() * ksc[:, None, :] * (10.0 * keep)[..., None]).to(
+            Q.dtype)
+        library = lambda: F.scaled_dot_product_attention(Q, Ks, V, scale=1.0)
         reps = 2 if hw == 256 else 5
         row = {"variant": name, "image_hw": [4 * hw, 4 * hw],
                "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
                "dtype": dtype, "card": card_,
                "fwd_ms": cuda_ms(fwd, reps, warmup=1),
-               "dsplit_ms": cuda_ms(dsplit, reps, warmup=1)}
+               "dsplit_ms": cuda_ms(dsplit, reps, warmup=1),
+               "library_ms": cuda_ms(library, reps, warmup=1)}
         row["dsplit_x_fwd"] = row["dsplit_ms"] / row["fwd_ms"]
+        row["dsplit_x_library"] = row["dsplit_ms"] / row["library_ms"]
+        if name != "parent":
+            from sketchedit_tpu_torch.ops.attention_cuda import dsplit_plan
+            row["plan"] = dsplit_plan(B, Q.shape[1], V.shape[1], Q.shape[2],
+                                      Q.dtype)
         row["max_abs_diff"] = (dsplit() - fwd()).abs().max().item()
         if name == "clocks":
             read = _build.load()["contextual_attention_fwd"].sketchedit_clock_read
@@ -222,7 +227,7 @@ def time_variant(root: str, name: str):
             clk = (ctypes.c_ulonglong * 16)()
             for fn, key, lo, names in (
                     (dsplit, "dsplit_cycles_per_tile", 8,
-                     ("partial_S", "cluster_sync", "exchange", "softmax",
+                     ("partial_S", "warp_sum", "exchange", "softmax",
                       "PV")),):
                 torch.cuda.synchronize()
                 assert read(ctypes.addressof(clk)) == 0      # zeroes them
@@ -232,7 +237,50 @@ def time_variant(root: str, name: str):
                 tiles = clk[lo + len(names)]
                 row[key] = {k: clk[lo + i] / tiles for i, k in enumerate(names)}
         print(json.dumps(row), flush=True)
-        del f, Q, V
+        del f, Q, V, Ks
+
+
+def precision():
+    sys.path[:0] = [ROOT]
+    import numpy as np
+    import torch
+
+    from chip_smoke import features, hole_mask
+    from sketchedit_tpu_torch.ops.attention_cuda import (
+        attention_core, attention_core_dsplit, attention_core_reference,
+        attention_inputs)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card_ = card()
+    f32 = torch.float32
+    for hw in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for seed in range(4):
+                rs = np.random.RandomState(seed)
+                f = features(rs, 1, hw, hw).cuda().to(dtype)
+                Q, V, keep, ksc = attention_inputs(
+                    f, f, hole_mask(1, hw, hw).cuda())
+                Vd = V.double()
+                logits = torch.bmm(Q.double(), (Vd * ksc.double()[:, None, :])
+                                   .transpose(1, 2))
+                logits = logits * keep.double()[:, None, :] * 10.0
+                exact = torch.bmm(torch.softmax(logits, -1), Vd)
+                del logits, Vd
+                row = {"precision": [4 * hw, 4 * hw], "dtype":
+                       str(dtype).split(".")[-1], "seed": seed, "card": card_}
+                for k, fn in (("dsplit", attention_core_dsplit),
+                              ("fwd", attention_core),
+                              ("plain", attention_core_reference)):
+                    err = fn(Q, V, V, keep, out_dtype=f32,
+                             kscale=ksc).double() - exact
+                    row[f"{k}_max_abs"] = err.abs().max().item()
+                    row[f"{k}_rel_l2"] = (err.norm() / exact.norm()).item()
+                    del err
+                for m in ("max_abs", "rel_l2"):
+                    row[f"dsplit_x_fwd_{m}"] = (row[f"dsplit_{m}"]
+                                                / row[f"fwd_{m}"])
+                print(json.dumps(row), flush=True)
+                del f, Q, V, exact
 
 
 def main():
@@ -240,6 +288,8 @@ def main():
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
                     choices=list(VARIANTS))
     ap.add_argument("--parent", help="another checkout, timed as it is")
+    ap.add_argument("--precision", action="store_true",
+                    help="distances from float64 instead of times")
     ap.add_argument("--build", nargs=2, metavar=("ROOT", "NAME"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--time", nargs=2, metavar=("ROOT", "NAME"),
@@ -250,6 +300,8 @@ def main():
                             "dsplit_kernel")
     if args.time:
         return time_variant(*args.time)
+    if args.precision:
+        return precision()
     roots = {name: make(name, VARIANTS[name]) for name in args.variants}
     if args.parent:
         roots["parent"] = os.path.abspath(args.parent)

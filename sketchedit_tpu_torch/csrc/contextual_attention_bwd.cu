@@ -500,9 +500,9 @@ ca_dq_kernel(const T* Q, const T* K, const T* V, const float* keep,
 // one.
 constexpr int kDkArea = 12800;
 // Queries per streamed tile of the dK/dV kernels, and the type the owned K
-// tile is held in (the input type: 50 KB of bfloat16 at D = 1536).
+// rows are held in (the input type: 50 KB of bfloat16 at D = 1536).
 constexpr int kTq = kT;
-template <typename T> using DkTile = T;
+template <typename T> using DkOwned = T;
 constexpr int kWLd = kTq + 4;         // weight rows (P^T or dS^T): 68 floats
 constexpr int kQLd = kTq + 8;         // partial rows: 72 floats
 
@@ -519,7 +519,7 @@ __host__ __device__ constexpr int dk_stages() {
 // streamed query.
 template <typename T>
 size_t dk_dv_smem_bytes(int D) {
-  return (size_t)kRows * mma_q_ld(D) * sizeof(DkTile<T>) +
+  return (size_t)kRows * mma_q_ld(D) * sizeof(DkOwned<T>) +
          (size_t)kWarps * kDkArea + sizeof(float) * (kRows * kWLd + 2 * kTq);
 }
 
@@ -541,7 +541,7 @@ size_t dk_dv_smem_bytes(int D) {
 template <typename T, typename TB, bool kOwnA, bool kScaleA, bool kVec,
           int kArea = kDkArea, int kMaxStages = 64>
 __device__ __forceinline__ void dk_dv_partial(
-    float (&acc)[kTq / 8][4], char* mine, const DkTile<T>* ktile, int ldk,
+    float (&acc)[kTq / 8][4], char* mine, const DkOwned<T>* ktile, int ldk,
     int k_lo, const T* Vb, const float* ks_b, const TB* Bb, int i0, int N,
     int qn, int j0, int rows, int P, int D, int dcap, int d_lo, int nstep) {
   constexpr bool kSplitA = kScaleA || sizeof(T) == sizeof(float);
@@ -671,7 +671,7 @@ ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
                 "the partials must fit");
   extern __shared__ __align__(16) float smem[];
   const int Ds = mma_cols(D), ldk = mma_q_ld(D), kcols = kWarps * Ds;
-  DkTile<T>* kt = reinterpret_cast<DkTile<T>*>(smem);   // [kRows][ldk]
+  DkOwned<T>* kt = reinterpret_cast<DkOwned<T>*>(smem);  // [kRows][ldk]
   char* areas = reinterpret_cast<char*>(kt + kRows * ldk);
   float* w_s = reinterpret_cast<float*>(areas + kWarps * kDkArea);
   float* lse_s = w_s + kRows * kWLd;                     // [kTq]
@@ -873,8 +873,6 @@ ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
 // The fused dK/dV kernel: kDkdvStages steps in flight in each phase. Each
 // warp accumulates kHalfGroups 32-column groups, a block kHalfCols columns.
 constexpr int kDkdvStages = 2;
-constexpr int kHalfGroups = kGroups / 2;               // 96 columns a warp
-constexpr int kHalfCols = kWarps * kHalfGroups * 32;   // 768 a block
 // A step of the accumulation: 8 streamed rows of Q (T) and of dO (float)
 // at a warp's columns, rows padded as dQ's K steps; a step of dP^T: 64 dO
 // rows at 16 columns, and V's 16 owned rows where V is not K; a warp's

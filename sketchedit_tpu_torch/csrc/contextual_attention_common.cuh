@@ -1,13 +1,10 @@
 // Device code shared by the contextual-attention kernels for Hopper
-// (contextual_attention_fwd.cu and contextual_attention_bwd.cu): the tile
-// product, the online softmax over one key tile, and the accumulation of a
-// weighted sum of streamed rows into a shared-memory accumulator, all float32
-// on the CUDA cores (the D-split forward's); and the float32-accurate
-// tensor-core product (split TF32 on mma.sync) that the two full-width
-// forwards and the four backward kernels are built on, with their block
-// shape, per-warp cp.async staging and launch plans. Every
-// kernel runs kThreads = 256 threads a block and walks its streamed axis in
-// tiles of kT = 64.
+// (contextual_attention_fwd.cu and contextual_attention_bwd.cu): the
+// float32-accurate tensor-core product (split TF32 on mma.sync) that all
+// three forwards and the four backward kernels are built on, with their
+// block shape, per-warp cp.async staging and launch plans. Every kernel
+// runs kThreads = 256 threads a block and walks its streamed axis in tiles
+// of kT = 64.
 
 #pragma once
 
@@ -21,9 +18,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kT = 64;                  // streamed rows per tile
-constexpr int kSS = kT + 1;             // row stride of the S tile
-constexpr int kDG = 4;                  // D-groups splitting a chunk
-constexpr int kCPT = 4;                 // columns per thread in a product
 constexpr size_t kMaxSmem = 232448;     // opt-in limit per block on sm_90
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -38,236 +32,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even
-}
-
-// Per row-tile height R (the query rows a block of the D-split forward
-// owns): the D-chunk staged per step
-// (kDC), its padded row stride (kSD), the columns a thread carries at once
-// in the accumulation (kNC), and the blocks per SM the register budget is
-// cut for. 8-row tiles are chosen when the grid is smaller than the SM
-// count, so they run one per SM; 32-row tiles carry 64 accumulator
-// registers a thread and run one per SM too.
-template <int R> struct Tile {
-  static constexpr int kDC = R == 8 ? 64 : 32;
-  static constexpr int kSD = kDC + 4;
-  static constexpr int kNC = R == 8 ? 3 : 2;   // D = 1536 in whole passes
-  static constexpr int kMinBlocks = R == 16 ? 2 : 1;
-};
-
-// Shared-memory floats of the staging areas as [R][kDC + 4] and bs
-// [kT][kDC + 4] for kDC-wide chunks; bs doubles as the S tile [R][kSS] of
-// the forward kernels.
-template <int R, int kDC = Tile<R>::kDC> constexpr size_t stage_floats() {
-  return (size_t)(R + kT) * (kDC + 4);
-}
-
-// s[a][c] = sum_d A[a0 + rg*RPT + a][d] * B[b0 + kg + 16 c][d] over the
-// contraction window d_lo <= d < d_hi, with the per-channel scale sc on the
-// A rows (kScaled == 1) or nowhere (0). A and
-// B have row stride D and sc has D entries; every caller but the D-split
-// forward contracts the whole row, [0, D). Rows at or past na (nb) read as
-// 0, and an empty window gives 0 with no barrier. A warp pair owns RPT =
-// R/4 rows and all kT columns; each thread sums an RPT x 4 micro-tile over
-// its D-group's quarter of every staged chunk, and the four D-groups are
-// summed with shuffles, so every lane ends with the totals.
-// The next chunk is loaded raw into registers while the current one is
-// multiplied: no arithmetic waits on these loads. as [R][kSD] and bs
-// [kT][kSD], kSD = kDC + 4, are the staging areas; the function begins each
-// chunk with a barrier, so two calls may follow each other. Chunks are
-// Tile<R>::kDC wide unless the caller says otherwise.
-template <typename TA, typename TB, int R, int kScaled,
-          int kDC = Tile<R>::kDC>
-__device__ __forceinline__ void tile_dot(const TA* A, int a0, int na,
-                                         const TB* B, int b0, int nb,
-                                         const float* sc, int D, int d_lo,
-                                         int d_hi, float* as, float* bs,
-                                         float (&s)[R / 4][kCPT]) {
-  constexpr int kSD = kDC + 4;
-  constexpr int RPT = R / 4;
-  constexpr int ALD = R * kDC / kThreads;
-  constexpr int BLD = kT * kDC / kThreads;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 3;
-  const int rg = (tid >> 5) >> 1;
-  const int kg = (((tid >> 5) & 1) << 3) | (lane & 7);
-
-  TA araw[ALD];
-  TB braw[BLD];
-  float asc[kScaled == 1 ? ALD : 1];
-  auto load_chunk = [&](int c0) {
-#pragma unroll
-    for (int n = 0; n < ALD; ++n) {
-      const int i = tid + n * kThreads, r = a0 + i / kDC, d = c0 + i % kDC;
-      const bool in = r < na && d < d_hi;
-      araw[n] = in ? A[(size_t)r * D + d] : zero<TA>();
-      if constexpr (kScaled == 1) asc[n] = in ? sc[d] : 0.f;
-    }
-#pragma unroll
-    for (int n = 0; n < BLD; ++n) {
-      const int i = tid + n * kThreads, r = b0 + i / kDC, d = c0 + i % kDC;
-      const bool in = r < nb && d < d_hi;
-      braw[n] = in ? B[(size_t)r * D + d] : zero<TB>();
-    }
-  };
-  load_chunk(d_lo);
-
-#pragma unroll
-  for (int a = 0; a < RPT; ++a)
-#pragma unroll
-    for (int c = 0; c < kCPT; ++c) s[a][c] = 0.f;
-
-  for (int d0 = d_lo; d0 < d_hi; d0 += kDC) {
-    __syncthreads();  // the previous chunk (or call) is done with as and bs
-#pragma unroll
-    for (int n = 0; n < ALD; ++n) {
-      const int i = tid + n * kThreads;
-      float x = to_f(araw[n]);
-      if constexpr (kScaled == 1) x *= asc[n];
-      as[(i / kDC) * kSD + i % kDC] = x;
-    }
-#pragma unroll
-    for (int n = 0; n < BLD; ++n) {
-      const int i = tid + n * kThreads;
-      bs[(i / kDC) * kSD + i % kDC] = to_f(braw[n]);
-    }
-    __syncthreads();
-    if (d0 + kDC < d_hi) load_chunk(d0 + kDC);  // next chunk, while this runs
-#pragma unroll
-    for (int dd = 0; dd < kDC / kDG; dd += 4) {
-      const int d = g * (kDC / kDG) + dd;
-      float4 av[RPT], bv[kCPT];
-#pragma unroll
-      for (int a = 0; a < RPT; ++a)
-        av[a] = *reinterpret_cast<const float4*>(as + (rg * RPT + a) * kSD + d);
-#pragma unroll
-      for (int c = 0; c < kCPT; ++c)
-        bv[c] = *reinterpret_cast<const float4*>(bs + (kg + 16 * c) * kSD + d);
-#pragma unroll
-      for (int a = 0; a < RPT; ++a)
-#pragma unroll
-        for (int c = 0; c < kCPT; ++c) {
-          s[a][c] = fmaf(av[a].x, bv[c].x, s[a][c]);
-          s[a][c] = fmaf(av[a].y, bv[c].y, s[a][c]);
-          s[a][c] = fmaf(av[a].z, bv[c].z, s[a][c]);
-          s[a][c] = fmaf(av[a].w, bv[c].w, s[a][c]);
-        }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < RPT; ++a)
-#pragma unroll
-    for (int c = 0; c < kCPT; ++c) {
-      s[a][c] += __shfl_xor_sync(0xffffffffu, s[a][c], 8);
-      s[a][c] += __shfl_xor_sync(0xffffffffu, s[a][c], 16);
-    }
-}
-
-// Online softmax over one key tile: TPR = 256/TQ consecutive lanes share a
-// row of ss [TQ][kSS]. A gated key (keep = 0) gets logit 0; padded keys
-// (j >= P) get -inf, and a tile always holds at least one real key, so the
-// running max is finite. Writes P transposed to ps [kT][TQ] and the
-// rescaling factor of the row's accumulator to alpha_s [TQ]; m_run and
-// l_run are the row's running max and sum, the same in every lane of the
-// row. Ends with a barrier.
-template <int TQ>
-__device__ __forceinline__ void softmax_tile(const float* ss,
-                                             const float* keep_b, int k0,
-                                             int P, float scale, float& m_run,
-                                             float& l_run, float* ps,
-                                             float* alpha_s) {
-  constexpr int TPR = kThreads / TQ;
-  constexpr int KPS = kT / TPR;               // keys per thread
-  const int r = threadIdx.x / TPR;
-  const int jg = threadIdx.x % TPR;
-  float logit[KPS];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int i = 0; i < KPS; ++i) {
-    const int jj = jg + i * TPR, j = k0 + jj;
-    logit[i] = (j < P) ? ss[r * kSS + jj] * keep_b[j] * scale : -INFINITY;
-    mx = fmaxf(mx, logit[i]);
-  }
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  const float m_new = fmaxf(m_run, mx);
-  const float alpha = expf(m_run - m_new);  // 0 on the first tile
-  float psum = 0.f;
-#pragma unroll
-  for (int i = 0; i < KPS; ++i) {
-    const float p = expf(logit[i] - m_new);
-    ps[(jg + i * TPR) * TQ + r] = p;
-    psum += p;
-  }
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1)
-    psum += __shfl_xor_sync(0xffffffffu, psum, off);
-  l_run = l_run * alpha + psum;
-  m_run = m_new;
-  if (jg == 0) alpha_s[r] = alpha;
-  __syncthreads();
-}
-
-// acc[r][col] = acc[r][col] * alpha[r] + sum_{jj < n} w[jj][r] * src[jj][col]
-// for r < R and col < ncols (alpha is left out when kRescale is false). acc
-// is a shared-memory accumulator of row stride ld; src points at the first
-// streamed row and the first column, with row stride src_ld, in global
-// memory; w is [kT][kWLd] in shared memory (kWLd >= R, a multiple of 4).
-// Each thread owns columns tid + kThreads * c of every row, kNC at a time,
-// so the accumulator is private to its owner and only w and alpha need a
-// barrier before the call. The loop over streamed rows is unrolled kUnroll
-// deep.
-template <int R, int kNC> constexpr int accumulate_unroll() {
-  return R * kNC >= 64 ? 2 : 4;
-}
-
-template <typename TS, int R, int kNC, bool kRescale,
-          int kUnroll = accumulate_unroll<R, kNC>(), int kWLd = R>
-__device__ __forceinline__ void accumulate(float* acc, int ld, int ncols,
-                                           const TS* src, int src_ld, int n,
-                                           const float* w,
-                                           const float* alpha) {
-  const int tid = threadIdx.x;
-  for (int c0 = tid; c0 < ncols; c0 += kNC * kThreads) {
-    float a[kNC][R];
-    bool has[kNC];
-#pragma unroll
-    for (int c = 0; c < kNC; ++c) {
-      const int col = c0 + c * kThreads;
-      has[c] = col < ncols;
-#pragma unroll
-      for (int rr = 0; rr < R; ++rr) {
-        a[c][rr] = has[c] ? acc[rr * ld + col] : 0.f;
-        if constexpr (kRescale) a[c][rr] *= alpha[rr];
-      }
-    }
-    const TS* row = src + c0;
-#pragma unroll (kUnroll)
-    for (int jj = 0; jj < n; ++jj) {
-      float v[kNC];
-#pragma unroll
-      for (int c = 0; c < kNC; ++c)
-        v[c] = has[c] ? to_f(row[(size_t)jj * src_ld + c * kThreads]) : 0.f;
-      const float4* w4 = reinterpret_cast<const float4*>(w + jj * kWLd);
-#pragma unroll
-      for (int r4 = 0; r4 < R / 4; ++r4) {
-        const float4 x = w4[r4];
-#pragma unroll
-        for (int c = 0; c < kNC; ++c) {
-          a[c][4 * r4 + 0] = fmaf(x.x, v[c], a[c][4 * r4 + 0]);
-          a[c][4 * r4 + 1] = fmaf(x.y, v[c], a[c][4 * r4 + 1]);
-          a[c][4 * r4 + 2] = fmaf(x.z, v[c], a[c][4 * r4 + 2]);
-          a[c][4 * r4 + 3] = fmaf(x.w, v[c], a[c][4 * r4 + 3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kNC; ++c)
-#pragma unroll
-      for (int rr = 0; rr < R; ++rr)
-        if (has[c]) acc[rr * ld + c0 + c * kThreads] = a[c][rr];
-  }
 }
 
 // Split TF32 on the tensor cores. mma.sync's TF32 operands are float32
@@ -342,11 +106,15 @@ __device__ __forceinline__ void mma_tile(float (&c)[kN][4],
 // and ca_dk_or_dv_kernel): a block is kWarps warps over kRows owned rows
 // (queries; keys in dK and dV) and a slab of kSlab output columns; warp w
 // owns kGroups 32-column groups of the slab, and contracts Ds = mma_cols(D)
-// columns of D for its partial S.
+// columns of D for its partial S. The kernels whose clusters split D over
+// two blocks (ca_fwd_dsplit_kernel, ca_dkdv_kernel) give each warp
+// kHalfGroups groups, a block kHalfCols columns.
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;                    // the mma's m16
 constexpr int kGroups = 6;                   // 192 columns a warp
 constexpr int kSlab = kWarps * kGroups * 32; // 1536
+constexpr int kHalfGroups = kGroups / 2;     // 96 columns a warp
+constexpr int kHalfCols = kWarps * kHalfGroups * 32;  // 768 a block
 constexpr int kPartLd = kT + 8;              // partial S rows: 72 floats
 constexpr int kPLd = kT + 4;                 // P rows: 68 floats
 

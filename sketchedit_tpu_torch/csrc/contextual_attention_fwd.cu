@@ -82,31 +82,50 @@
 // registers; device memory sees one tensor per image.
 //
 // ca_fwd_dsplit_kernel (attention_pallas.py:156, launched at :234) splits D
-// over a cluster of two blocks: grid (q tiles, 2, B), __cluster_dims__(1, 2,
-// 1), so a query tile's two blocks run on neighbouring SMs and can read each
-// other's shared memory (sm_90). Block `half`, its rank in the cluster, owns
-// columns [half * Dh, min(D, (half + 1) * Dh)), Dh = ceil(D/2) rounded up to
-// 4 (the result does not depend on the cut). For each key tile it contracts
-// only its columns of Q and K into a partial S (tile_dot's window), writes it
-// to a slot in its own shared memory and, after one cluster barrier, reads
-// the peer's slot through distributed shared memory. Both blocks form S =
-// own + peer, which float addition makes bit-identical in the two, so their
-// running max and sum agree and the two halves of the output are normalised
-// alike. Each then streams its half of V into a (TQ, Dh) accumulator, so 32
-// rows take the 96 KB that 16 rows take at full width. Every logit is
-// computed once, as in ca_fwd_kernel; the TPU kernel computes S in both
-// halves, since a TPU core cannot read another program's VMEM. What bounds it
-// is its float32 tile products on the CUDA cores (tile_dot, accumulate),
-// whose staged-chunk loop waits on its loads and barriers more than it
-// multiplies (scripts/dsplit_variants.py's `clocks` reads the cycles of each
-// phase); the exchange moves 8 KB a tile across the cluster at TQ = 32 and
-// costs a few percent of a tile. The partial slots alternate by key tile: a
-// block overwrites one only after the next tile's barrier, which its peer
-// reaches only once it has read that slot, so one cluster barrier per tile
-// suffices. A block with no columns (D <= Dh) still takes part in every
-// barrier with a zero partial, and a last barrier keeps each block resident
-// until its peer has read its final partial. Not yet done here: tensor cores
-// and TMA loads. Only the first half writes lse. Inference only.
+// over a cluster of two blocks: grid (q tiles, 2 x column slabs, B),
+// __cluster_dims__(1, 2, 1), so a query tile's two blocks run on
+// neighbouring SMs and can read each other's shared memory (sm_90). Block
+// `half`, its rank in the cluster, owns columns [half * Dh, min(D, (half +
+// 1) * Dh)) of D, Dh = ceil(D/2) rounded up to 4 (the result does not
+// depend on the cut), for the contraction of S and for the output. It is
+// fwd_mma's block on half of D: 8 warps over 16 query rows (the mma's m16,
+// a full tile: at 256^2, B = 1, 61 clusters are 122 blocks on 132 SMs,
+// where the default forward needs 8-row blocks) or, where 32-row clusters
+// give every SM a block, 32 rows as two m16 tiles that share each K and V
+// fragment; both products split TF32 through mma_tile, kscale on the
+// staged query rows (50 KB of float32 a 16-row tile at D = 1536, where the
+// default forward stages 98 KB), so raw bfloat16 keys enter whole. Per key
+// tile of kT = 64:
+//   S   each warp contracts its own 1/8 of the block's columns (96 at D =
+//       1536), staging its K rows with cp.async, into a partial S per m16
+//       tile (16 x 64);
+//   sum the block sums its eight partials in warp order and puts the sum in
+//       one of two slots, alternating by key tile; after one cluster
+//       barrier it reads the peer's sum through distributed shared memory
+//       and forms S = own + peer, which float addition makes bit-identical
+//       in the two blocks, so their running max and sum agree and the two
+//       halves of the output are normalised alike; the online softmax
+//       writes P and alpha to shared memory;
+//   P V after a block barrier each warp rescales its fragments and adds P V
+//       for its 96 output columns (12 m16n8 fragments per m16 tile in
+//       registers, 48 floats a thread), staging V rows with cp.async, a
+//       fresh accumulator per k8 step added with a round-to-nearest FADD
+//       (fwd_mma's rule).
+// Every logit is computed once (the TPU kernel computes S in both halves,
+// since a TPU core cannot read another program's VMEM). A block overwrites
+// a slot only after the next tile's barrier, which its peer reaches only
+// once it has read that slot, so one cluster barrier per tile suffices. A
+// block with no columns (D <= Dh) still takes part in every barrier with a
+// zero partial, and a last barrier keeps each block resident until its
+// peer has read its final sum. Only the first half writes lse. A half wider
+// than 768 columns takes more column slabs (clusters along y), each
+// recomputing S; the Q tile over half of D bounds D at 3584 (both input
+// types; 32-row tiles fit to D = 1536). What holds it back is fwd_mma's
+// limit, each warp's chain of fragment loads, splits, mma passes and FADDs:
+// partial S and P V take 44% of a key tile each, the exchange 6%, at 0.21
+// mma a cycle per SM with 16 rows; sharing the K and V fragments over two
+// m16 tiles lifts that to 0.28 (scripts/dsplit_variants.py clocks).
+// Inference only.
 
 #include <cooperative_groups.h>
 
@@ -114,80 +133,26 @@
 
 namespace {
 
-// Shared-memory bytes of a CUDA-core forward block (the D-split's): an
-// accumulator of acc_cols columns, the staging areas for kDC-wide chunks, P transposed, alpha and l
-// per row.
-template <int TQ, int kDC = Tile<TQ>::kDC>
-size_t smem_bytes(int acc_cols) {
-  return sizeof(float) * ((size_t)TQ * acc_cols + stage_floats<TQ, kDC>() +
-                          kT * TQ + 2 * TQ);
-}
-
-// Shared-memory layout of a CUDA-core forward block and the per-thread
-// softmax state.
-template <int TQ, int kDC = Tile<TQ>::kDC> struct FwdBlock {
-  float* acc;      // [TQ][acc_cols]
-  float* as;       // [TQ][kSD]
-  float* bs;       // [kT][kSD]; S tile [TQ][kSS]
-  float* ps;       // [kT][TQ]  (P transposed)
-  float* alpha_s;  // [TQ]
-  float* l_s;      // [TQ]
-  float m_run = -INFINITY;
-  float l_run = 0.f;
-
-  __device__ FwdBlock(float* smem, int acc_cols) {
-    acc = smem;
-    as = acc + (size_t)TQ * acc_cols;
-    bs = as + TQ * (kDC + 4);
-    ps = bs + kT * (kDC + 4);
-    alpha_s = ps + kT * TQ;
-    l_s = alpha_s + TQ;
-    for (int i = threadIdx.x; i < TQ * acc_cols; i += kThreads) acc[i] = 0.f;
-  }
-
-  // O rows = acc / l for the block's query rows, columns [c_lo, c_lo + ncols)
-  // of a D-wide output; lse where the pointer is given. Each thread writes
-  // the columns it accumulated.
-  template <typename TO>
-  __device__ void finish(TO* O, float* lse, int b, int q0, int N, int D,
-                         int acc_cols, int c_lo, int ncols) {
-    constexpr int TPR = kThreads / TQ;
-    const int r = threadIdx.x / TPR;
-    if (threadIdx.x % TPR == 0) {
-      l_s[r] = l_run;
-      if (lse != nullptr && q0 + r < N)
-        lse[(size_t)b * N + q0 + r] = m_run + logf(l_run);
-    }
-    __syncthreads();
-    for (int rr = 0; rr < TQ; ++rr) {
-      const int q = q0 + rr;
-      if (q >= N) break;
-      const float inv_l = 1.f / l_s[rr];
-      TO* orow = O + ((size_t)b * N + q) * D + c_lo;
-      for (int c = threadIdx.x; c < ncols; c += kThreads)
-        store(orow + c, acc[rr * acc_cols + c] * inv_l);
-    }
-  }
-};
-
 constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
 
 // A warp's staging area, in elements of T: kKStages K steps of [kT keys][16
-// columns], or kVStages V steps of [8 keys][kVLd] (192 columns and a pad of
-// 32 bytes, so the four key rows a fragment load spans start 8 banks apart),
-// or, between the two, the warp's partial S [kRows][kPartLd] floats. The
-// copies a warp has in flight are what hides the latency of L2, so a
-// bfloat16 area, half the bytes a step, takes twice the steps; float32 takes
-// what fits beside the Q tile at D = 1536 (206 KB of 227).
-template <typename T> struct Stage {
+// columns], or kVStages V steps of [8 keys][kVLd] (the warp's kG 32-column
+// groups and a pad of 32 bytes, so the four key rows a fragment load spans
+// start 8 banks apart), or, between the two, the warp's partial S [kMT *
+// kRows][kPartLd] floats for its kMT m16 tiles. The copies a warp has in
+// flight are what hides the latency of L2, so a bfloat16 area, half the
+// bytes a step, takes twice the steps; float32 takes what fits beside the
+// Q tile at D = 1536 (206 KB of 227). The D-split's warps (kHalfGroups,
+// one or two m16 tiles) take the same steps.
+template <typename T, int kG = kGroups, int kMT = 1> struct Stage {
   static constexpr int kKStages = sizeof(T) == 4 ? 3 : 6;  // K steps
   static constexpr int kVStages = sizeof(T) == 4 ? 2 : 4;  // V steps
   static constexpr int kK = kT * 16;
-  static constexpr int kVLd = kGroups * 32 + 32 / (int)sizeof(T);
+  static constexpr int kVLd = kG * 32 + 32 / (int)sizeof(T);
   static constexpr int kV = 8 * kVLd;
   static constexpr size_t kBytes = cmax(
       cmax(kKStages * kK * sizeof(T), kVStages * kV * sizeof(T)),
-      kRows * kPartLd * sizeof(float));
+      (size_t)kMT * kRows * kPartLd * sizeof(float));
 };
 
 // Shared-memory bytes of a split-TF32 block: the Q tile, the warps' staging
@@ -510,102 +475,360 @@ ca_fwd_shared_kernel(const T* V, const float* keep, const float* kscale,
                           N, N, D, scale);
 }
 
-// Columns a D-split thread carries at once: a half of D = 1536 is 768 = 3
-// columns a thread, one pass.
-constexpr int kSplitNC = 3;
-
-// The D-split's 32-row tile stages 128-wide D-chunks where Tile<32> has 32,
-// and unrolls its accumulation 8 streamed rows deep where the rule gives 2:
-// a quarter of the chunk steps per key tile (each costs two barriers and
-// waits out what the previous step's arithmetic did not cover of the next
-// chunk's loads) and four times the loads of V in flight. A 32-row block
-// takes one SM alone, so no other block hides those latencies. scripts/
-// dsplit_variants.py times each choice against the others.
-template <int TQ> struct SplitTile {
-  static constexpr int kDC = TQ == 32 ? 128 : Tile<TQ>::kDC;
-  static constexpr int kUnroll =
-      TQ == 32 ? 8 : accumulate_unroll<TQ, kSplitNC>();
-};
-
-// A D-split block's shared memory: a forward block with a (TQ, Dh)
-// accumulator, then two partial-S slots [2][TQ][kT].
-template <int TQ>
-size_t dsplit_smem_bytes(int Dh) {
-  return smem_bytes<TQ, SplitTile<TQ>::kDC>(Dh) +
-         sizeof(float) * 2 * TQ * kT;
+// Shared-memory bytes of a D-split block of kMT m16 row tiles: the Q tile
+// over half of D, the warps' staging areas, P, the two exchange slots
+// [2][rows][kT], alpha and l per row.
+template <typename T, int kMT> size_t dsplit_smem_bytes(int D) {
+  return sizeof(float) * (size_t)kMT * kRows *
+             (mma_q_ld(half_cut(D)) + kPLd + 2 * kT + 2) +
+         kWarps * Stage<T, kHalfGroups, kMT>::kBytes;
 }
 
-// One cluster of two blocks: TQ query rows of one image, all keys. The
-// block of rank `half` contracts columns [c_lo, c_hi) of D for the partial
-// S, swaps partials with its peer, and accumulates those columns of P V.
-template <typename T, typename TO, int TQ>
-__global__ void __cluster_dims__(1, 2, 1)
-__launch_bounds__(kThreads, Tile<TQ>::kMinBlocks)
+// One cluster of two blocks: rows [q0, q0 + 16 kMT) of image b, all keys.
+// The block of rank `half` contracts columns [c_lo, c_hi) of D for its
+// partial S, sums it with its peer's through distributed shared memory,
+// and accumulates P V over output columns [c_lo + s kHalfCols, +
+// kHalfCols) of its half, s = blockIdx.y / 2 the column slab. kMT m16 row
+// tiles share each K and V fragment. kVec: D is a multiple of 4 and every
+// pointer is 16-byte aligned.
+template <typename T, typename TO, int kMT, bool kVec>
+__global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(kThreads, 1)
 ca_fwd_dsplit_kernel(const T* Q, const T* K, const T* V, const float* keep,
                      const float* kscale, TO* O, float* lse, int N, int P,
-                     int D, int Dh, float scale) {
-  constexpr int RPT = TQ / 4;
-  constexpr int kPart = TQ * kT;         // floats of one partial-S slot
+                     int D, float scale) {
+  constexpr bool kF32 = sizeof(T) == sizeof(float);  // K and V are split
+  constexpr int kR = kMT * kRows;                    // the block's rows
+  constexpr int kChunks = kHalfGroups * 8;   // four-element chunks of a row
+  static_assert(kChunks <= 32, "a row's chunks a copy");
+  using St = Stage<T, kHalfGroups, kMT>;
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
-  const int half = blockIdx.y;           // == cluster.block_rank()
-  const int c_lo = half * Dh;
-  const int c_hi = min(D, c_lo + Dh);    // empty when D <= Dh (half 1)
   extern __shared__ __align__(16) float smem[];
-  FwdBlock<TQ, SplitTile<TQ>::kDC> blk(smem, Dh);
-  float* part = blk.l_s + TQ;            // [2][TQ][kT], by key-tile parity
-  const float* peer = cluster.map_shared_rank(part, half ^ 1);
+  const int half = blockIdx.y & 1;               // == cluster.block_rank()
+  const int Dh = half_cut(D);
+  const int c_lo = half * Dh;
+  const int c_hi = min(D, c_lo + Dh);            // empty when D <= Dh (half 1)
+  const int Ds = mma_cols(Dh), ldq = mma_q_ld(Dh), qcols = kWarps * Ds;
+  float* qs = smem;                              // [kR][ldq]
+  char* stages = reinterpret_cast<char*>(qs + kR * ldq);
+  float* ps = reinterpret_cast<float*>(stages + kWarps * St::kBytes);
+  float* xs = ps + kR * kPLd;                    // [2][kR][kT], by tile parity
+  float* alpha_s = xs + 2 * kR * kT;             // [kR]
+  float* l_s = alpha_s + kR;                     // [kR]
+  const float* peer_xs = cluster.map_shared_rank(xs, half ^ 1);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z;
-  const int q0 = blockIdx.x * TQ;
+  const int q0 = blockIdx.x * kR;
   const T* Qb = Q + (size_t)b * N * D;
   const T* Kb = K + (size_t)b * P * D;
   const T* Vb = V + (size_t)b * P * D;
   const float* keep_b = keep + (size_t)b * P;
-  const float* kscale_b = kscale + (size_t)b * D;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int rg = (tid >> 5) >> 1;
-  const int kg = (((tid >> 5) & 1) << 3) | (lane & 7);
+  const float* ks_b = kscale + (size_t)b * D;
+  char* mine = stages + w * St::kBytes;          // this warp's staging area
+  T* kst = reinterpret_cast<T*>(mine);           // [kKStages][kT][16]
+  T* vst = reinterpret_cast<T*>(mine);           // [kVStages][8][kVLd]
+  float* part = reinterpret_cast<float*>(mine);  // [kR][kPartLd]
 
-  for (int k0 = 0, t = 0; k0 < P; k0 += kT, t ^= 1) {
-    float s[RPT][kCPT];
-    tile_dot<T, T, TQ, 1, SplitTile<TQ>::kDC>(Qb, q0, N, Kb, k0, P, kscale_b,
-                                              D, c_lo, c_hi, blk.as, blk.bs,
-                                              s);
-    float* mine = part + t * kPart;
-    if ((lane >> 3) == 0) {
-#pragma unroll
-      for (int a = 0; a < RPT; ++a)
-#pragma unroll
-        for (int c = 0; c < kCPT; ++c)
-          mine[(rg * RPT + a) * kT + kg + 16 * c] = s[a][c];
-    }
-    // both partials of this tile are written, and this block is done
-    // reading bs: S = own + peer goes there, the same bits in both blocks
-    // since float addition commutes
-    cluster.sync();
-    const float4* own4 = reinterpret_cast<const float4*>(mine);
-    const float4* peer4 = reinterpret_cast<const float4*>(peer + t * kPart);
-    for (int i = tid; i < kPart / 4; i += kThreads) {
-      const float4 x = own4[i], y = peer4[i];
-      float* srow = blk.bs + (i / (kT / 4)) * kSS + 4 * (i % (kT / 4));
-      srow[0] = x.x + y.x;
-      srow[1] = x.y + y.y;
-      srow[2] = x.z + y.z;
-      srow[3] = x.w + y.w;
-    }
-    __syncthreads();
-    softmax_tile<TQ>(blk.bs, keep_b, k0, P, scale, blk.m_run, blk.l_run,
-                     blk.ps, blk.alpha_s);
-    if (c_hi > c_lo)
-      accumulate<T, TQ, kSplitNC, true, SplitTile<TQ>::kUnroll>(
-          blk.acc, Dh, c_hi - c_lo, Vb + (size_t)k0 * D + c_lo, D,
-          min(kT, P - k0), blk.ps, blk.alpha_s);
+  // the Q tile over this block's columns, times kscale in float32; rows
+  // past N and columns past the half are 0
+  for (int i = tid; i < kR * qcols; i += kThreads) {
+    const int r = i / qcols, d = i % qcols;
+    float x = 0.f;
+    if (q0 + r < N && c_lo + d < c_hi)
+      x = to_f(Qb[(size_t)(q0 + r) * D + c_lo + d]) * ks_b[c_lo + d];
+    qs[r * ldq + d] = x;
   }
-  cluster.sync();  // the peer has read this block's last partial
-  if (c_hi > c_lo)
-    blk.finish(O, half == 0 ? lse : nullptr, b, q0, N, D, Dh, c_lo,
-               c_hi - c_lo);
+  __syncthreads();
+
+  float acc[kMT][kHalfGroups][4][4];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int c = 0; c < kHalfGroups; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][c][j][e] = 0.f;
+  // softmax rows: warp w owns rows 2w and 2w + 1 of each m16 tile, 16
+  // lanes a row, 4 keys a lane; m_run and l_run are the rows' running max
+  // and sum
+  const int srow = 2 * w + (lane >> 4), skey = 4 * (lane & 15);
+  float m_run[kMT], l_run[kMT];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m) {
+    m_run[m] = -INFINITY;
+    l_run[m] = 0.f;
+  }
+  const int d_lo = c_lo + w * Ds, d_hi = min(c_hi, d_lo + Ds);
+  const int nstep = d_hi > d_lo ? (d_hi - d_lo + 15) / 16 : 0;
+  const int cw = c_lo + (blockIdx.y >> 1) * kHalfCols +
+                 w * (kHalfGroups * 32);         // the warp's output columns
+
+  for (int k0 = 0, par = 0; k0 < P; k0 += kT, par ^= 1) {
+    // 1. this warp's partial S over columns [d_lo, d_hi), 16 at a time:
+    // step i stages K rows k0 .. k0 + 63, columns d_lo + 16i .. + 15,
+    // kKStages - 1 steps ahead (fwd_mma's order: lane (g, t) reads columns
+    // 4t .. 4t + 3, k = t and t + 4 of k8 step h are 4t + 2h and + 1)
+    auto stage_k = [&](int i) {
+      if (i < nstep) {
+        T* dst = kst + (i % St::kKStages) * St::kK;
+        const int d0 = d_lo + 16 * i;
+        const T* krow = Kb + (size_t)(k0 + (lane >> 2)) * D;
+#pragma unroll (kVec ? kT * 4 / 32 : 1)
+        for (int n = 0; n < kT * 4 / 32; ++n) {
+          const int r = (lane >> 2) + 8 * n, q = (lane & 3) * 4;
+          copy4<kVec>(dst + r * 16 + q, krow + (size_t)(8 * n) * D,
+                      k0 + r < P, d0 + q, c_hi);
+        }
+      }
+      cp_commit();
+    };
+    float s[kMT][8][4];
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[m][j][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < St::kKStages - 1; ++i) stage_k(i);
+#pragma unroll 1
+    for (int i = 0; i < nstep; ++i) {
+      stage_k(i + St::kKStages - 1);
+      cp_wait<St::kKStages - 1>();
+      __syncwarp();                    // step i is staged, by every lane
+      const T* kb = kst + (i % St::kKStages) * St::kK;
+      const int d = w * Ds + 16 * i + 4 * t;     // column of the Q tile
+      uint32_t ah[kMT][2][4], al[kMT][2][4];
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        const float4 qa = lds4(qs + (16 * m + g) * ldq + d);
+        const float4 qb = lds4(qs + (16 * m + g + 8) * ldq + d);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          to_tf32<true>(elem(qa, 2 * h), ah[m][h][0], al[m][h][0]);
+          to_tf32<true>(elem(qb, 2 * h), ah[m][h][1], al[m][h][1]);
+          to_tf32<true>(elem(qa, 2 * h + 1), ah[m][h][2], al[m][h][2]);
+          to_tf32<true>(elem(qb, 2 * h + 1), ah[m][h][3], al[m][h][3]);
+        }
+      }
+      // two n8 tiles at a time, both k8 steps: four independent mma tiles
+      // for each m16 tile
+#pragma unroll
+      for (int jp = 0; jp < 8; jp += 2) {
+        fence();
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float4 kf = lds4(kb + (8 * (jp + jj) + g) * 16 + 4 * t);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            to_tf32<kF32>(elem(kf, 2 * h), bh[2 * jj + h][0],
+                          bl[2 * jj + h][0]);
+            to_tf32<kF32>(elem(kf, 2 * h + 1), bh[2 * jj + h][1],
+                          bl[2 * jj + h][1]);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < kMT; ++m) {
+          float x[4][4];
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+          mma_tile<true, kF32, 4, 2>(x, ah[m], al[m], bh, bl);  // 2jj + h
+#pragma unroll
+          for (int n = 0; n < 4; ++n) add_into(s[m][jp + n / 2], x[n]);
+        }
+      }
+      __syncwarp();                    // every lane is done with step i
+    }
+    cp_wait<0>();
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* pj = part + (16 * m + g) * kPartLd + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(pj) = make_float2(s[m][j][0], s[m][j][1]);
+        *reinterpret_cast<float2*>(pj + 8 * kPartLd) =
+            make_float2(s[m][j][2], s[m][j][3]);
+      }
+    __syncthreads();  // every warp's partial is written
+
+    // 2. this block's S: the eight partials, summed in warp order, put in
+    // the slot of this tile's parity, where the peer reads it
+    float4 own[kMT];
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) {
+      const int row = 16 * m + srow;
+      float4 x = lds4(reinterpret_cast<const float*>(stages) +
+                      row * kPartLd + skey);
+#pragma unroll
+      for (int u = 1; u < kWarps; ++u) {
+        const float4 y = lds4(
+            reinterpret_cast<const float*>(stages + u * St::kBytes) +
+            row * kPartLd + skey);
+        x.x += y.x; x.y += y.y; x.z += y.z; x.w += y.w;
+      }
+      own[m] = x;
+      *reinterpret_cast<float4*>(xs + (par * kR + row) * kT + skey) = x;
+    }
+    cluster.sync();  // both blocks' sums are written; every partial is read
+
+    // 3. S = own + peer, the same bits in both blocks; the online softmax.
+    // A gated key gets logit 0, a padded key (j >= P) -inf; a tile holds at
+    // least one real key, so the running max is finite.
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) {
+      const int row = 16 * m + srow;
+      const float4 y = lds4(peer_xs + (par * kR + row) * kT + skey);
+      float logit[4], mx = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = k0 + skey + e;
+        logit[e] = j < P ? (elem(own[m], e) + elem(y, e)) * keep_b[j] * scale
+                         : -INFINITY;
+        mx = fmaxf(mx, logit[e]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[m], mx);
+      const float alpha = expf(m_run[m] - m_new);  // 0 on the first tile
+      float p[4], psum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(logit[e] - m_new);
+        psum += p[e];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l_run[m] = l_run[m] * alpha + psum;
+      m_run[m] = m_new;
+      *reinterpret_cast<float4*>(ps + row * kPLd + skey) =
+          make_float4(p[0], p[1], p[2], p[3]);
+      if ((lane & 15) == 0) alpha_s[row] = alpha;
+    }
+    __syncthreads();  // P and alpha are written
+
+    // 4. acc = acc * alpha + P V over this warp's columns, 8 keys a step:
+    // step i stages V rows k0 + 8i .. + 7 at the warp's 96 columns,
+    // kVStages - 1 steps ahead. Group c's rows t and t + 4 at columns 32c +
+    // 4g .. + 3 give the B fragments of its four n8 tiles (tile e's column
+    // n is 32c + 4n + e).
+    if (cw < c_hi) {
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        const float alo = alpha_s[16 * m + g], ahi = alpha_s[16 * m + g + 8];
+#pragma unroll
+        for (int c = 0; c < kHalfGroups; ++c)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[m][c][j][0] *= alo; acc[m][c][j][1] *= alo;
+            acc[m][c][j][2] *= ahi; acc[m][c][j][3] *= ahi;
+          }
+      }
+      const int nstep_v = (min(kT, P - k0) + 7) / 8;
+      auto stage_v = [&](int i) {
+        if (i < nstep_v) {
+          T* dst = vst + (i % St::kVStages) * St::kV;
+          const T* vrow = Vb + (size_t)(k0 + 8 * i) * D;
+          const int q = 4 * lane;
+          // a row a copy, lanes past its 24 chunks idle
+#pragma unroll (kVec ? 8 : 1)
+          for (int r = 0; r < 8 && lane < kChunks; ++r)
+            copy4<kVec>(dst + r * St::kVLd + q, vrow + (size_t)r * D,
+                        k0 + 8 * i + r < P, cw + q, c_hi);
+        }
+        cp_commit();
+      };
+#pragma unroll
+      for (int i = 0; i < St::kVStages - 1; ++i) stage_v(i);
+#pragma unroll 1
+      for (int i = 0; i < nstep_v; ++i) {
+        stage_v(i + St::kVStages - 1);
+        cp_wait<St::kVStages - 1>();
+        __syncwarp();                  // step i is staged, by every lane
+        uint32_t ah[kMT][1][4], al[kMT][1][4];
+        // A fragments {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}
+#pragma unroll
+        for (int m = 0; m < kMT; ++m)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            to_tf32<true>(ps[(16 * m + g + 8 * (r & 1)) * kPLd + 8 * i + t +
+                             4 * (r >> 1)],
+                          ah[m][0][r], al[m][0][r]);
+        const T* vb = vst + (i % St::kVStages) * St::kV;
+        // one 32-column group at a time: its four n8 tiles
+#pragma unroll
+        for (int c = 0; c < kHalfGroups; ++c) {
+          fence();
+          const float4 va = lds4(vb + t * St::kVLd + 32 * c + 4 * g);
+          const float4 vc = lds4(vb + (t + 4) * St::kVLd + 32 * c + 4 * g);
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            to_tf32<kF32>(elem(va, e), bh[e][0], bl[e][0]);
+            to_tf32<kF32>(elem(vc, e), bh[e][1], bl[e][1]);
+          }
+#pragma unroll
+          for (int m = 0; m < kMT; ++m) {
+            float x[4][4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) x[e][k] = 0.f;
+            mma_tile<true, kF32, 4, 1>(x, ah[m], al[m], bh, bl);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) add_into(acc[m][c][e], x[e]);
+          }
+        }
+        __syncwarp();                  // every lane is done with step i
+      }
+      cp_wait<0>();
+    }
+  }
+
+  // l per row; lse from the first half of the first slab
+#pragma unroll
+  for (int m = 0; m < kMT; ++m) {
+    const int row = 16 * m + srow;
+    if ((lane & 15) == 0) {
+      l_s[row] = l_run[m];
+      if (lse != nullptr && blockIdx.y == 0 && q0 + row < N)
+        lse[(size_t)b * N + q0 + row] = m_run[m] + logf(l_run[m]);
+    }
+  }
+  // the peer has read this block's last sum; l is written
+  cluster.sync();
+  // O = acc / l over the warp's columns of this half
+  TO* Ob = O + (size_t)b * N * D;
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * m + g + 8 * hh;
+      if (q0 + r >= N) continue;
+      const float inv_l = 1.f / l_s[r];
+      TO* orow = Ob + (size_t)(q0 + r) * D;
+#pragma unroll
+      for (int c = 0; c < kHalfGroups; ++c) {
+        const int col = cw + 32 * c + 8 * t;  // tile e, n = 2t (+1): col + e (+4)
+        store4<kVec>(orow, col, c_hi,
+                     make_float4(acc[m][c][0][2 * hh] * inv_l,
+                                 acc[m][c][1][2 * hh] * inv_l,
+                                 acc[m][c][2][2 * hh] * inv_l,
+                                 acc[m][c][3][2 * hh] * inv_l));
+        store4<kVec>(orow, col + 4, c_hi,
+                     make_float4(acc[m][c][0][2 * hh + 1] * inv_l,
+                                 acc[m][c][1][2 * hh + 1] * inv_l,
+                                 acc[m][c][2][2 * hh + 1] * inv_l,
+                                 acc[m][c][3][2 * hh + 1] * inv_l));
+      }
+    }
 }
 
 struct Args {
@@ -644,32 +867,36 @@ int launch_mma(int variant, const Args& a, int rows) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TO, int TQ>
+// The D-split kernel with 16 kMT query rows a cluster; with a.plan, the
+// launch plan instead.
+template <typename T, typename TO, int kMT, bool kVec>
 int launch_dsplit(const Args& a) {
-  const int Dh = half_cut(a.D);
-  const size_t smem = dsplit_smem_bytes<TQ>(Dh);
-  const auto kernel = ca_fwd_dsplit_kernel<T, TO, TQ>;
+  constexpr int rows = kMT * kRows;
+  const size_t smem = dsplit_smem_bytes<T, kMT>(a.D);
+  const auto kernel = ca_fwd_dsplit_kernel<T, TO, kMT, kVec>;
   if (int err = opt_in_smem(kernel, smem)) return err;
-  const dim3 grid((a.N + TQ - 1) / TQ, 2, a.B);
-  if (a.plan != nullptr) return cluster_plan(kernel, grid, smem, TQ, a.plan);
-  ca_fwd_dsplit_kernel<T, TO, TQ><<<grid, kThreads, smem, a.stream>>>(
+  const int slabs = (half_cut(a.D) + kHalfCols - 1) / kHalfCols;
+  const dim3 grid((a.N + rows - 1) / rows, 2 * slabs, a.B);
+  if (a.plan != nullptr) return cluster_plan(kernel, grid, smem, rows, a.plan);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.keep, a.kscale, static_cast<TO*>(a.o),
-      a.lse, a.N, a.P, a.D, Dh, a.scale);
+      a.lse, a.N, a.P, a.D, a.scale);
   return (int)cudaGetLastError();
 }
 
 // variant: 0 the default kernel, 1 shared (q and k are ignored), 2 D-split.
-// The split-TF32 kernels take 16-row tiles, or 8-row tiles when 16-row ones
-// would leave SMs idle (at 256^2, B = 1: 61 blocks of 16 rows against 121 of
-// 8 on 132 SMs); their 16-byte loads need D a multiple of 4 and aligned
-// pointers, else a build of the same body loads element by element. The
-// D-split kernel, whose blocks come in clusters of two, takes 32 rows where
-// they give every SM a block, then 16 where they do. Below that its 8-row
-// blocks run one per SM (their registers), so 8 rows pay only while all
-// their clusters fit on the card at once; otherwise 16 rows, whose clusters
-// do (at 256^2, B = 1: 61 clusters of 16 rows in one wave, not 121 of 8
-// rows in two).
+// The default and shared kernels take 16-row tiles, or 8-row tiles when
+// 16-row ones would leave SMs idle (at 256^2, B = 1: 61 blocks of 16 rows
+// against 121 of 8 on 132 SMs). The D-split kernel takes 32-row clusters
+// (two m16 tiles a block, sharing each K and V fragment) where they give
+// every SM a block and fit (D <= 1536), else 16-row ones: half of D per
+// block gives twice the blocks, so a full m16 tile fills the card where the
+// default kernel needs 8 rows (at 256^2, B = 1: 61 clusters of 16 rows are
+// 122 blocks; 8 rows, two waves, take 1.8x as long, and 32-row tiles save
+// 12-25% from 256^2, B = 8 on: scripts/dsplit_variants.py). The 16-byte
+// loads of every kernel need D a multiple of 4 and aligned pointers, else a
+// build of the same body loads element by element.
 template <typename T, typename TO>
 int launch(int variant, const Args& a) {
   if (a.B <= 0 || a.N <= 0 || a.P <= 0 || a.D <= 0 || a.B > 65535)
@@ -677,21 +904,23 @@ int launch(int variant, const Args& a) {
   const auto blocks = [&](int tq) {
     return (long long)a.B * ((a.N + tq - 1) / tq);
   };
-  if (variant == 2) {
-    if (2 * blocks(32) >= sm_count()) return launch_dsplit<T, TO, 32>(a);
-    if (2 * blocks(16) >= sm_count() || 2 * blocks(8) > sm_count())
-      return launch_dsplit<T, TO, 16>(a);
-    return launch_dsplit<T, TO, 8>(a);
-  }
-  if (variant != 0 && variant != 1) return (int)cudaErrorInvalidValue;
-  const int rows = blocks(kRows) < sm_count() ? 8 : kRows;
   const auto aligned = [](const void* p) {
     return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  if (a.D % 4 == 0 && aligned(a.q) && aligned(a.k) && aligned(a.v) &&
-      aligned(a.o) && aligned(a.kscale))
-    return launch_mma<T, TO, true>(variant, a, rows);
-  return launch_mma<T, TO, false>(variant, a, rows);
+  const bool vec = a.D % 4 == 0 && aligned(a.q) && aligned(a.k) &&
+                   aligned(a.v) && aligned(a.o) && aligned(a.kscale);
+  if (variant == 2) {
+    if (2 * blocks(2 * kRows) >= sm_count() &&
+        dsplit_smem_bytes<T, 2>(a.D) <= kMaxSmem)
+      return vec ? launch_dsplit<T, TO, 2, true>(a)
+                 : launch_dsplit<T, TO, 2, false>(a);
+    return vec ? launch_dsplit<T, TO, 1, true>(a)
+               : launch_dsplit<T, TO, 1, false>(a);
+  }
+  if (variant != 0 && variant != 1) return (int)cudaErrorInvalidValue;
+  const int rows = blocks(kRows) < sm_count() ? 8 : kRows;
+  return vec ? launch_mma<T, TO, true>(variant, a, rows)
+             : launch_mma<T, TO, false>(variant, a, rows);
 }
 
 int launch_typed(int variant, int dtype, int out_dtype, const Args& a) {

@@ -9,10 +9,11 @@ hand-written kernel ``csrc/contextual_attention_fwd.cu``, which replaces
 from one to the other. The same file holds two more forwards of the same
 function: ``attention_core_shared`` (``_attn_shared_kernel``: queries, keys
 and values are one tensor, one pointer) and ``attention_core_dsplit``
-(``_attn_kernel_dsplit``: a query tile is a cluster of two blocks, each
-owning one half of D, which share their partial S tiles through
-distributed shared memory; inference only; ``dsplit_plan`` says how it
-runs a shape). The flash-style backward comes in the same two forms:
+(``_attn_kernel_dsplit``: a 16-row query tile is a cluster of two blocks,
+each owning one half of D, which share their partial S tiles through
+distributed shared memory, both products in split TF32 on the tensor
+cores; inference only; ``dsplit_plan`` says how it runs a shape). The
+flash-style backward comes in the same two forms:
 ``attention_core_dq`` and ``attention_core_dkdv`` launch the kernels of
 ``csrc/contextual_attention_bwd.cu`` (replacing ``_dq_kernel`` and
 ``_dkdv_kernel``; the dQ kernel runs its three products on the tensor cores
@@ -36,10 +37,11 @@ where foreground and background are one tensor) and
 ``contextual_attention_fused``; ``SKETCHEDIT_SPLIT_DKDV=1`` (dV and dK
 kernels in place of the fused one) in ``attention_core_bwd``.
 
-The default and shared forwards run both products on the tensor cores in
-split TF32 (float32-accurate: three mma passes for float32 operands, two
-where one operand holds bfloat16 data), with a query tile's (16, D) float32
-accumulator spread over its eight warps' registers; K and V tiles stream
+The three forwards run both products on the tensor cores in split TF32
+(float32-accurate: three mma passes for float32 operands, two where one
+operand holds bfloat16 data), with a query tile's (16, D) float32
+accumulator spread over its eight warps' registers (over the two blocks'
+in the D-split); K and V tiles stream
 through it with an online softmax, so the (B, N, P) similarity never
 reaches device memory (``fwd_plan`` says how they run a shape). At 256^2
 the work is arithmetic-bound (5.67 GFLOP against 11.8 MB); the source file
@@ -286,13 +288,13 @@ def attention_core_dsplit_reference(Q, K, V, keep, softmax_scale: float = 10.0,
 def attention_core_dsplit(Q, K, V, keep, softmax_scale: float = 10.0,
                           return_lse: bool = False, out_dtype=None,
                           kscale=None):
-    """``attention_core`` through the D-split kernel (a query tile is a
-    cluster of two blocks, each owning one half of D: each contracts its
-    half for a partial S, the two sum their partials through distributed
-    shared memory, and each accumulates its half of the output; for large
-    canvases; needs sm_90). No backward: it raises where autograd would
-    need one. A CUDA tensor launches the kernel; a CPU tensor takes the
-    plain version."""
+    """``attention_core`` through the D-split kernel (a 16-row query tile
+    is a cluster of two blocks, each owning one half of D: each contracts
+    its half for a partial S, the two sum their partials through
+    distributed shared memory, and each accumulates its half of the output,
+    both products in split TF32 on the tensor cores; D up to 3584; needs
+    sm_90). No backward: it raises where autograd would need one. A CUDA
+    tensor launches the kernel; a CPU tensor takes the plain version."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (Q, K, V, kscale)):
         raise RuntimeError(

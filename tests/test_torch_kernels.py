@@ -161,19 +161,22 @@ def test_kernel_kscale_float32_out(cuda, dtype):
 @pytest.mark.parametrize("shape,keep_p", [
     ((2, 130, 150, 70), 0.7),         # ragged; the cut at 36 of 70 columns
     ((1, 17, 65, 33), 0.5),
-    ((1, 40, 64, 1536), 0.0),         # all gated, 8-row tiles
-    ((3, 300, 200, 600), 0.9),        # 16-row tiles
+    ((1, 40, 64, 1536), 0.0),         # all gated, rows past N in a tile
+    ((3, 300, 200, 600), 0.9),        # halves of 300 columns: warps idle
     ((9, 500, 200, 1536), 0.9),       # 32-row tiles at the model's D
+    ((8, 300, 150, 1534), 0.8),       # 32-row tiles, ragged, loads by element
     ((1, 9, 9, 3), 0.9),              # D below the cut: one half is empty
+    ((2, 50, 70, 1537), 0.8),         # halves past 768 columns: two slabs
+    ((9, 500, 100, 1540), 0.8),       # too wide for 32 rows: 16, two slabs
 ])
 def test_dsplit_kernel_matches_plain_and_default(cuda, dtype, shape, keep_p):
     Q, K, V, keep = _inputs(sum(shape), *shape, keep_p, dtype, cuda)
     _check_dsplit(Q, K, V, keep, dtype)
 
 
-def _check_dsplit(Q, K, V, keep, dtype):
-    """One D-split launch against its plain version and the default kernel;
-    returns its output and lse."""
+def _check_dsplit(Q, K, V, keep, dtype, default=True):
+    """One D-split launch against its plain version and (where ``default``)
+    the default kernel; returns its output and lse."""
     kscale = (torch.rand(Q.shape[0], Q.shape[2], generator=torch.Generator(
         ).manual_seed(3)) + 0.5).to(Q.device)
     before = attention_cuda.LAUNCHES_DSPLIT
@@ -186,10 +189,12 @@ def _check_dsplit(Q, K, V, keep, dtype):
     assert out.dtype == dtype and out.shape == Q.shape
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
-    sib, sib_lse = attention_core(Q, K, V, keep, return_lse=True,
-                                  kscale=kscale)
-    torch.testing.assert_close(out.float(), sib.float(), **TOL[dtype])
-    torch.testing.assert_close(lse, sib_lse, rtol=1e-4, atol=1e-4)
+    sib = want
+    if default:
+        sib, sib_lse = attention_core(Q, K, V, keep, return_lse=True,
+                                      kscale=kscale)
+        torch.testing.assert_close(out.float(), sib.float(), **TOL[dtype])
+        torch.testing.assert_close(lse, sib_lse, rtol=1e-4, atol=1e-4)
     # shown with -rP: the largest differences of each case
     print("dsplit", list(Q.shape[:2]) + list(K.shape[1:]), str(dtype),
           "max|out - plain|", (out.float() - want.float()).abs().max().item(),
@@ -200,34 +205,56 @@ def _check_dsplit(Q, K, V, keep, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tile_rows,rows_per_sm_pair", [
-    (32, 32),     # 32-row clusters fill the SMs
-    (16, 16),     # 16-row clusters fill them, 32-row ones do not
-    (16, 8),      # neither does; 8-row clusters would take two waves
-    (8, 0),       # few enough 8-row clusters to fit at once
+    (32, 32),     # 32-row clusters give every SM a block
+    (16, 16),     # 16-row clusters do, 32-row ones do not
+    (16, 8),      # neither does (8-row ones would): still 16 rows
+    (16, 0),      # a few clusters
 ])
 def test_dsplit_kernel_ragged_at_each_tile_height(cuda, dtype, tile_rows,
                                                   rows_per_sm_pair):
     """N not a multiple of the tile, P not a multiple of 64, at the model's
-    D. The launch rule picks the tile height from the SM count, so N is
-    sized from the card's: rows_per_sm_pair rows for every pair of SMs, and
-    5 more (77 rows when 0)."""
+    D. The launch rule takes full m16 tiles at every grid size: 32-row
+    clusters where they give every SM a block, else 16-row ones. N is
+    sized from the card's SM count: rows_per_sm_pair rows for every pair of
+    SMs, and 5 more (77 rows when 0)."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     B, P, D = 1, 150, 1536
     N = sms // 2 * rows_per_sm_pair + 5 if rows_per_sm_pair else 77
     plan = dsplit_plan(B, N, P, D, dtype)
     assert (plan["tile_rows"], plan["cluster_blocks"]) == (tile_rows, 2), plan
     assert plan["max_active_clusters"] > 0, plan
+    assert plan["grid_clusters"] == -(-N // tile_rows), plan
     Q, K, V, keep = _inputs(N + tile_rows, B, N, P, D, 0.8, dtype, cuda)
     _check_dsplit(Q, K, V, keep, dtype)
 
 
+@pytest.mark.parametrize("dtype,widest", [(torch.float32, 3584),
+                                          (torch.bfloat16, 3584)])
+def test_dsplit_kernel_widest_d(cuda, dtype, widest):
+    """The Q tile over half of D bounds D: the widest D whose block fits
+    the card's shared memory runs and matches the plain version (the
+    default kernel stops near D = 1750), one step wider fails with the
+    launch's error rather than a wrong result."""
+    B, N, P = 1, 70, 20
+    for D in (widest, widest + 4):
+        Q, K, V, keep = _inputs(D, B, N, P, D, 0.8, dtype, cuda)
+        if D == widest:
+            assert dsplit_plan(B, N, P, D, dtype)["smem_bytes"] <= 232448
+            _check_dsplit(Q, K, V, keep, dtype, default=False)
+        else:
+            with pytest.raises(RuntimeError,
+                               match="fwd_dsplit launch failed"):
+                attention_core_dsplit(Q, K, V, keep)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dsplit_kernel_halves_normalise_alike(cuda, dtype):
+@pytest.mark.parametrize("B,N", [(2, 300), (9, 500)])   # 16- and 32-row tiles
+def test_dsplit_kernel_halves_normalise_alike(cuda, dtype, B, N):
     """V's second half of columns is a copy of its first, so the two blocks
     of a cluster accumulate the same values with the same weights: their
     output halves are equal bit for bit only if both built the same S from
     the exchanged partials and so divide by the same running sum."""
-    Q, K, V, keep = _inputs(11, 2, 300, 200, 1536, 0.8, dtype, cuda)
+    Q, K, V, keep = _inputs(11, B, N, 200, 1536, 0.8, dtype, cuda)
     cut = dsplit_cut(1536)
     V = torch.cat([V[..., :cut], V[..., :cut]], dim=-1).contiguous()
     out, _ = _check_dsplit(Q, K, V, keep, dtype)

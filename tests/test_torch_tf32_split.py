@@ -22,7 +22,12 @@ BWD_TOL, 2e-4 of max |dQ|. The dK and dV emulations run the single-output
 kernels' products (S^T = (K kscale) Q^T with kscale on the owned keys, dP^T
 = K dO^T with the keys raw, then dS^T Q or P^T dO) on the same inputs and
 must agree with the same function's dK and dV under SKETCHEDIT_SPLIT_DKDV=1
-(its ``_dk_kernel`` and ``_dv_kernel``) within BWD_TOL.
+(its ``_dk_kernel`` and ``_dv_kernel``) within BWD_TOL. The D-split
+emulation runs the D-split kernel's forward: kscale on the query rows,
+each half of D contracted apart into a partial S (the two blocks of a
+cluster), S = own + peer, then P V for each half's columns; it must agree
+with ``_attention_core_dsplit_raw`` (interpret mode) within the same TOL,
+1e-4, for float32 and bfloat16 inputs, where one pass misses it.
 """
 
 import functools
@@ -36,8 +41,10 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from sketchedit_tpu.ops.attention_pallas import (
-    _attention_core_bwd_pallas, _attention_core_raw)
-from sketchedit_tpu_torch.ops.attention_cuda import attention_inputs
+    _attention_core_bwd_pallas, _attention_core_dsplit_raw,
+    _attention_core_raw)
+from sketchedit_tpu_torch.ops.attention_cuda import (
+    attention_inputs, dsplit_cut)
 
 TOL = 1e-4          # chip_smoke.py's TOL[float32]
 BWD_TOL = 2e-4      # chip_smoke.py's BWD_TOL, a share of max |dQ|
@@ -69,27 +76,57 @@ def mma(a, b, passes=3):
     if passes > 1:
         terms = ([(al, bh)] if al is not None else []) + \
                 ([(ah, bl)] if bl is not None else []) + terms
-    acc = torch.zeros(ah.shape[0], ah.shape[1], bh.shape[2])
-    for k0 in range(0, ah.shape[2], 8):
+    B, M, K = ah.shape
+    acc = torch.zeros(B, M, bh.shape[2])
+    # the 8-deep products of `chunk` k steps at once, added in order
+    chunk = 8
+    for k0 in range(0, K, 8 * chunk):
+        k1 = min(K, k0 + 8 * chunk)
+        steps = -(-(k1 - k0) // 8)
+        prods = []
         for x, y in terms:
-            acc = acc + torch.bmm(x[:, :, k0:k0 + 8], y[:, k0:k0 + 8])
+            xs, ys = x[:, :, k0:k1], y[:, k0:k1]
+            if (k1 - k0) % 8:                   # a short last step
+                pad = 8 * steps - (k1 - k0)
+                xs = torch.nn.functional.pad(xs, (0, pad))
+                ys = torch.nn.functional.pad(ys, (0, 0, 0, pad))
+            prods.append(torch.matmul(
+                xs.reshape(B, M, steps, 8).transpose(1, 2),
+                ys.reshape(B, steps, 8, -1)))
+        for i in range(steps):
+            for prod in prods:
+                acc += prod[:, i]
     return acc
 
 
 def emulated_forward(Q, V, keep, kscale, variant, one_pass=False):
     """O of ``attention_core(Q, V, V, keep, kscale=kscale)`` (keys V *
-    kscale) as the kernel computes it: kscale on the query rows (default)
-    or on the keys (shared), both formed in float32; operands split where
-    they hold float32 values."""
+    kscale) as the kernel computes it: kscale on the query rows (default,
+    dsplit) or on the keys (shared), both formed in float32; operands split
+    where they hold float32 values. dsplit contracts each half of D apart
+    and sums the two partial S, then forms each half's columns of P V."""
     f32 = Q.dtype == torch.float32
     Qf, Vf = Q.float(), V.float()
+    passes = 1 if one_pass else 3
+    if variant == "dsplit":
+        # each block of a cluster contracts its half of D; S = own + peer
+        A, cut = Qf * kscale[:, None, :], dsplit_cut(Q.shape[2])
+        halves = [(0, cut), (cut, Q.shape[2])]
+        S = sum(mma(operand(A[..., lo:hi], True),
+                    operand(Vf[..., lo:hi].transpose(1, 2), f32 or one_pass),
+                    passes) for lo, hi in halves)
+        logit = S * keep[:, None, :] * SCALE
+        p = torch.exp(logit - logit.amax(-1, keepdim=True))
+        out = torch.cat([mma(operand(p, True),
+                             operand(Vf[..., lo:hi], f32 or one_pass), passes)
+                         for lo, hi in halves], dim=-1)
+        return out / p.sum(-1, keepdim=True)
     if variant == "default":
         A, Bk = Qf * kscale[:, None, :], Vf
         split_a, split_b = True, f32
     else:
         A, Bk = Qf, Vf * kscale[:, None, :]
         split_a, split_b = f32, True
-    passes = 1 if one_pass else 3
     S = mma(operand(A, split_a or one_pass),
             operand(Bk.transpose(1, 2), split_b or one_pass), passes)
     logit = S * keep[:, None, :] * SCALE
@@ -138,10 +175,26 @@ def test_tf32_rounding_keeps_10_mantissa_bits():
     assert torch.equal(tf32(b), b)
 
 
-@pytest.mark.parametrize("variant", ["default", "shared"])
+@functools.lru_cache(maxsize=None)
+def dsplit_case(dtype_name):
+    """The JAX D-split forward's float32 output on case()'s inputs (float32
+    values of the inputs, as there)."""
+    Q, V, keep, kscale, _, _ = case(dtype_name)
+    K = V.float() * kscale[:, None, :]
+    with pltpu.force_tpu_interpret_mode():
+        want = _attention_core_dsplit_raw(
+            jnp.asarray(Q.float().numpy()), jnp.asarray(K.numpy()),
+            jnp.asarray(V.float().numpy()), jnp.asarray(keep.numpy()),
+            softmax_scale=SCALE, out_dtype=jnp.float32)
+    return torch.from_numpy(np.array(want))
+
+
+@pytest.mark.parametrize("variant", ["default", "shared", "dsplit"])
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_split_tf32_forward_matches_jax(dtype_name, variant):
     Q, V, keep, kscale, want, _ = case(dtype_name)
+    if variant == "dsplit":
+        want = dsplit_case(dtype_name)
     assert Q.shape == (1, 961, 1536) and 0 < keep.sum() < 961
     got = emulated_forward(Q, V, keep, kscale, variant)
     err = (got - want).abs().max().item()
