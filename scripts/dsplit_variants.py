@@ -28,7 +28,7 @@ then in reverse. Variants:
              partial S (its block barrier included), the warp sum into the
              exchange slot, the exchange (the cluster barrier), the softmax
              (the peer's sum, P and alpha, and the block barrier) and P V
-             (scripts/fwd_variants.py clocks the default forward)
+             (scripts/fwd_variants.py times the default forward's phases)
 
 One JSON line per variant, shape and dtype: the D-split's, the default
 forward's and the library call's ms (CUDA events after warm-up;

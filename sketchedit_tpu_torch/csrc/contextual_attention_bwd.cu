@@ -35,8 +35,7 @@
 // Design. Blocks run in parallel, so the sequential axis of each TPU grid
 // becomes a loop inside the block, and each block owns its output rows
 // outright (no atomics, no second pass):
-// - dq: split TF32 on the tensor cores, the default forward's block
-//   (fwd_mma in contextual_attention_fwd.cu): 8 warps over kRows = 16 query
+// - dq: split TF32 on the tensor cores (mma.sync): 8 warps over kRows = 16 query
 //   rows (8 where 16-row blocks would leave SMs idle, the lower half of
 //   every A tile then zero) of one image, all keys, a slab of up to 1536 dQ
 //   columns. Warp w owns 192 dQ columns as 24 m16n8 fragments in registers

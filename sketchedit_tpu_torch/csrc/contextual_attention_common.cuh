@@ -1,10 +1,11 @@
 // Device code shared by the contextual-attention kernels for Hopper
 // (contextual_attention_fwd.cu and contextual_attention_bwd.cu): the
-// float32-accurate tensor-core product (split TF32 on mma.sync) that all
-// three forwards and the four backward kernels are built on, with their
-// block shape, per-warp cp.async staging and launch plans. Every kernel
-// runs kThreads = 256 threads a block and walks its streamed axis in tiles
-// of kT = 64.
+// float32-accurate tensor-core product (split TF32 on mma.sync) that the
+// D-split forward and the four backward kernels are built on, with their
+// block shape, per-warp cp.async staging and launch plans. Every one of
+// them runs kThreads = 256 threads a block and walks its streamed axis in
+// tiles of kT = 64. (The default and shared forwards run wgmma instead:
+// hopper_async.cuh.)
 
 #pragma once
 
@@ -102,9 +103,9 @@ __device__ __forceinline__ void mma_tile(float (&c)[kN][4],
   for (int n = 0; n < kN; ++n) mma_tf32(c[n], ah[n % kA], bh[n]);
 }
 
-// The split-TF32 kernels (ca_fwd_kernel, ca_fwd_shared_kernel, ca_dq_kernel
-// and ca_dk_or_dv_kernel): a block is kWarps warps over kRows owned rows
-// (queries; keys in dK and dV) and a slab of kSlab output columns; warp w
+// The split-TF32 kernels (ca_dq_kernel and ca_dk_or_dv_kernel): a block
+// is kWarps warps over kRows owned rows (queries in dQ; keys in dK and dV)
+// and a slab of kSlab output columns; warp w
 // owns kGroups 32-column groups of the slab, and contracts Ds = mma_cols(D)
 // columns of D for its partial S. The kernels whose clusters split D over
 // two blocks (ca_fwd_dsplit_kernel, ca_dkdv_kernel) give each warp

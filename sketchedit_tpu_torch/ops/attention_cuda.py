@@ -38,14 +38,17 @@ where foreground and background are one tensor) and
 kernels in place of the fused one) in ``attention_core_bwd``.
 
 The three forwards run both products on the tensor cores in split TF32
-(float32-accurate: three mma passes for float32 operands, two where one
-operand holds bfloat16 data), with a query tile's (16, D) float32
-accumulator spread over its eight warps' registers (over the two blocks'
-in the D-split); K and V tiles stream
-through it with an online softmax, so the (B, N, P) similarity never
-reaches device memory (``fwd_plan`` says how they run a shape). At 256^2
-the work is arithmetic-bound (5.67 GFLOP against 11.8 MB); the source file
-says more.
+(float32-accurate: three passes for float32 operands, two where one
+operand holds bfloat16 data). The default and shared forwards are one
+sequence of launches on warpgroup ``wgmma`` fed by TMA: the operands'
+TF32 terms (K, V transposed, Q * kscale) are formed in a scratch the
+wrapper allocates, S = (Q kscale) K^T is one product, a softmax pass forms
+P, and P V is a second product; the scratch's query-row part is capped at
+``SCRATCH_CAP`` bytes, past which the query rows go in chunks
+(``fwd_scratch``, ``fwd_plan`` say how a shape runs). The D-split keeps a
+query tile's float32 accumulator in its two blocks' registers, with K and
+V streaming through an online softmax (``dsplit_plan``). At 256^2 the work
+is arithmetic (5.67 GFLOP against 11.8 MB); the source file says more.
 Given ``kscale``, the keys are ``K * kscale`` per channel, applied in
 float32 inside the kernel (as ``attention_pallas.py::_attn_shared_kernel``
 derives its keys): the main path passes K = V and the background's inverse
@@ -79,6 +82,7 @@ whichever device the caller has current.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 from typing import Optional
@@ -98,15 +102,19 @@ LAUNCHES_DKDV = 0
 LAUNCHES_DV = 0
 LAUNCHES_DK = 0
 _COUNT_LOCK = threading.Lock()
+# The default and shared forwards' scratch may spend up to this many bytes
+# on the part that grows with the query rows (their split terms, the
+# logits, P's terms); a larger call takes its query rows in chunks.
+SCRATCH_CAP = 256 << 20
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _fns: dict = {}
 # C entry point -> (library, leading dtype ints, pointers, dimension ints);
 # every signature ends with the float scale and the stream
 _ENTRY_POINTS = {
-    "fwd": ("contextual_attention_fwd", 2, 7, 4),
+    "fwd": ("contextual_attention_fwd", 2, 8, 5),
     "fwd_dsplit": ("contextual_attention_fwd", 2, 7, 4),
-    "fwd_shared": ("contextual_attention_fwd", 2, 5, 3),
+    "fwd_shared": ("contextual_attention_fwd", 2, 6, 4),
     "dq": ("contextual_attention_bwd", 1, 9, 4),
     "dkdv": ("contextual_attention_bwd", 1, 10, 4),
     "dv": ("contextual_attention_bwd", 1, 7, 4),
@@ -203,11 +211,16 @@ def _forward_on_device(name, Q, K, V, keep, softmax_scale, return_lse,
            if return_lse else None)
     tensors = (V,) if name == "fwd_shared" else (Q, K, V)
     dims = (B, N, D) if name == "fwd_shared" else (B, N, P, D)
+    scratch = ()
+    if name != "fwd_dsplit":       # the wgmma forwards' scratch and chunks
+        nbytes, rows = fwd_scratch(B, N, P, D, Q.dtype)
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=Q.device)
+        scratch, dims = (buf.data_ptr(),), (*dims, rows)
     with torch.cuda.device(Q.device):  # a launch runs on the current device
         rc = fn(_DTYPE_CODES[Q.dtype], _DTYPE_CODES[out_dtype],
                 *(t.data_ptr() for t in tensors), keep.data_ptr(),
                 kscale.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), *dims,
+                None if lse is None else lse.data_ptr(), *scratch, *dims,
                 float(softmax_scale),
                 torch.cuda.current_stream(Q.device).cuda_stream)
     if rc != 0:
@@ -346,16 +359,61 @@ def dsplit_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
                  B, N, P, D)
 
 
+def fwd_scratch(B: int, N: int, P: int, D: int, dtype=torch.float32,
+                cap: Optional[int] = None) -> tuple[int, int]:
+    """(bytes, rows): the scratch the default and shared forwards take for
+    these shapes, and the query rows of each chunk, when the part that
+    grows with the query rows may take ``cap`` bytes (``SCRATCH_CAP`` by
+    default)."""
+    return _fwd_scratch(_DTYPE_CODES[dtype], B, N, P, D,
+                        SCRATCH_CAP if cap is None else cap)
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_scratch(code: int, B: int, N: int, P: int, D: int,
+                 cap: int) -> tuple[int, int]:
+    from sketchedit_tpu_torch.ops import _build
+    lib = _build.load()["contextual_attention_fwd"]
+    fn = lib.sketchedit_contextual_attention_fwd_scratch
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_longlong
+    rows = ctypes.c_int(0)
+    nbytes = fn(code, B, N, P, D, cap, ctypes.addressof(rows))
+    if nbytes < 0:
+        raise ValueError(f"no forward scratch for B={B}, N={N}, P={P}, "
+                         f"D={D}")
+    return int(nbytes), rows.value
+
+
+# the phases of the default and shared forwards, in launch order; the last
+# four repeat for each chunk of query rows
+FWD_PHASES = ("keys", "values", "queries", "logits", "softmax", "pv")
+_WGMMA_PLAN_KEYS = ("chunk_rows", "chunks", "logits_blocks",
+                    "softmax_blocks", "pv_blocks", "logits_smem_bytes",
+                    "pv_smem_bytes", "logits_stages", "pv_stages",
+                    "logits_blocks_per_sm", "pv_blocks_per_sm",
+                    "threads_per_block", "launches_per_call",
+                    "logits_block_rows", "logits_block_cols",
+                    "pv_block_rows", "pv_block_cols")
+
+
 def fwd_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
-             out_dtype=torch.float32, shared: bool = False) -> dict:
-    """How the default forward kernel (or, with ``shared``, the shared-tensor
-    one) runs these shapes on the current CUDA device, without launching
-    it: the query rows of a block, the slabs of up to 1536 output columns
-    the grid splits D into, the most blocks resident at once on an SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), each block's
-    dynamic shared memory in bytes, and the blocks of the grid."""
-    return _plan("fwd", (int(shared), _DTYPE_CODES[dtype],
-                         _DTYPE_CODES[out_dtype]), B, N, P, D, _FWD_PLAN_KEYS)
+             out_dtype=torch.float32, shared: bool = False,
+             cap: Optional[int] = None) -> dict:
+    """How the default forward (or, with ``shared``, the shared-tensor one;
+    both run the same kernels) runs these shapes on the current CUDA
+    device, without launching it: the query rows of a chunk and the
+    chunks, the blocks of the logits (S), softmax and P V launches of a
+    full chunk, the two wgmma products' dynamic shared memory per block,
+    their pipeline stages and resident blocks per SM, the threads of a
+    product block, the CUDA launches per call, each product's block rows
+    and columns, ``phases`` in launch order and the scratch in bytes
+    (``fwd_scratch``)."""
+    nbytes, rows = fwd_scratch(B, N, P, D, dtype, cap)
+    plan = _plan("fwd", (int(shared), _DTYPE_CODES[dtype],
+                         _DTYPE_CODES[out_dtype], rows), B, N, P, D,
+                 _WGMMA_PLAN_KEYS)
+    return {**plan, "phases": list(FWD_PHASES), "scratch_bytes": nbytes}
 
 
 def dq_plan(B: int, N: int, P: int, D: int, dtype=torch.float32) -> dict:

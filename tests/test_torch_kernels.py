@@ -61,16 +61,18 @@ def _inputs(seed, B, N, P, D, keep_p, dtype, device):
 # (input dtype, output dtype) of the forward kernels
 DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.bfloat16, torch.float32)]
-# The default and shared forwards' cases: N and P off the 16- and 8-row
-# tiles, D off the 16-column step and past one 1536-column slab, all keys
-# gated, and the main path's 256^2 shape at B = 1 and 8, where the launch
-# rule takes 8-row and 16-row blocks on a 132-SM card.
+# The default and shared forwards' cases: N and P off the 64-row tiles and
+# the 128-key and 96- or 192-column blocks, D off the 32-element stage (and
+# not a multiple of 4, so the split rows are padded), all keys gated, D
+# past the mma.sync kernel's old widest (~1750), and the main path's 256^2
+# shape at B = 1 and 8.
 FWD_SHAPES = [
     ((2, 130, 150, 70), 0.7),         # ragged N, P and D
     ((1, 17, 65, 33), 0.5),           # one key past a tile, odd D
     ((1, 40, 64, 1536), 0.0),         # all gated: the uniform mean of V
     ((3, 300, 200, 600), 0.9),
-    ((2, 50, 70, 1537), 0.8),         # two column slabs, odd D
+    ((2, 50, 70, 1537), 0.8),         # odd D
+    ((1, 30, 200, 4099), 0.8),        # wide D, past the D-split's 3584
     ((1, 961, 961, 1536), 0.6),       # 256^2, B = 1
     ((8, 961, 961, 1536), 0.6),       # 256^2, B = 8
 ]
@@ -102,29 +104,63 @@ def test_kernel_matches_plain(cuda, dtype, out_dtype, shape, keep_p):
           (lse - want_lse).abs().max().item())
 
 
-@pytest.mark.parametrize("B,rows_132", [(1, 8), (8, 16)])
-def test_fwd_plan_at_the_main_path_shapes(cuda, B, rows_132):
-    """256^2 (N = P = 961, D = 1536): 8-row blocks at B = 1 and 16-row ones
-    at B = 8 on a 132-SM card (the rule's pick elsewhere), one column slab,
-    every block within the shared memory a block may opt into."""
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    want = 8 if B * -(-961 // 16) < sms else 16
-    assert sms != 132 or want == rows_132
+@pytest.mark.parametrize("B,blocks_132", [(1, 128), (8, 1024)])
+def test_fwd_plan_at_the_main_path_shapes(cuda, B, blocks_132):
+    """256^2 (N = P = 961, D = 1536): one chunk of all 961 query rows; the
+    logits product in blocks of 64 rows x 128 keys, P V in 128 x 96
+    (float32) or 64 x 192 (bfloat16): 128 blocks each at B = 1, which covers
+    a 132-SM card in one wave, 1024 at B = 8; every block within the
+    shared memory a block may opt into; six launches a call. A capped
+    scratch takes the query rows in 64-row multiples."""
     for dtype in (torch.float32, torch.bfloat16):
+        pv = (128, 96) if dtype == torch.float32 else (64, 192)
         for shared in (False, True):
             plan = fwd_plan(B, 961, 961, 1536, dtype, shared=shared)
             print("fwd_plan", B, str(dtype), shared, plan)
-            assert plan["tile_rows"] == want and plan["column_slabs"] == 1
-            assert plan["grid_blocks"] == B * -(-961 // want)
-            assert 0 < plan["smem_bytes"] <= 232448
-            assert plan["blocks_per_sm"] >= 1
-    assert fwd_plan(2, 50, 70, 1537)["column_slabs"] == 2
+            assert plan["chunks"] == 1 and plan["chunk_rows"] == 961
+            assert plan["logits_blocks"] == plan["pv_blocks"] == blocks_132
+            assert (plan["logits_block_rows"],
+                    plan["logits_block_cols"]) == (64, 128)
+            assert (plan["pv_block_rows"], plan["pv_block_cols"]) == pv
+            for k in ("logits", "pv"):
+                assert 0 < plan[f"{k}_smem_bytes"] <= 232448
+                assert plan[f"{k}_blocks_per_sm"] >= 1
+                assert plan[f"{k}_stages"] >= 3
+            assert plan["launches_per_call"] == 6
+            assert plan["phases"] == list(attention_cuda.FWD_PHASES)
+            assert plan["scratch_bytes"] > 0
+    plan = fwd_plan(2, 961, 961, 1536, cap=6 << 20)
+    assert plan["chunks"] > 1 and plan["chunk_rows"] % 64 == 0
+    assert plan["launches_per_call"] == 2 + 4 * plan["chunks"]
+
+
+@pytest.mark.parametrize("dtype,out_dtype", DTYPES)
+def test_forward_kernels_in_chunks(cuda, monkeypatch, dtype, out_dtype):
+    """A scratch cap that takes the query rows in several chunks (the last
+    one ragged) gives what one chunk gives, for both forwards."""
+    Q, K, V, keep = _inputs(21, 2, 700, 500, 1536, 0.7, dtype, cuda)
+    kscale = torch.full((2, 1536), 1536 ** -0.5, device=cuda)
+    want = attention_core(V, V, V, keep, return_lse=True,
+                          out_dtype=out_dtype, kscale=kscale)
+    monkeypatch.setattr(attention_cuda, "SCRATCH_CAP", 4 << 20)
+    plan = fwd_plan(2, 500, 500, 1536, dtype, cap=4 << 20)
+    assert plan["chunks"] >= 3 and 500 % plan["chunk_rows"] != 0
+    for got in (attention_core(V, V, V, keep, return_lse=True,
+                               out_dtype=out_dtype, kscale=kscale),
+                attention_core_shared(V, kscale, keep, return_lse=True,
+                                      out_dtype=out_dtype)):
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    plain = attention_core_reference(Q, K, V, keep, out_dtype=torch.float32)
+    out = attention_core(Q, K, V, keep, out_dtype=out_dtype)
+    torch.testing.assert_close(out.float(), plain, **TOL[out_dtype])
 
 
 @pytest.mark.parametrize("shared", [False, True], ids=["default", "shared"])
 def test_forward_kernels_repeat_bit_for_bit(cuda, shared):
-    """Two calls on the same inputs give the same bits: each S sums the
-    warps' partials in a fixed order."""
+    """Two calls on the same inputs give the same bits: no atomics, and
+    every sum (each k step's FADD, the softmax's butterfly) in a fixed
+    order."""
     _, _, V, keep = _inputs(13, 8, 961, 961, 1536, 0.6, torch.float32, cuda)
     kscale = torch.full((8, 1536), 1536 ** -0.5, device=cuda)
     if shared:
@@ -233,8 +269,9 @@ def test_dsplit_kernel_ragged_at_each_tile_height(cuda, dtype, tile_rows,
 def test_dsplit_kernel_widest_d(cuda, dtype, widest):
     """The Q tile over half of D bounds D: the widest D whose block fits
     the card's shared memory runs and matches the plain version (the
-    default kernel stops near D = 1750), one step wider fails with the
-    launch's error rather than a wrong result."""
+    default and shared forwards have no such bound: FWD_SHAPES runs D =
+    4099), one step wider fails with the launch's error rather than a
+    wrong result."""
     B, N, P = 1, 70, 20
     for D in (widest, widest + 4):
         Q, K, V, keep = _inputs(D, B, N, P, D, 0.8, dtype, cuda)
@@ -628,7 +665,8 @@ def test_dkdv_kernel_widest_d(cuda, dtype, widest):
     """The owned K tile over half of D bounds D: the widest D whose block
     fits the card's shared memory runs and matches the plain version, one
     step wider fails with the launch's error rather than a wrong result.
-    The forward kernels stop first, near D = 1750."""
+    The D-split forward stops first, at D = 3584; the default and shared
+    forwards have no bound from shared memory."""
     B, N, P = 1, 70, 20
     for D in (widest, widest + 4):
         Q, K, V, keep = _inputs(D, B, N, P, D, 0.8, dtype, cuda)

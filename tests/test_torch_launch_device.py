@@ -4,8 +4,8 @@ device current.
 A C launch runs on the calling thread's current CUDA device, whatever
 device its pointers and stream belong to, so the launch helpers enter
 ``torch.cuda.device(Q.device)`` around it. Here, without a card, the
-kernels, ``torch.cuda.device`` and ``torch.cuda.current_stream`` are
-stubs: the helpers get tensors that report ``cuda:1`` and every stub
+kernels, the forwards' scratch size, ``torch.cuda.device`` and
+``torch.cuda.current_stream`` are stubs: the helpers get tensors that report ``cuda:1`` and every stub
 launch records which device was current when it was called.
 """
 
@@ -70,6 +70,9 @@ def stub_launches(monkeypatch):
     monkeypatch.setattr(torch, "empty",
                         lambda *a, device=None, **k: real_empty(*a, **k))
     monkeypatch.setattr(attention_cuda, "_kernel", kernel)
+    # the wgmma forwards' scratch size comes from the built library: one
+    # 64-row chunk of a byte here
+    monkeypatch.setattr(attention_cuda, "fwd_scratch", lambda *a, **k: (1, 64))
     return launches, current
 
 

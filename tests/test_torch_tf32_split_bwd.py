@@ -1,0 +1,143 @@
+"""Split TF32 in the backward kernels (``csrc/contextual_attention_bwd.cu``),
+emulated in plain torch on the CPU (tests/tf32_emulation.py) and held
+against the JAX package's dQ, dK and dV.
+
+The dQ emulation runs S, dP and dS K the way the dQ kernel does (kscale
+on the query side of S, K raw; dO always split) on the main path's inputs
+at 64^2 features (256^2 images: N = P = 961, D = 1536) with a seeded dO
+and the JAX forward's lse and delta, and must agree with
+``_attention_core_bwd_pallas``'s dQ (interpret mode) within
+chip_smoke.py's BWD_TOL, 2e-4 of max |dQ|. The dK and dV emulations run
+the single-output kernels' products (S^T = (K kscale) Q^T with kscale on
+the owned keys, dP^T = K dO^T with the keys raw, then dS^T Q or P^T dO)
+on the same inputs and must agree with the same function's dK and dV
+under SKETCHEDIT_SPLIT_DKDV=1 (its ``_dk_kernel`` and ``_dv_kernel``)
+within BWD_TOL.
+"""
+
+import functools
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from sketchedit_tpu.ops.attention_pallas import _attention_core_bwd_pallas
+from tf32_emulation import BWD_TOL, SCALE, case, mma, operand
+
+
+def emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
+    """dQ of ``attention_core(Q, V, V, keep, kscale=kscale)`` as the dQ
+    kernel computes it: S = (Q kscale) V^T with kscale on the query side
+    and the keys raw, dP = dO V^T, dS = P (dP - delta) g with P = exp(S g -
+    lse) and g = keep * scale, dQ = (dS V) kscale; Q kscale, dO and dS are
+    split, V is split where it holds float32 values."""
+    f32 = Q.dtype == torch.float32
+    Kf = V.float()
+    passes = 1 if one_pass else 3
+    S = mma(operand(Q.float() * kscale[:, None, :], True),
+            operand(Kf.transpose(1, 2), f32 or one_pass), passes)
+    dP = mma(operand(dO, True), operand(Kf.transpose(1, 2), f32 or one_pass),
+             passes)
+    g = keep[:, None, :] * SCALE
+    dS = torch.exp(S * g - lse[..., None]) * (dP - delta[..., None]) * g
+    return mma(operand(dS, True), operand(Kf, f32 or one_pass),
+               passes) * kscale[:, None, :]
+
+
+@functools.lru_cache(maxsize=None)
+def dq_case(dtype_name):
+    """case()'s inputs with a seeded dO, delta = rowsum(dO O) from the JAX
+    forward, and the JAX package's dQ on them (float32 values of the
+    inputs, as the forward's case)."""
+    Q, V, keep, kscale, out, lse = case(dtype_name)
+    dO = torch.from_numpy(np.random.RandomState(8).randn(*Q.shape).astype(
+        np.float32))
+    K = V.float() * kscale[:, None, :]
+    with pltpu.force_tpu_interpret_mode():
+        dq = _attention_core_bwd_pallas(
+            jnp.asarray(Q.float().numpy()), jnp.asarray(K.numpy()),
+            jnp.asarray(V.float().numpy()), jnp.asarray(keep.numpy()),
+            jnp.asarray(out.numpy()), jnp.asarray(lse.numpy()),
+            jnp.asarray(dO.numpy()), SCALE)[0]
+    return dO, (dO * out).sum(-1), torch.from_numpy(np.array(dq))
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_split_tf32_dq_matches_jax(dtype_name):
+    Q, V, keep, kscale, _, lse = case(dtype_name)
+    dO, delta, want = dq_case(dtype_name)
+    scale = want.abs().max().item()
+    assert want.shape == (1, 961, 1536) and scale > 0
+    got = emulated_dq(Q, V, keep, kscale, lse, delta, dO)
+    err = (got - want).abs().max().item() / scale
+    one = emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=True)
+    one_err = (one - want).abs().max().item() / scale
+    print(dtype_name, "dQ split", err, "one pass", one_err,
+          "(shares of max |dQ|)")
+    torch.testing.assert_close(got, want, rtol=0, atol=BWD_TOL * scale)
+
+
+def emulated_dk_dv(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
+    """(dK_eff, dV) of ``attention_core(Q, V, V, keep, kscale=kscale)`` as
+    the dK and dV kernels compute them, keys owned and queries streamed:
+    S^T = (K kscale) Q^T with kscale on the owned keys (split) and Q split
+    where it holds float32 values; dP^T = K dO^T with the keys raw (split
+    where they hold float32 values) and dO split; P^T = exp(S^T g - lse)
+    and dS^T = P^T (dP^T - delta) g with g = keep * scale per key; dK_eff =
+    dS^T Q and dV = P^T dO, the weights split, Q split where it holds
+    float32 values, dO split."""
+    f32 = Q.dtype == torch.float32
+    Kf, Qf = V.float(), Q.float()
+    passes = 1 if one_pass else 3
+    ST = mma(operand(Kf * kscale[:, None, :], True),
+             operand(Qf.transpose(1, 2), f32 or one_pass), passes)
+    dPT = mma(operand(Kf, f32 or one_pass),
+              operand(dO.transpose(1, 2), True), passes)
+    g = keep[:, :, None] * SCALE
+    PT = torch.exp(ST * g - lse[:, None, :])
+    dST = PT * (dPT - delta[:, None, :]) * g
+    return (mma(operand(dST, True), operand(Qf, f32 or one_pass), passes),
+            mma(operand(PT, True), operand(dO, True), passes))
+
+
+@functools.lru_cache(maxsize=None)
+def split_case(dtype_name):
+    """dq_case()'s seeded dO and delta, and the JAX package's dK and dV from
+    its single-output kernels on them (the caller sets
+    SKETCHEDIT_SPLIT_DKDV=1, which the JAX function reads per call)."""
+    assert os.environ.get("SKETCHEDIT_SPLIT_DKDV") == "1"
+    Q, V, keep, kscale, out, lse = case(dtype_name)
+    dO = torch.from_numpy(np.random.RandomState(8).randn(*Q.shape).astype(
+        np.float32))
+    K = V.float() * kscale[:, None, :]
+    with pltpu.force_tpu_interpret_mode():
+        _, dk, dv = _attention_core_bwd_pallas(
+            jnp.asarray(Q.float().numpy()), jnp.asarray(K.numpy()),
+            jnp.asarray(V.float().numpy()), jnp.asarray(keep.numpy()),
+            jnp.asarray(out.numpy()), jnp.asarray(lse.numpy()),
+            jnp.asarray(dO.numpy()), SCALE)
+    return (dO, (dO * out).sum(-1), torch.from_numpy(np.array(dk)),
+            torch.from_numpy(np.array(dv)))
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_split_tf32_dk_dv_match_jax(dtype_name, monkeypatch):
+    monkeypatch.setenv("SKETCHEDIT_SPLIT_DKDV", "1")
+    Q, V, keep, kscale, _, lse = case(dtype_name)
+    dO, delta, want_dk, want_dv = split_case(dtype_name)
+    args = (Q, V, keep, kscale, lse, delta, dO)
+    got = emulated_dk_dv(*args)
+    one = emulated_dk_dv(*args, one_pass=True)
+    for name, g, o, want in zip(("dK_eff", "dV"), got, one,
+                                (want_dk, want_dv)):
+        scale = want.abs().max().item()
+        assert want.shape == (1, 961, 1536) and scale > 0, name
+        print(dtype_name, name, "split", (g - want).abs().max().item() / scale,
+              "one pass", (o - want).abs().max().item() / scale,
+              "(shares of max |.|)")
+        torch.testing.assert_close(g, want, rtol=0, atol=BWD_TOL * scale,
+                                   msg=lambda m, n=name: f"{n}: {m}")
