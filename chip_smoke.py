@@ -19,13 +19,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    and resident clusters at each) and the dV and dK kernels the same way,
    each also against the kernel that computes the same function (the
    default forward, the fused dK/dV); a `dkdv_plan` line gives the fused
-   dK/dV kernel's key tile, cluster shape and resident clusters at each
-   training shape, a `dq_plan` line the dQ kernel's rows per block, column
+   dK/dV's wgmma sequence at each training shape (chunks and their key
+   rows, the blocks, block shapes, stages, shared memory and resident
+   blocks per SM of each product, launches per call, scratch bytes), a
+   `bwd_vs_float64` line each of its and the dK and dV kernels' distance
+   from a float64 evaluation at 256^2 (B = 1 and 8, float32: the fused
+   sequence's relative L2 within 1.5x of theirs), a `dq_plan` line the dQ kernel's rows per block, column
    slabs, resident blocks per SM and shared memory, `dk_dv_plan` lines the
    same for the dV and dK kernels, and `fwd_ptxas`, `dq_ptxas`,
    `dk_dv_ptxas`, `dkdv_ptxas` and `dsplit_ptxas` lines the forward's
-   wgmma products', the dQ, dV and dK, fused dK/dV and D-split
-   instantiations' registers and spills;
+   wgmma products', the dQ, dV and dK, fused dK/dV (its ca_dkdv_* kernels)
+   and D-split instantiations' registers and spills;
 4. inference path: the runner's EditPipeline on uint8 batches at 256^2
    (B = 1 and 4, float32 and bfloat16) and 252^2, one forward launch per
    netG forward, checked against the same pipeline with dense attention
@@ -686,7 +690,9 @@ def main():
           "nvcc_seconds": _build.build_seconds, **card})
     # registers and spills of each dQ instantiation (ca_dq_kernel<T, kSame,
     # kVec>), each dV and dK one (ca_dk_or_dv_kernel<T, kDK, kSame, kVec>),
-    # each fused dK/dV one (ca_dkdv_kernel<T, kSame, kVec>) and each D-split
+    # each fused dK/dV one (ca_dkdv_*: its products, ca_dkdv_wgmma_kernel<
+    # kWN, kMW, kSplitB, kStages, kGroup>, and its prep and weights
+    # kernels) and each D-split
     # one (ca_fwd_dsplit_kernel<T, TO, kMT, kVec>), where this run built the
     # library
     ptxas = {}
@@ -694,7 +700,7 @@ def main():
             ("fwd_ptxas", "fwd", "ca_fwd_wgmma_kernel"),
             ("dq_ptxas", "bwd", "ca_dq_kernel"),
             ("dk_dv_ptxas", "bwd", "ca_dk_or_dv_kernel"),
-            ("dkdv_ptxas", "bwd", "ca_dkdv_kernel"),
+            ("dkdv_ptxas", "bwd", "ca_dkdv_"),
             ("dsplit_ptxas", "fwd", "ca_fwd_dsplit_kernel")):
         entry, found = None, []
         for ln in _build.build_log.get(f"contextual_attention_{stem}",
@@ -936,11 +942,12 @@ def main():
         for dt in (torch.float32, torch.bfloat16):
             fd = f.to(dt)
             Q, V, keep, ksc = attention_inputs(fd, fd, m)
-            # how the fused dK/dV kernel runs this shape: key tile, cluster
-            # shape, clusters resident at once, against the grid's clusters
+            # how the fused dK/dV runs this shape: chunks of key rows, each
+            # product's blocks, block shape, stages, shared memory and
+            # resident blocks per SM, launches per call, scratch bytes
             emit({"phase": "dkdv_plan", "image_hw": [256, 256],
                   "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
-                  "dtype": str(dt).split(".")[-1], "cluster_dims": [1, 2, 1],
+                  "dtype": str(dt).split(".")[-1],
                   **dkdv_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt),
                   **card})
             # how the dQ kernel runs it: query rows per block, column slabs,
@@ -976,6 +983,44 @@ def main():
     Q, V, keep, ksc = attention_inputs(fa, fa, torch.ones(1, 1, 64, 64,
                                                           device=dev))
     check_bwd("all_gated", Q, V, V, keep, ksc)
+    # the fused dK/dV and the dK and dV kernels against a float64
+    # evaluation of the same function at the training path's call (256^2,
+    # B = 1 and 8, float32): all run split TF32, and the fused sequence,
+    # whose S and dP sum runs of 16 k8 steps where the single-output
+    # kernels sum per-warp partials, must be as close (relative L2 within
+    # 1.5x of theirs, each gradient); the largest |difference| is reported
+    for B in (1, 8):
+        bargs = bwd_inputs[(B, torch.float32)]
+        Q, K, V, keep, lse, delta, dO, sc, ksc = bargs
+        Qd = Q.double()
+        g = keep.double()[:, None, :] * sc
+        Pd = torch.exp(torch.bmm(Qd, (K.double() * ksc.double()[:, None, :])
+                                 .transpose(1, 2)) * g
+                       - lse.double()[..., None])
+        dSd = Pd * (torch.bmm(dO.double(), V.double().transpose(1, 2))
+                    - delta.double()[..., None]) * g
+        exact = (torch.bmm(dSd.transpose(1, 2), Qd),
+                 torch.bmm(Pd.transpose(1, 2), dO.double()))
+        del Pd, dSd, Qd
+        fused = attention_core_dkdv(*bargs)
+        alone = (attention_core_dk(*bargs),
+                 attention_core_dv(Q, K, keep, lse, dO, sc, ksc))
+        row = {"phase": "bwd_vs_float64", "image_hw": [256, 256],
+               "shape_BNPD": [B, Q.shape[1], K.shape[1], Q.shape[2]],
+               "dtype": "float32", "ratio_max": 1.5}
+        for name, f_, a_, w in zip(("dK_eff", "dV"), fused, alone, exact):
+            for k, got in (("fused", f_), ("alone", a_)):
+                diff = got.double() - w
+                row[f"{name}_{k}_rel_l2_vs_float64"] = (
+                    diff.norm() / w.norm()).item()
+                row[f"{name}_{k}_max_abs_vs_float64"] = diff.abs().max().item()
+            row[f"{name}_fused_x_alone_rel_l2"] = (
+                row[f"{name}_fused_rel_l2_vs_float64"]
+                / row[f"{name}_alone_rel_l2_vs_float64"])
+        emit({**row, **card})
+        for name in ("dK_eff", "dV"):
+            assert row[f"{name}_fused_x_alone_rel_l2"] <= 1.5, row
+        del exact, fused, alone
 
     # 4. main path --------------------------------------------------------
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")   # removed at exit

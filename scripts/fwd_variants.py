@@ -8,8 +8,9 @@ in turns.
 
 The harness is scripts/dsplit_variants.py's: each variant is a copy of this
 checkout's sketchedit_tpu_torch with a few textual edits to
-csrc/contextual_attention_fwd.cu (an edit whose anchor is missing fails the
-run) under results/fwd_variants/<name>/, where it builds its own kernels;
+csrc/contextual_attention_fwd.cu or to the product's body in
+csrc/contextual_attention_wgmma.cuh (an edit whose anchor is missing fails
+the run) under results/fwd_variants/<name>/, where it builds its own kernels;
 all build in parallel, then each is timed in its own process, in the order
 given and then in reverse, so two variants run A B B A. ``--parent DIR``
 adds another checkout as it is (an unpacked parent commit) as the variant
@@ -27,7 +28,9 @@ adds another checkout as it is (an unpacked parent commit) as the variant
 One JSON line per variant, shape and dtype: the default and shared
 forwards' ms (CUDA events after warm-up, float32 output as on the main
 path) and the default one's host ms per call (its enqueue alone,
-``fwd_host_ms``), the largest |difference| of each from the plain version, the launch
+``fwd_host_ms``), a digest of the default one's output and lse
+(``fwd_digest``: two checkouts whose kernels compute the same bits give
+the same digest), the largest |difference| of each from the plain version, the launch
 plan where the checkout has ``fwd_scratch``, the device time of each phase
 of one default call from torch.profiler (``phase_ms``: the split keys and
 queries, the transposed values, the logits product, the softmax, the P V
@@ -43,6 +46,7 @@ main path (chip_smoke.py's inputs): 256^2 (B = 1 and 8), 512^2 and 1024^2
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -52,6 +56,8 @@ from dsplit_variants import ROOT, card, drive, make, report_ptxas  # noqa: E402
 
 OUT = os.path.join(ROOT, "results", "fwd_variants")
 FWD = os.path.join("sketchedit_tpu_torch", "csrc", "contextual_attention_fwd.cu")
+WGMMA = os.path.join("sketchedit_tpu_torch", "csrc",
+                     "contextual_attention_wgmma.cuh")
 
 STEP_WAIT = """  wg_wait<1>();  // the previous step's group is done
   pin(prev);
@@ -64,14 +70,16 @@ STAGE_END = """  wg_wait<0>();
 #pragma unroll
   for (int i = 0; i < kN / 2; ++i) sum[i] += f1[i];
 """
+# variant -> (edits to contextual_attention_fwd.cu, edits to the product's
+# body in contextual_attention_wgmma.cuh)
 VARIANTS = {
-    "committed": [],
-    "pvcols": [("using OutGemm = Gemm<kOutCols, kF32 ? kOutRowGroups : 1, kF32>;",
-                "using OutGemm = Gemm<kOutCols, 1, kF32>;")],
-    "wait0": [(STEP_WAIT, """  wg_wait<0>();
+    "committed": ([], []),
+    "pvcols": ([("using OutGemm = Gemm<kOutCols, kF32 ? kOutRowGroups : 1, kF32>;",
+                 "using OutGemm = Gemm<kOutCols, 1, kF32>;")], []),
+    "wait0": ([], [(STEP_WAIT, """  wg_wait<0>();
   pin(f);
 #pragma unroll
-  for (int i = 0; i < kN / 2; ++i) acc[i] += f[i];"""), (STAGE_END, "")],
+  for (int i = 0; i < kN / 2; ++i) acc[i] += f[i];"""), (STAGE_END, "")]),
 }
 SHAPES = ((1, 64, "float32"), (8, 64, "float32"), (1, 128, "float32"),
           (1, 256, "float32"), (1, 64, "bfloat16"), (8, 64, "bfloat16"),
@@ -145,6 +153,12 @@ def time_variant(root: str, name: str):
                "fwd_ms": cuda_ms(fwd, reps, warmup=1),
                "shared_ms": cuda_ms(shared, reps, warmup=1),
                "fwd_host_ms": host_ms(fwd)}
+        got = ac.attention_core(Q, V, V, keep, return_lse=True,
+                                out_dtype=f32, kscale=ksc)
+        row["fwd_digest"] = hashlib.sha1(torch.cat(
+            [t.flatten() for t in got]).cpu().numpy().tobytes()
+        ).hexdigest()[:16]
+        del got
         if hw < 256:
             want = ac.attention_core_reference(Q, V, V, keep, out_dtype=f32,
                                                kscale=ksc)
@@ -203,9 +217,12 @@ def main():
         return report_build(*args.build)
     if args.time:
         return time_variant(*args.time)
+    from dkdv_variants import edit_source
     names = list(dict.fromkeys(args.variants))
-    roots = {name: make(name, VARIANTS[name], FWD, ROOT, OUT)
+    roots = {name: make(name, VARIANTS[name][0], FWD, ROOT, OUT)
              for name in names}
+    for name in names:
+        edit_source(roots[name], WGMMA, VARIANTS[name][1])
     if args.parent:
         roots["parent"] = os.path.abspath(args.parent)
     drive(__file__, roots)

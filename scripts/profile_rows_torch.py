@@ -33,7 +33,7 @@ def category(name: str) -> str:
     low = name.lower()
     for kernel, cat in (("ca_fwd", "attention_fwd"),
                         ("ca_dq_kernel", "attention_dq"),
-                        ("ca_dkdv_kernel", "attention_dkdv"),
+                        ("ca_dkdv_", "attention_dkdv"),
                         ("ca_dk_or_dv_kernel", "attention_dk_dv")):
         if kernel in low:
             return cat

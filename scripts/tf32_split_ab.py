@@ -7,13 +7,14 @@ rounded on the bits (``to_tf32`` as committed) against the same split by
 
 Two copies of sketchedit_tpu_torch under results/tf32_split_ab/: ``bits``
 as committed and ``cvt``, whose ``to_tf32`` rounds with cvt.rna
-(scripts/dkdv_variants.py's ``cvt`` edit). Both build in parallel, then
+(scripts/dkdv_variants.py's ``CVT`` edit). Both build in parallel, then
 each is timed in its own process: bits, cvt, cvt, bits. One JSON line per
 copy, batch and dtype at 256^2 (B = 1 and 8, D = 1536, chip_smoke.py's
 inputs): ms by CUDA events after warm-up of the default and shared
-forwards (float32 output, as on the main path; they split their operands
-in their own prep kernels, not with ``to_tf32``, so they are the same
-code in both copies), dQ, dV, dK and the fused dK/dV; a digest of each kernel's output, which must be the same in both
+forwards (float32 output, as on the main path), dQ, dV, dK and the fused
+dK/dV (the wgmma forwards and the fused dK/dV split their operands in
+their own prep kernels, not with ``to_tf32``, so they are the same code in
+both copies); a digest of each kernel's output, which must be the same in both
 copies, since the two roundings give the same operands; and the card's
 name and power limit. Needs a GPU.
 """

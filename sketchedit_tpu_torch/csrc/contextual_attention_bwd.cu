@@ -10,31 +10,32 @@
 //   S_ij  = Q_i . K_eff_j,    P_ij = exp(S_ij g_j - lse_i)   (real j < P)
 //   dP_ij = dO_i . V_j,       dS_ij = P_ij (dP_ij - delta_i) g_j
 //   dq kernel:   dQ_i     = sum_j dS_ij K_eff_j
-//   dkdv kernel: dV_j     = sum_i P_ij dO_i,   dK_eff_j = sum_i dS_ij Q_i
+//   dkdv:        dV_j     = sum_i P_ij dO_i,   dK_eff_j = sum_i dS_ij Q_i
 //   dv kernel:   dV alone (reads neither V nor delta)
 //   dk kernel:   dK_eff alone
 //
 // The gate rules are the forward's: keep = 0 gives logit 0 (P = exp(-lse))
 // and a zero dS multiplier; keys past P contribute nothing; ragged N, P and
-// D are bounds checks, never padded copies. Q, K and V are float32 or
-// bfloat16; dO, lse, delta and every output are float32. All four kernels'
-// products run on the tensor cores in split TF32 (float32-accurate, as the
-// forwards'). dO is not rounded to the input type (the JAX package streams
-// it in the input type to halve its DMA): these kernels are bound by
-// operations, not bytes, so the rounding would buy nothing.
+// D are bounds checks or TMA's zero fill, never padded copies of the
+// inputs. Q, K and V are float32 or bfloat16; dO, lse, delta and every
+// output are float32. Every product runs on the tensor cores in split TF32
+// (float32-accurate, as the forwards'). dO is not rounded to the input type
+// (the JAX package streams it in the input type to halve its DMA): these
+// kernels are bound by operations, not bytes, so the rounding would buy
+// nothing.
 //
 // What bounds them on an H100. At 256^2 (N = P = 961, D = 1536) the dq
 // kernel runs three products of N P D multiply-adds (6 N P D = 8.5 GFLOP
 // per image, 0.127 ms at the SXM's 67 TFLOP/s of float32, 0.052 ms as split
-// TF32 at three passes of 495 TFLOP/s) and the dkdv kernel four (11.4
+// TF32 at three passes of 495 TFLOP/s) and the fused dK/dV four (11.4
 // GFLOP, 0.169 ms, 0.069 ms as split TF32), against ~30 MB of float32 traffic
 // (~0.009 ms): both are bound by operations. The dv kernel runs two
-// products and the dk kernel three, five together where the fused kernel
+// products and the dk kernel three, five together where the fused dK/dV
 // runs four, since both recompute S and P.
 //
 // Design. Blocks run in parallel, so the sequential axis of each TPU grid
-// becomes a loop inside the block, and each block owns its output rows
-// outright (no atomics, no second pass):
+// becomes a loop inside the block or a launch of its own, and each block
+// owns its output rows outright (no atomics, no second pass):
 // - dq: split TF32 on the tensor cores (mma.sync): 8 warps over kRows = 16 query
 //   rows (8 where 16-row blocks would leave SMs idle, the lower half of
 //   every A tile then zero) of one image, all keys, a slab of up to 1536 dQ
@@ -71,41 +72,41 @@
 //   Keys past the last real one of a tile are skipped. At D = 1536 a block
 //   takes 206 KB of shared memory and runs alone on its SM; D up to 1920
 //   fits, a wider D takes more column slabs, each recomputing S and dP.
-// - dkdv: one cluster of two blocks per (image, 16-key tile), 8 keys where
-//   16-key clusters would leave SMs idle and 8-key ones all fit at once
-//   (at 256^2, B = 1: 61 clusters of 16 in one wave, not 121 of 8 in two);
-//   the dK and dV kernels' block with D split over the pair. The block of
-//   rank h contracts columns [h Dc, min(D, (h + 1) Dc)) of D, Dc = ceil(D /
-//   2) rounded up to 4, for partial S^T = (K kscale) Q^T and dP^T = V dO^T,
-//   each warp 1/8 of that half (96 columns at D = 1536) through
-//   dk_dv_partial, the owned K rows of the half raw in the input type
-//   (kscale put on as S^T's A fragments are formed), S^T's partial moved to
-//   shared memory before dP^T runs so one partial at a time is held in
-//   registers. The eight warps' partials are summed in warp order and the
-//   pair adds its two sums through distributed shared memory (own + peer in
-//   both blocks: the same bits, as float addition commutes), so every logit
-//   is computed once and both blocks form the same P^T and dS^T. Each block
-//   then accumulates dV += P^T dO and dK_eff += dS^T Q over its 768 output
-//   columns, 96 a warp as 2 x 12 m16n8 fragments in registers (96 floats a
-//   thread, the dK and dV kernels' budget), one loop staging 8 rows of Q
-//   and of dO at the warp's columns with cp.async. All four products are
-//   split TF32 through mma_tile, a fresh accumulator per k8 step; in
-//   bfloat16 Q and K enter whole and only dO and K kscale are split. Two
-//   steps are in flight in each phase (14.5 KB a warp in float32): one or
-//   three measured slower (scripts/dkdv_variants.py); staging the
-//   accumulation's first steps before the weights are formed, or splitting
-//   a cluster barrier into its arrive and wait halves, measured no faster
-//   (PERF.md). A D wider than two 768-column halves takes more column slabs
-//   (clusters along y), each recomputing S^T and dP^T; the K tile over half
-//   of D bounds D at about 2800 in float32 and 6400 in bfloat16 (the
-//   forward kernels stop first, near 1750). Each block owns its output
-//   columns outright, so the result repeats bit for bit; a block takes
-//   186,880 bytes of shared memory in float32 at D = 1536 and runs alone on
-//   its SM. Like the dK and dV kernels, each warp is held back by its own
-//   chain of loads, splits, mma passes and FADDs: at 256^2, B = 8 the
-//   accumulation takes ~45% of a query tile, S^T and dP^T ~20% each, the
-//   reduction and exchange the rest (clocks on an NVIDIA H100 80GB HBM3,
-//   700.00 W).
+// - dkdv: the default forward's wgmma sequence (contextual_attention_fwd.cu
+//   header; contextual_attention_wgmma.cuh: TMA-fed warpgroup products, a
+//   fresh accumulator per k8 step added with one round-to-nearest FADD, no
+//   atomics and a fixed order, so two calls give the same bits), on a
+//   scratch the wrapper allocates. Phases, each one launch named
+//   ca_dkdv_*:
+//     prep     once a call, the TF32 terms of K (V's apart where V is not K;
+//              on the main path one set serves S and dP), of Q kscale and
+//              dO by rows (B, N, Dp), and of Q and dO transposed to (B, D,
+//              Np): TF32 wgmma takes both operands K-major (only 16-bit
+//              types may be transposed), and dV and dK contract over the
+//              queries. A bfloat16 Q or K is one exact term;
+//   then per chunk of key rows (the part of the scratch that grows with
+//   the keys, S, dP and the weights' terms, is capped as the forward's
+//   is, so large shapes take chunks):
+//     S        (Q kscale) K^T, the forward's logits block (64 queries x 128
+//              keys), its steps summed in runs of 16, each run added to
+//              the total with Kahan's compensation (kept in shared memory:
+//              the registers of a nine-warp block hold no more), which puts
+//              dK and dV 0.72-0.87x the dK and dV kernels' distance from
+//              float64 (relative L2) where plain run sums gave 0.91-1.13x;
+//     dP       dO V^T, the same block and sum (dS carries dP's error times
+//              P g, as S's through the softmax scale);
+//     weights  P = exp(S g - lse) and dS = P (dP - delta) g, written
+//              transposed (B, keys, Np) as TF32 terms through 32 x 32
+//              shared-memory tiles;
+//     dV, dK   P^T dO and dS^T Q, the forward's P V block (128 keys x 96
+//              columns, two warpgroups over the rows sharing each B box;
+//              dK in bfloat16 64 x 192, its Q^T one term), every step
+//              added to the total (a chain of 121 at N = 961, as the dV
+//              and dK kernels' accumulation).
+//   Every product takes its A operand split (Q kscale, dO, P^T and dS^T
+//   hold float32 values); the tensor maps' extents end the contraction at
+//   D or N, so TMA reads zeros past them. Shared memory sets no widest D.
+//   At 256^2, B = 1 every product is 128 blocks on 132 SMs.
 // - dv and dk: dq's block with the roles of owned and streamed rows
 //   swapped: 8 warps over kRows = 16 key rows (8 where 16-row blocks would
 //   leave SMs idle), all queries in tiles of kT = 64, a slab of up to 1536
@@ -144,14 +145,12 @@
 //   to dq's 48 for the same mma (scripts/dk_dv_variants.py clocks each
 //   phase; 16-row blocks, 8 where 16 leave SMs idle, 64-query tiles and a
 //   12.8 KB area measured best).
-// A dkdv block runs alone on its SM, as a dq, dv or dk block does. The dkdv
-// cluster needs sm_90.
-
-#include <cooperative_groups.h>
+// A dq, dv or dk block runs alone on its SM, as a dkdv product block does.
 
 #include <type_traits>
 
 #include "contextual_attention_common.cuh"
+#include "contextual_attention_wgmma.cuh"
 
 namespace {
 
@@ -505,12 +504,11 @@ template <typename T> using DkOwned = T;
 constexpr int kWLd = kTq + 4;         // weight rows (P^T or dS^T): 68 floats
 constexpr int kQLd = kTq + 8;         // partial rows: 72 floats
 
-// Steps in flight in a staging area of kArea bytes for a step of kBytes, at
-// most kMax.
-template <int kBytes, int kArea = kDkArea, int kMax = kArea / kBytes>
+// Steps in flight in a staging area for a step of kBytes.
+template <int kBytes>
 __host__ __device__ constexpr int dk_stages() {
-  static_assert(kBytes <= kArea, "a step must fit");
-  return kArea / kBytes < kMax ? kArea / kBytes : kMax;
+  static_assert(kBytes <= kDkArea, "a step must fit");
+  return kDkArea / kBytes;
 }
 
 // Shared-memory bytes of a dK or dV block: the owned K tile, the warps'
@@ -526,29 +524,27 @@ size_t dk_dv_smem_bytes(int D) {
 // [d_lo, d_lo + 16 nstep) of D, into acc[kTq / 8][4]: the block's kRows
 // owned rows (m16, keys) against the kTq streamed rows of the tile (n8
 // tiles of queries i0 ..), acc[j] the lane's C fragment of n8 tile j. The A
-// rows are the owned K tile's (kOwnA; its column 0 is column k_lo of D;
-// times kscale where kScaleA, for S, its 16 values staged with the step) or
-// V's owned rows, staged with the step (dP where V is not K); the B rows
-// are Bb's (Q in T for S, dO in float32 for dP), staged with cp.async in
-// the warp's own area of kArea bytes, steps ahead. Columns at or past dcap
-// are staged as 0. An operand holding float32 values is split (K kscale
+// rows are the owned K tile's (kOwnA; times kscale where kScaleA, for S,
+// its 16 values staged with the step) or V's owned rows, staged with the
+// step (dP where V is not K); the B rows are Bb's (Q in T for S, dO in
+// float32 for dP), staged with cp.async in the warp's own area, steps
+// ahead. Columns past D are staged as 0. An operand holding float32 values is split (K kscale
 // always; K, V and Q in float32; dO always), one holding bfloat16 data
 // enters whole. Lane (g, t) reads columns 4t .. 4t + 3 of a step: k = t and
 // t + 4 of k8 step h are 4t + 2h and + 1 on both sides. Two n8 tiles a pass
 // (four independent mma); tiles past the tile's last real query are
-// skipped. At most kMaxStages steps are in flight.
-template <typename T, typename TB, bool kOwnA, bool kScaleA, bool kVec,
-          int kArea = kDkArea, int kMaxStages = 64>
+// skipped.
+template <typename T, typename TB, bool kOwnA, bool kScaleA, bool kVec>
 __device__ __forceinline__ void dk_dv_partial(
     float (&acc)[kTq / 8][4], char* mine, const DkOwned<T>* ktile, int ldk,
-    int k_lo, const T* Vb, const float* ks_b, const TB* Bb, int i0, int N,
-    int qn, int j0, int rows, int P, int D, int dcap, int d_lo, int nstep) {
+    const T* Vb, const float* ks_b, const TB* Bb, int i0, int N, int qn,
+    int j0, int rows, int P, int D, int d_lo, int nstep) {
   constexpr bool kSplitA = kScaleA || sizeof(T) == sizeof(float);
   constexpr bool kSplitB = sizeof(TB) == sizeof(float);
   constexpr int kStepB = kTq * 16 * (int)sizeof(TB);
   constexpr int kStepV = kStepB + (kScaleA ? 16 * (int)sizeof(float) : 0);
   constexpr int kStep = kStepV + (kOwnA ? 0 : kRows * 16 * (int)sizeof(T));
-  constexpr int kStages = dk_stages<kStep, kArea, kMaxStages>();
+  constexpr int kStages = dk_stages<kStep>();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   auto stage = [&](int i) {
     if (i < nstep) {
@@ -560,12 +556,12 @@ __device__ __forceinline__ void dk_dv_partial(
       for (int n = 0; n < kTq * 4 / 32; ++n) {
         const int r = (lane >> 2) + 8 * n;
         copy4<kVec>(bd + r * 16 + q, Bb + r0 + (size_t)(8 * n) * D,
-                    i0 + r < N, d0 + q, dcap);
+                    i0 + r < N, d0 + q, D);
       }
       if constexpr (kScaleA) {
         if (lane < 4)
           copy4<kVec>(reinterpret_cast<float*>(slot + kStepB) + 4 * lane,
-                      ks_b, true, d0 + 4 * lane, dcap);
+                      ks_b, true, d0 + 4 * lane, D);
       }
       if constexpr (!kOwnA) {
         T* vd = reinterpret_cast<T*>(slot + kStepV);
@@ -573,7 +569,7 @@ __device__ __forceinline__ void dk_dv_partial(
         for (int n = 0; n < kRows * 4 / 32; ++n) {
           const int r = (lane >> 2) + 8 * n;
           copy4<kVec>(vd + r * 16 + q, Vb + (size_t)(j0 + r) * D,
-                      r < rows && j0 + r < P, d0 + q, dcap);
+                      r < rows && j0 + r < P, d0 + q, D);
         }
       }
     }
@@ -595,8 +591,8 @@ __device__ __forceinline__ void dk_dv_partial(
     const int d = d_lo + 16 * i + 4 * t;
     float4 xa, xb;
     if constexpr (kOwnA) {
-      xa = lds4(ktile + g * ldk + d - k_lo);
-      xb = lds4(ktile + (g + 8) * ldk + d - k_lo);
+      xa = lds4(ktile + g * ldk + d);
+      xb = lds4(ktile + (g + 8) * ldk + d);
     } else {
       const T* vs = reinterpret_cast<const T*>(slot + kStepV) + 4 * t;
       xa = lds4(vs + g * 16);
@@ -728,14 +724,14 @@ ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
     // 1. this warp's partial S^T = (K kscale) Q^T and, for dK, dP^T =
     // V dO^T over columns [d_lo, d_hi) of D
     float s[kTq / 8][4];
-    dk_dv_partial<T, T, true, true, kVec>(s, mine, kt, ldk, 0, nullptr,
-                                          ks_b, Qb, i0, N, qn, j0, rows, P,
-                                          D, D, d_lo, nstep);
+    dk_dv_partial<T, T, true, true, kVec>(s, mine, kt, ldk, nullptr, ks_b,
+                                          Qb, i0, N, qn, j0, rows, P, D,
+                                          d_lo, nstep);
     float dp[kTq / 8][4];
     if constexpr (kDK)
       dk_dv_partial<T, float, kSame, false, kVec>(
-          dp, mine, kt, ldk, 0, V + (size_t)b * P * D, ks_b, dOb, i0, N, qn,
-          j0, rows, P, D, D, d_lo, nstep);
+          dp, mine, kt, ldk, V + (size_t)b * P * D, ks_b, dOb, i0, N, qn,
+          j0, rows, P, D, d_lo, nstep);
 #pragma unroll
     for (int j = 0; j < kTq / 8; ++j) {
       float* ps = part + g * kQLd + 8 * j + 2 * t;
@@ -869,317 +865,182 @@ ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
   }
 }
 
-// The fused dK/dV kernel: kDkdvStages steps in flight in each phase. Each
-// warp accumulates kHalfGroups 32-column groups, a block kHalfCols columns.
-constexpr int kDkdvStages = 2;
-// A step of the accumulation: 8 streamed rows of Q (T) and of dO (float)
-// at a warp's columns, rows padded as dQ's K steps; a step of dP^T: 64 dO
-// rows at 16 columns, and V's 16 owned rows where V is not K; a warp's
-// partial S^T or dP^T [kRows][kQLd].
-template <typename T>
-constexpr int kDkdvLdQ = kHalfGroups * 32 + 32 / (int)sizeof(T);
-constexpr int kDkdvLdO = kHalfGroups * 32 + 8;
-template <typename T>
-constexpr int kDkdvStep3 = 8 * (kDkdvLdQ<T> * (int)sizeof(T) +
-                                kDkdvLdO * (int)sizeof(float));
-template <typename T>
-constexpr int kDkdvStepP =
-    (kTq * (int)sizeof(float) + kRows * (int)sizeof(T)) * 16;
-constexpr int kPartBytes = kRows * kQLd * (int)sizeof(float);
-// The per-warp staging area holds, in turn, steps of S^T (dk_dv_partial's),
-// then S^T's partial at its head and steps of dP^T behind it, then both
-// partials [2][kRows][kQLd], then steps of the accumulation: sized for
-// kDkdvStages steps of each (14,848 bytes in float32, 13,824 in bfloat16).
-// More steps in flight measured slower (scripts/dkdv_variants.py).
-template <typename T>
-constexpr int dkdv_area() {
-  const int acc = kDkdvStages * kDkdvStep3<T>;
-  const int dp = kPartBytes + kDkdvStages * kDkdvStepP<T>;
-  const int most = acc > dp ? acc : dp;
-  return most > 2 * kPartBytes ? most : 2 * kPartBytes;
-}
-template <typename T> constexpr int kDkdvArea = dkdv_area<T>();
+// --- the fused dK/dV: TMA-fed wgmma ------------------------------------------
+// (the prep bodies and the product's body: contextual_attention_wgmma.cuh)
 
-// Shared-memory bytes of a dK/dV block: the owned K tile over the block's
-// contraction half of D (in the input type), the warps' areas, P^T and dS^T
-// [kRows][kWLd] each, the block's summed S^T and dP^T for the peer (the
-// same), lse and delta per streamed query.
+constexpr int kKeyCols = 64;     // keys a warpgroup in S and dP
+constexpr int kGradCols = 96;    // output columns a warpgroup in dV and dK
+constexpr int kScoreGroup = kSumStages;  // stages S and dP sum apart
+constexpr bool kScoreKahan = true;       // and add to their totals
+constexpr int kGradGroup = 0;            // and dV and dK (every step)
+
+// Rows r0 .. r0 + rc of each image of `in` (B, rows_in, D), times ks (B, D)
+// where given, as TF32 terms (B, rc, Dp); one block a row.
 template <typename T>
-size_t dkdv_smem_bytes(int D) {
-  return (size_t)kRows * mma_q_ld(half_cut(D)) * sizeof(T) +
-         (size_t)kWarps * kDkdvArea<T> +
-         sizeof(float) * (4 * kRows * kWLd + 2 * kTq);
+__global__ void __launch_bounds__(256)
+ca_dkdv_split_rows(const T* in, const float* ks, float* hi, float* lo,
+                   int rows_in, int r0, int rc, int D) {
+  split_rows(in, ks, hi, lo, rows_in, r0, rc, D);
 }
 
-// One cluster of two blocks: key rows [j0, j0 + rows) of one image (rows is
-// 16, or 8 with the lower half of every A tile zero), all queries. The
-// block of rank h contracts columns [h Dc, min(D, (h + 1) Dc)) of D, Dc =
-// half_cut(D), for partial S^T and dP^T, sums them with its peer's through
-// distributed shared memory, and accumulates dV and dK_eff over columns
-// [s kSlab + h kHalfCols, + kHalfCols) of D, s = blockIdx.y / 2 the column
-// slab. kSame: V is K (one pointer), so dP^T takes its A rows from the
-// owned K tile. kVec: D is a multiple of 4 and every pointer is 16-byte
-// aligned.
-template <typename T, bool kSame, bool kVec>
-__global__ void __cluster_dims__(1, 2, 1) __launch_bounds__(kThreads, 1)
-ca_dkdv_kernel(const T* Q, const T* K, const T* V, const float* keep,
-               const float* kscale, const float* dO, const float* lse,
-               const float* delta, float* dK, float* dV, int rows, int N,
-               int P, int D, float scale) {
-  constexpr bool kSplitQ = sizeof(T) == sizeof(float);   // dO is always
-  constexpr int kLdQ = kDkdvLdQ<T>, kLdO = kDkdvLdO;
-  constexpr int kOOff = 8 * kLdQ * (int)sizeof(T);       // dO's rows, bytes
-  constexpr int kStep3 = kDkdvStep3<T>;
-  constexpr int kArea = kDkdvArea<T>;
-  constexpr int kStages3 = dk_stages<kStep3, kArea, kDkdvStages>();
-  constexpr int kChunks = kHalfGroups * 8;   // four-element chunks of a row
-  static_assert(kChunks <= 32, "a row's chunks a copy");
-  static_assert(2 * kPartBytes <= kArea, "the partials must fit");
-  cooperative_groups::cluster_group cluster =
-      cooperative_groups::this_cluster();
-  extern __shared__ __align__(16) float smem[];
-  const int rank = blockIdx.y & 1;               // == cluster.block_rank()
-  const int Dc = half_cut(D);
-  const int c_lo = rank * Dc, c_hi = min(D, c_lo + Dc);   // contracted
-  const int Ds = mma_cols(Dc), ldk = mma_q_ld(Dc), kcols = kWarps * Ds;
-  T* kt = reinterpret_cast<T*>(smem);                     // [kRows][ldk]
-  char* areas = reinterpret_cast<char*>(kt + kRows * ldk);
-  float* wp_s = reinterpret_cast<float*>(areas + kWarps * kArea);
-  float* wds_s = wp_s + kRows * kWLd;            // P^T and dS^T [kRows][kWLd]
-  float* xs = wds_s + kRows * kWLd;              // [2][kRows][kWLd]
-  float* lse_s = xs + 2 * kRows * kWLd;          // [kTq]
-  float* delta_s = lse_s + kTq;                  // [kTq]
-  const float* peer_xs = cluster.map_shared_rank(xs, rank ^ 1);
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z;
-  const int j0 = blockIdx.x * rows;
-  const T* Qb = Q + (size_t)b * N * D;
-  const T* Kb = K + (size_t)b * P * D;
-  const float* dOb = dO + (size_t)b * N * D;
-  const float* ks_b = kscale + (size_t)b * D;
-  char* mine = areas + w * kArea;                // this warp's area
-  float* part = reinterpret_cast<float*>(mine);  // [2][kRows][kQLd]
+// X (B, N, D) transposed to (B, D, Np) as TF32 terms, 0 past N.
+template <typename T>
+__global__ void __launch_bounds__(256)
+ca_dkdv_split_t(const T* X, float* hi, float* lo, int N, int D) {
+  split_t(X, hi, lo, N, D);
+}
 
-  // the owned K rows over this block's half of D, raw; rows past the tile
-  // or P and columns past the half are 0
-  for (int i = tid; i < kRows * kcols; i += kThreads) {
-    const int r = i / kcols, d = i % kcols;
-    store(kt + r * ldk + d,
-          r < rows && j0 + r < P && c_lo + d < c_hi
-              ? to_f(Kb[(size_t)(j0 + r) * D + c_lo + d]) : 0.f);
+// Where a product's epilogue writes: out[b * bstride + i * ld + j] = acc for
+// rows i < rows and columns j < cols of image b.
+struct GradEpi {
+  float* out;
+  long long bstride;
+  int rows, cols, ld;
+};
+
+// A product of the fused dK/dV (S, dP, dV or dK): wgmma_product's block,
+// summing its steps in runs of kGroup stages where kGroup > 0 (the runs
+// added to the total with Kahan's compensation where kCompensate), and a
+// plain float32 store of each accumulator.
+template <int kWN, int kMW, bool kSplitB, int kStages, int kGroup,
+          bool kCompensate>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ca_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
+                     const __grid_constant__ CUtensorMap a_lo,
+                     const __grid_constant__ CUtensorMap b_hi,
+                     const __grid_constant__ CUtensorMap b_lo, int K,
+                     GradEpi e) {
+  constexpr int kBM = kTileM * kMW, kBN = kWN * 2 / kMW;  // the block's tile
+  float acc[kWN / 2];
+  if (!wgmma_product<kWN, kMW, kSplitB, kStages, kGroup, kCompensate>(
+          a_hi, a_lo, b_hi, b_lo, K, acc))
+    return;                                               // the producer
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
+  // acc[4j + 2v + h] is row r + 8v, column cb + 8j + h
+  const int r = blockIdx.x * kBM + (kMW == 2 ? wg * kTileM : 0) +
+                16 * (warp & 3) + (lane >> 2);
+  const int cb = blockIdx.y * kBN + (kMW == 2 ? 0 : wg * kWN) + 2 * (lane & 3);
+  float* o = e.out + (long long)blockIdx.z * e.bstride;
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    const int i = r + 8 * v;
+    if (i >= e.rows) continue;
+    float* orow = o + (long long)i * e.ld;
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = cb + 8 * j + h;
+        if (col < e.cols) orow[col] = acc[4 * j + 2 * v + h];
+      }
   }
-  __syncthreads();  // the K tile is written
-  // the weights: warp w forms keys 2w and 2w + 1, 16 lanes a key, 4 queries
-  // a lane; a key past the tile or P, or a gated one (g = 0), has weight 0
-  // in dS^T, and a key past the tile or P in P^T
-  const int srow = 2 * w + (lane >> 4), sq = 4 * (lane & 15);
-  const bool key_in = srow < rows && j0 + srow < P;
-  const float gm = key_in ? keep[(size_t)b * P + j0 + srow] * scale : 0.f;
+}
 
-  float acc_v[kHalfGroups][4][4], acc_k[kHalfGroups][4][4];
-#pragma unroll
-  for (int c = 0; c < kHalfGroups; ++c)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_v[c][j][e] = acc_k[c][j][e] = 0.f;
-  const int d_lo = c_lo + w * Ds, d_hi = min(c_hi, d_lo + Ds);
-  const int nstep = d_hi > d_lo ? (d_hi - d_lo + 15) / 16 : 0;
-  const int cw = (blockIdx.y >> 1) * kSlab + rank * kHalfCols +
-                 w * (kHalfGroups * 32);         // the warp's output columns
-
-  for (int i0 = 0; i0 < N; i0 += kTq) {
-    const int qn = min(kTq, N - i0);             // real queries of the tile
-    // read after the barrier that ends the partial products; the previous
-    // tile's readers passed the barrier after its weights
-    if (tid < kTq) {
-      const bool in = tid < qn;
-      lse_s[tid] = in ? lse[(size_t)b * N + i0 + tid] : 0.f;
-      delta_s[tid] = in ? delta[(size_t)b * N + i0 + tid] : 0.f;
+// The weights of one chunk of rc keys from r0 on, a block a 32 x 32 tile
+// of (queries, keys): with g = keep * scale, P = exp(S g - lse) and dS =
+// P (dP - delta) g from S and dP (B, N, ld), written transposed, keys by
+// queries (B, rc, Np), as TF32 terms; 0 past N.
+__global__ void __launch_bounds__(256)
+ca_dkdv_weights(const float* s, const float* dp, const float* keep,
+                const float* lse, const float* delta, float* p_hi,
+                float* p_lo, float* d_hi, float* d_lo, int N, int P, int r0,
+                int rc, int ld, float scale) {
+  __shared__ float tp[32][33], td[32][33];
+  const int Np = round4(N);
+  const int b = blockIdx.z, j0 = blockIdx.x * 32, i0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int u = ty; u < 32; u += 8) {
+    const int i = i0 + u, j = j0 + tx;
+    float p = 0.f, d = 0.f;
+    if (i < N && j < rc) {
+      const long long o = ((long long)b * N + i) * ld + j;
+      const float g = keep[(long long)b * P + r0 + j] * scale;
+      p = expf(s[o] * g - lse[(long long)b * N + i]);
+      d = p * (dp[o] - delta[(long long)b * N + i]) * g;
     }
-    // 1. this warp's partial S^T = (K kscale) Q^T and dP^T = V dO^T over
-    // columns [d_lo, d_hi) of this block's half of D; S^T's partial goes to
-    // the head of the area before dP^T stages behind it, so one partial at
-    // a time is held in registers. Lane (g, t) holds rows g and g + 8,
-    // queries 8j + 2t and + 1 of n8 tile j.
-    const auto put = [&](float* pt, const float (&x)[kTq / 8][4]) {
-#pragma unroll
-      for (int j = 0; j < kTq / 8; ++j) {
-        float* pj = pt + g * kQLd + 8 * j + 2 * t;
-        *reinterpret_cast<float2*>(pj) = make_float2(x[j][0], x[j][1]);
-        *reinterpret_cast<float2*>(pj + 8 * kQLd) =
-            make_float2(x[j][2], x[j][3]);
-      }
-    };
-    {
-      float s[kTq / 8][4];
-      dk_dv_partial<T, T, true, true, kVec, kArea, kDkdvStages>(
-          s, mine, kt, ldk, c_lo, nullptr, ks_b, Qb, i0, N, qn, j0, rows, P,
-          D, c_hi, d_lo, nstep);
-      put(part, s);
-    }
-    {
-      float dp[kTq / 8][4];
-      dk_dv_partial<T, float, kSame, false, kVec, kArea - kPartBytes,
-                    kDkdvStages>(
-          dp, mine + kPartBytes, kt, ldk, c_lo, V + (size_t)b * P * D, ks_b,
-          dOb, i0, N, qn, j0, rows, P, D, c_hi, d_lo, nstep);
-      put(part + kRows * kQLd, dp);
-    }
-    __syncthreads();  // every partial is written
-
-    // 2. this block's S^T and dP^T: the eight partials, summed in warp
-    // order, put where the peer reads them (it passed the last tile's
-    // second cluster barrier once it was done with the last tile's)
-    const float* p0 = reinterpret_cast<const float*>(areas) + srow * kQLd + sq;
-    float4 sx = lds4(p0), dx = lds4(p0 + kRows * kQLd);
-#pragma unroll
-    for (int u = 1; u < kWarps; ++u) {
-      const float* pu =
-          reinterpret_cast<const float*>(areas + u * kArea) +
-          srow * kQLd + sq;
-      const float4 y = lds4(pu), z = lds4(pu + kRows * kQLd);
-      sx.x += y.x; sx.y += y.y; sx.z += y.z; sx.w += y.w;
-      dx.x += z.x; dx.y += z.y; dx.z += z.z; dx.w += z.w;
-    }
-    *reinterpret_cast<float4*>(xs + srow * kWLd + sq) = sx;
-    *reinterpret_cast<float4*>(xs + (kRows + srow) * kWLd + sq) = dx;
-    cluster.sync();  // both blocks' sums are written; every partial is read
-
-    // 3. S^T = own + peer and dP^T = own + peer: the same bits in both
-    // blocks, since float addition commutes, so both form the same weights
-    // P = exp(S g - lse) and dS = P (dP - delta) g; queries past N weigh 0
-    {
-      const float4 py = lds4(peer_xs + srow * kWLd + sq);
-      const float4 pz = lds4(peer_xs + (kRows + srow) * kWLd + sq);
-      float wv[4], wd[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        wv[e] = wd[e] = 0.f;
-        if (key_in && sq + e < qn) {
-          const float p =
-              expf((elem(sx, e) + elem(py, e)) * gm - lse_s[sq + e]);
-          wv[e] = p;
-          wd[e] = p * (elem(dx, e) + elem(pz, e) - delta_s[sq + e]) * gm;
-        }
-      }
-      *reinterpret_cast<float4*>(wp_s + srow * kWLd + sq) =
-          make_float4(wv[0], wv[1], wv[2], wv[3]);
-      *reinterpret_cast<float4*>(wds_s + srow * kWLd + sq) =
-          make_float4(wd[0], wd[1], wd[2], wd[3]);
-    }
-    // The peer has read this block's sums: the next tile may overwrite
-    // them. This also keeps each block's shared memory alive until its peer
-    // is done with it, so nothing after the last tile needs another
-    // barrier; and the weights are written.
-    cluster.sync();
-
-    // 4. dV += P^T dO and dK_eff += dS^T Q over this warp's columns, 8
-    // queries a step: step i stages rows i0 + 8i .. + 7 of Q and dO at the
-    // warp's columns, kStages3 - 1 steps ahead; group c's rows t and t + 4
-    // at columns 32c + 4g .. + 3 give the B fragments of its four n8 tiles
-    // (tile e's column n is 32c + 4n + e), for dO and for Q
-    const int nstep3 = cw < D ? (qn + 7) / 8 : 0;
-    auto stage3 = [&](int i) {
-      if (i < nstep3) {
-        char* slot = mine + (i % kStages3) * kStep3;
-        T* qd = reinterpret_cast<T*>(slot);
-        float* od = reinterpret_cast<float*>(slot + kOOff);
-        const int r0 = i0 + 8 * i;
-        // a row a copy, lanes past its chunks idle: one column offset a
-        // lane (six a lane cost the float32 builds spills)
-        const int q = 4 * lane;
-#pragma unroll (kVec ? 8 : 1)
-        for (int r = 0; r < 8 && lane < kChunks; ++r) {
-          const bool ok = r0 + r < N;
-          copy4<kVec>(qd + r * kLdQ + q, Qb + (size_t)(r0 + r) * D, ok,
-                      cw + q, D);
-          copy4<kVec>(od + r * kLdO + q, dOb + (size_t)(r0 + r) * D, ok,
-                      cw + q, D);
-        }
-      }
-      cp_commit();
-    };
-#pragma unroll
-    for (int i = 0; i < kStages3 - 1; ++i) stage3(i);
-#pragma unroll 1
-    for (int i = 0; i < nstep3; ++i) {
-      stage3(i + kStages3 - 1);
-      cp_wait<kStages3 - 1>();
-      __syncwarp();                    // step i is staged, by every lane
-      uint32_t aph[1][4], apl[1][4], adh[1][4], adl[1][4];
-      // A fragments {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int o = (g + 8 * (r & 1)) * kWLd + 8 * i + t + 4 * (r >> 1);
-        to_tf32<true>(wp_s[o], aph[0][r], apl[0][r]);
-        to_tf32<true>(wds_s[o], adh[0][r], adl[0][r]);
-      }
-      const char* slot = mine + (i % kStages3) * kStep3;
-      const T* qb = reinterpret_cast<const T*>(slot);
-      const float* ob = reinterpret_cast<const float*>(slot + kOOff);
-#pragma unroll
-      for (int c = 0; c < kHalfGroups; ++c) {
-        uint32_t bh[4][2], bl[4][2];
-        float x[4][4];
-        fence();
-        const float4 oa = lds4(ob + t * kLdO + 32 * c + 4 * g);
-        const float4 oc = lds4(ob + (t + 4) * kLdO + 32 * c + 4 * g);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          to_tf32<true>(elem(oa, e), bh[e][0], bl[e][0]);
-          to_tf32<true>(elem(oc, e), bh[e][1], bl[e][1]);
-#pragma unroll
-          for (int n = 0; n < 4; ++n) x[e][n] = 0.f;
-        }
-        mma_tile<true, true, 4, 1>(x, aph, apl, bh, bl);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) add_into(acc_v[c][e], x[e]);
-        fence();
-        const float4 qa = lds4(qb + t * kLdQ + 32 * c + 4 * g);
-        const float4 qc = lds4(qb + (t + 4) * kLdQ + 32 * c + 4 * g);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          to_tf32<kSplitQ>(elem(qa, e), bh[e][0], bl[e][0]);
-          to_tf32<kSplitQ>(elem(qc, e), bh[e][1], bl[e][1]);
-#pragma unroll
-          for (int n = 0; n < 4; ++n) x[e][n] = 0.f;
-        }
-        mma_tile<true, kSplitQ, 4, 1>(x, adh, adl, bh, bl);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) add_into(acc_k[c][e], x[e]);
-      }
-      __syncwarp();                    // every lane is done with step i
-    }
-    cp_wait<0>();
-    __syncwarp();
+    tp[u][tx] = p;
+    td[u][tx] = d;
   }
-
-  // each thread writes the columns it accumulated, as accumulated (dK_eff
-  // is the gradient of the keys K kscale)
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const int r = g + 8 * hi;
-    if (r >= rows || j0 + r >= P) continue;
-    float* krow = dK + ((size_t)b * P + j0 + r) * D;
-    float* vrow = dV + ((size_t)b * P + j0 + r) * D;
-#pragma unroll
-    for (int c = 0; c < kHalfGroups; ++c) {
-      const int col = cw + 32 * c + 8 * t;  // tile e, n = 2t (+1): col + e (+4)
-#pragma unroll
-      for (int o = 0; o < 2; ++o) {
-        const int e2 = 2 * hi + o;
-        store4<kVec>(krow, col + 4 * o, D,
-                     make_float4(acc_k[c][0][e2], acc_k[c][1][e2],
-                                 acc_k[c][2][e2], acc_k[c][3][e2]));
-        store4<kVec>(vrow, col + 4 * o, D,
-                     make_float4(acc_v[c][0][e2], acc_v[c][1][e2],
-                                 acc_v[c][2][e2], acc_v[c][3][e2]));
-      }
+  __syncthreads();
+  for (int u = ty; u < 32; u += 8) {
+    const int j = j0 + u, i = i0 + tx;
+    if (j < rc && i < Np) {
+      const long long o = ((long long)b * rc + j) * Np + i;
+      put_terms(tp[tx][u], p_hi, p_lo, o);
+      put_terms(td[tx][u], d_hi, d_lo, o);
     }
   }
 }
+
+// The scratch of one call, in bytes from its start (each part 256-byte
+// aligned): the TF32 terms of K (and V's where V is not K; lo parts only
+// for float32 input), of Q kscale and dO (B, N, Dp), of Q and dO
+// transposed (B, D, Np; Q's lo only for float32 input), then, for a chunk
+// of `rows` keys, S and dP (B, N, ld), ld = rows rounded up to 4, and the
+// terms of P^T and dS^T (B, rows, Np).
+struct GradLayout {
+  int Dp, Np, ld;
+  size_t kh, kl, vh, vl, qh, ql, oh, ol, qth, qtl, oth, otl;
+  size_t s, dp, ph, pl, dh, dl, total;
+};
+
+GradLayout grad_layout(bool f32, bool same, int B, int N, int P, int D,
+                       int rows) {
+  GradLayout L;
+  L.Dp = round4(D);
+  L.Np = round4(N);
+  L.ld = round4(rows);
+  size_t at = 0;
+  const auto take = [&](size_t bytes) {
+    const size_t o = at;
+    at = (at + bytes + 255) / 256 * 256;
+    return o;
+  };
+  const size_t kb = 4 * (size_t)B * P * L.Dp, qb = 4 * (size_t)B * N * L.Dp;
+  const size_t tb = 4 * (size_t)B * D * L.Np;
+  const size_t sb = 4 * (size_t)B * N * L.ld, wb = 4 * (size_t)B * rows * L.Np;
+  L.kh = take(kb);
+  L.kl = f32 ? take(kb) : L.kh;
+  L.vh = same ? L.kh : take(kb);
+  L.vl = same ? L.kl : (f32 ? take(kb) : L.vh);
+  L.qh = take(qb);
+  L.ql = take(qb);
+  L.oh = take(qb);
+  L.ol = take(qb);
+  L.qth = take(tb);
+  L.qtl = f32 ? take(tb) : L.qth;
+  L.oth = take(tb);
+  L.otl = take(tb);
+  L.s = take(sb);
+  L.dp = take(sb);
+  L.ph = take(wb);
+  L.pl = take(wb);
+  L.dh = take(wb);
+  L.dl = take(wb);
+  L.total = at;
+  return L;
+}
+
+// Key rows a chunk: all P where the chunked part of the scratch (S, dP and
+// the weights' terms) fits in `cap` bytes, else the most multiples of 128
+// (dV's and dK's row block in float32) that fit, at least 128.
+int grad_chunk_rows(int B, int N, int P, long long cap) {
+  const long long per_row = 4ll * B * (2ll * N + 4ll * round4(N));
+  if ((long long)P * per_row <= cap) return P;
+  const long long rows = cap / per_row / 128 * 128;
+  return (int)(rows < 128 ? (P < 128 ? P : 128) : (rows > P ? P : rows));
+}
+
+// The products' block shapes, the forward's: S and dP as its logits (64
+// queries x 128 keys), dV and dK as its P V (128 keys x 96 columns, two
+// warpgroups over the rows sharing each B box, where B is split; 64 x 192
+// for dK in bfloat16, whose Q^T terms are one, half the bytes). Each gives
+// 128 blocks at 256^2, B = 1.
+template <bool kF32>
+using ScoreGemm =
+    Gemm<kKeyCols, 1, kF32, kScoreKahan ? kCompBytes<kKeyCols> : 0>;
+template <bool kSplitB>
+using GradGemm = Gemm<kGradCols, kSplitB ? 2 : 1, kSplitB>;
 
 struct Args {
   const void *q, *k, *v;
@@ -1188,7 +1049,9 @@ struct Args {
   int B, N, P, D;
   float scale;
   cudaStream_t stream;
-  int* plan = nullptr;  // dQ and dK/dV: fill the launch plan, do not launch
+  int* plan = nullptr;  // fill the launch plan, do not launch
+  void* scratch = nullptr;  // the fused dK/dV's scratch
+  int rows = 0;             // and its key rows a chunk
 };
 
 // dQ with `rows` query rows a block; with a.plan, the launch plan instead.
@@ -1230,50 +1093,201 @@ int launch_dq_rows(const Args& a) {
              : launch_dq<T, false, false>(a, rows);
 }
 
-// The fused dK/dV kernel with `rows` key rows a cluster; with a.plan, the
-// launch plan instead.
-template <typename T, bool kSame, bool kVec>
-int launch_dkdv(const Args& a, int rows) {
-  const size_t smem = dkdv_smem_bytes<T>(a.D);
-  const auto kernel = ca_dkdv_kernel<T, kSame, kVec>;
-  if (int err = opt_in_smem(kernel, smem)) return err;
-  const dim3 grid((a.P + rows - 1) / rows, 2 * ((a.D + kSlab - 1) / kSlab),
-                  a.B);
-  if (a.plan != nullptr) return cluster_plan(kernel, grid, smem, rows, a.plan);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.keep, a.kscale, a.dO, a.lse, a.delta,
-      a.out, a.out2, rows, a.N, a.P, a.D, a.scale);
+// One product of the fused dK/dV: a grid of Gemm<kWN, kMW, kSplitB>
+// blocks over rows x cols of each image (with room for the compensations
+// where kCompensate); with per_sm, the resident blocks per SM instead of
+// a launch.
+template <int kWN, int kMW, bool kSplitB, int kGroup, bool kCompensate>
+int launch_grad_gemm(int rows, int cols, int B, const CUtensorMap (&m)[4],
+                     int K, const GradEpi& e, cudaStream_t stream,
+                     int* per_sm = nullptr) {
+  using G = Gemm<kWN, kMW, kSplitB, kCompensate ? kCompBytes<kWN> : 0>;
+  const auto kernel = ca_dkdv_wgmma_kernel<kWN, kMW, kSplitB, G::kStages,
+                                           kGroup, kCompensate>;
+  static std::atomic<unsigned long long> opted{0};
+  if (int err = opt_in_once(kernel, G::kSmem, opted)) return err;
+  if (per_sm != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, kernel, kWgThreads, G::kSmem);
+  kernel<<<G::grid(rows, cols, B), kWgThreads, G::kSmem, stream>>>(
+      m[0], m[1], m[2], m[3], K, e);
   return (int)cudaGetLastError();
 }
 
-// dK_eff and dV together, in clusters of two blocks that run one per SM:
-// 16-key clusters where they give every SM a block, or where 8-key ones
-// would not all fit at once (at 256^2, B = 1: 61 clusters of 16 keys in one
-// wave, not 121 of 8 in two); 8 keys otherwise (the D-split forward's
-// rule). dK's builds: one whose owned K rows serve S^T and dP^T where V is
-// K (the main path's call), one that stages V's rows; 16-byte copies where
-// D is a multiple of 4 and every pointer is aligned, else element by
-// element.
+// The fused dK/dV on a.scratch, laid out by grad_layout() for chunks of
+// a.rows key rows: the prep launches, then S, dP, the weights, dV and dK
+// per chunk. a.out is dK_eff, a.out2 dV.
 template <typename T>
-int launch_dkdv_rows(const Args& a) {
-  if (a.B > 65535) return (int)cudaErrorInvalidValue;
-  const auto blocks = [&](int tile) {
-    return 2LL * ((a.D + kSlab - 1) / kSlab) * a.B * ((a.P + tile - 1) / tile);
-  };
-  const int rows =
-      blocks(kRows) >= sm_count() || blocks(8) > sm_count() ? kRows : 8;
-  const auto aligned = [](const void* p) {
-    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const bool vec = a.D % 4 == 0 && aligned(a.q) && aligned(a.k) &&
-                   aligned(a.v) && aligned(a.dO) && aligned(a.kscale) &&
-                   aligned(a.out) && aligned(a.out2);
-  if (a.k != a.v)
-    return vec ? launch_dkdv<T, false, true>(a, rows)
-               : launch_dkdv<T, false, false>(a, rows);
-  return vec ? launch_dkdv<T, true, true>(a, rows)
-             : launch_dkdv<T, true, false>(a, rows);
+int launch_dkdv(const Args& a) {
+  constexpr bool kF32 = sizeof(T) == sizeof(float);
+  const int B = a.B, N = a.N, P = a.P, D = a.D, rows = a.rows;
+  if (rows <= 0 || rows > P || B > 65535 || (long long)B * P > 0x7fffffff ||
+      (long long)B * N > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const bool same = a.k == a.v;
+  const GradLayout L = grad_layout(kF32, same, B, N, P, D, rows);
+  char* base = static_cast<char*>(a.scratch);
+  const auto at = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
+  float *kh = at(L.kh), *kl = kF32 ? at(L.kl) : nullptr;
+  float *vh = at(L.vh), *vl = kF32 ? at(L.vl) : nullptr;
+  float *qh = at(L.qh), *ql = at(L.ql), *oh = at(L.oh), *ol = at(L.ol);
+  float *qth = at(L.qth), *qtl = kF32 ? at(L.qtl) : nullptr;
+  float *oth = at(L.oth), *otl = at(L.otl);
+  float *s = at(L.s), *dp = at(L.dp), *ph = at(L.ph), *pl = at(L.pl);
+  float *dh = at(L.dh), *dl = at(L.dl);
+  cudaStream_t st = a.stream;
+
+  ca_dkdv_split_rows<T><<<B * P, 256, 0, st>>>(k, nullptr, kh, kl, P, 0, P,
+                                               D);
+  if (int err = (int)cudaGetLastError()) return err;
+  if (!same) {
+    ca_dkdv_split_rows<T><<<B * P, 256, 0, st>>>(v, nullptr, vh, vl, P, 0,
+                                                 P, D);
+    if (int err = (int)cudaGetLastError()) return err;
+  }
+  ca_dkdv_split_rows<T><<<B * N, 256, 0, st>>>(q, a.kscale, qh, ql, N, 0, N,
+                                               D);
+  if (int err = (int)cudaGetLastError()) return err;
+  ca_dkdv_split_rows<float><<<B * N, 256, 0, st>>>(a.dO, nullptr, oh, ol, N,
+                                                   0, N, D);
+  if (int err = (int)cudaGetLastError()) return err;
+  const dim3 tgrid((L.Np + 31) / 32, (D + 31) / 32, B);
+  ca_dkdv_split_t<T><<<tgrid, 256, 0, st>>>(q, qth, qtl, N, D);
+  if (int err = (int)cudaGetLastError()) return err;
+  ca_dkdv_split_t<float><<<tgrid, 256, 0, st>>>(a.dO, oth, otl, N, D);
+  if (int err = (int)cudaGetLastError()) return err;
+
+  using GS = ScoreGemm<kF32>;
+  using GV = GradGemm<true>;           // dO^T is split in both dtypes
+  using GK = GradGemm<kF32>;
+  // ms: S = (Q kscale) K^T, mp: dP = dO V^T over D; mv: dV = P^T dO, mk:
+  // dK_eff = dS^T Q over the queries, whose extent N ends every map's
+  // contraction there (TMA reads zeros past it)
+  CUtensorMap ms[4], mp[4], mv[4], mk[4];
+  const long long qstride = (long long)N * L.Dp, tstride = (long long)D * L.Np;
+  if (int err = make_map(&ms[0], qh, D, N, B, L.Dp, qstride, GS::kBM))
+    return err;
+  if (int err = make_map(&ms[1], ql, D, N, B, L.Dp, qstride, GS::kBM))
+    return err;
+  if (int err = make_map(&mp[0], oh, D, N, B, L.Dp, qstride, GS::kBM))
+    return err;
+  if (int err = make_map(&mp[1], ol, D, N, B, L.Dp, qstride, GS::kBM))
+    return err;
+  if (int err = make_map(&mv[2], oth, N, D, B, L.Np, tstride, GV::kBN))
+    return err;
+  if (int err = make_map(&mv[3], otl, N, D, B, L.Np, tstride, GV::kBN))
+    return err;
+  if (int err = make_map(&mk[2], qth, N, D, B, L.Np, tstride, GK::kBN))
+    return err;
+  if (int err = make_map(&mk[3], kF32 ? qtl : qth, N, D, B, L.Np, tstride,
+                         GK::kBN))
+    return err;
+  const long long kstride = (long long)P * L.Dp;
+  for (int r0 = 0; r0 < P; r0 += rows) {
+    const int rc = rows < P - r0 ? rows : P - r0;
+    const long long ko = (long long)r0 * L.Dp;
+    if (int err = make_map(&ms[2], kh + ko, D, rc, B, L.Dp, kstride, GS::kBN))
+      return err;
+    if (int err = make_map(&ms[3], (kF32 ? kl : kh) + ko, D, rc, B, L.Dp,
+                           kstride, GS::kBN))
+      return err;
+    if (int err = make_map(&mp[2], vh + ko, D, rc, B, L.Dp, kstride, GS::kBN))
+      return err;
+    if (int err = make_map(&mp[3], (kF32 ? vl : vh) + ko, D, rc, B, L.Dp,
+                           kstride, GS::kBN))
+      return err;
+    const long long sstride = (long long)N * L.ld;
+    constexpr auto score = launch_grad_gemm<kKeyCols, 1, kF32, kScoreGroup,
+                                            kScoreKahan>;
+    if (int err = score(N, rc, B, ms, D, GradEpi{s, sstride, N, rc, L.ld}, st,
+                        nullptr))
+      return err;
+    if (int err = score(N, rc, B, mp, D, GradEpi{dp, sstride, N, rc, L.ld},
+                        st, nullptr))
+      return err;
+    ca_dkdv_weights<<<dim3((rc + 31) / 32, (L.Np + 31) / 32, B), 256, 0,
+                      st>>>(s, dp, a.keep, a.lse, a.delta, ph, pl, dh, dl, N,
+                            P, r0, rc, L.ld, a.scale);
+    if (int err = (int)cudaGetLastError()) return err;
+    const long long wstride = (long long)rc * L.Np;
+    if (int err = make_map(&mv[0], ph, N, rc, B, L.Np, wstride, GV::kBM))
+      return err;
+    if (int err = make_map(&mv[1], pl, N, rc, B, L.Np, wstride, GV::kBM))
+      return err;
+    if (int err = make_map(&mk[0], dh, N, rc, B, L.Np, wstride, GK::kBM))
+      return err;
+    if (int err = make_map(&mk[1], dl, N, rc, B, L.Np, wstride, GK::kBM))
+      return err;
+    const long long ostride = (long long)P * D, oo = (long long)r0 * D;
+    constexpr auto grad_v =
+        launch_grad_gemm<kGradCols, GV::kMW, true, kGradGroup, false>;
+    constexpr auto grad_k =
+        launch_grad_gemm<kGradCols, GK::kMW, kF32, kGradGroup, false>;
+    if (int err = grad_v(rc, D, B, mv, N,
+                         GradEpi{a.out2 + oo, ostride, rc, D, D}, st, nullptr))
+      return err;
+    if (int err = grad_k(rc, D, B, mk, N,
+                         GradEpi{a.out + oo, ostride, rc, D, D}, st, nullptr))
+      return err;
+  }
+  return 0;
+}
+
+// The plan of launch_dkdv for these shapes and chunk rows (V taken to be
+// K, as on the main path), without a launch: plan[0] chunk rows, [1]
+// chunks, [2] S blocks (dP's are the same; a full chunk's grid), [3]
+// weights blocks, [4] dV blocks, [5] dK blocks, [6] - [8] the S, dV and dK
+// products' dynamic shared memory per block, [9] - [11] their stages, [12]
+// - [14] their resident blocks per SM, [15] threads a product block, [16]
+// launches per call, [17] and [18] the S block's rows and columns, [19]
+// and [20] dV's, [21] and [22] dK's.
+template <typename T>
+int plan_dkdv(int B, int N, int P, int D, int rows, int* plan) {
+  constexpr bool kF32 = sizeof(T) == sizeof(float);
+  using GS = ScoreGemm<kF32>;
+  using GV = GradGemm<true>;
+  using GK = GradGemm<kF32>;
+  if (rows <= 0 || rows > P) return (int)cudaErrorInvalidValue;
+  const CUtensorMap none[4] = {};
+  const GradEpi e{};
+  const auto blocks = [](dim3 g) { return (int)(g.x * g.y * g.z); };
+  const int chunks = (P + rows - 1) / rows;
+  plan[0] = rows;
+  plan[1] = chunks;
+  plan[2] = blocks(GS::grid(N, rows, B));
+  plan[3] = ((rows + 31) / 32) * ((round4(N) + 31) / 32) * B;
+  plan[4] = blocks(GV::grid(rows, D, B));
+  plan[5] = blocks(GK::grid(rows, D, B));
+  plan[6] = (int)GS::kSmem;
+  plan[7] = (int)GV::kSmem;
+  plan[8] = (int)GK::kSmem;
+  plan[9] = GS::kStages;
+  plan[10] = GV::kStages;
+  plan[11] = GK::kStages;
+  if (int err = launch_grad_gemm<kKeyCols, 1, kF32, kScoreGroup,
+                                 kScoreKahan>(1, 1, 1, none, 0, e, nullptr,
+                                              &plan[12]))
+    return err;
+  if (int err = launch_grad_gemm<kGradCols, GV::kMW, true, kGradGroup,
+                                 false>(1, 1, 1, none, 0, e, nullptr,
+                                        &plan[13]))
+    return err;
+  if (int err = launch_grad_gemm<kGradCols, GK::kMW, kF32, kGradGroup,
+                                 false>(1, 1, 1, none, 0, e, nullptr,
+                                        &plan[14]))
+    return err;
+  plan[15] = kWgThreads;
+  plan[16] = 5 + 5 * chunks;
+  plan[17] = GS::kBM;
+  plan[18] = GS::kBN;
+  plan[19] = GV::kBM;
+  plan[20] = GV::kBN;
+  plan[21] = GK::kBM;
+  plan[22] = GK::kBN;
+  return 0;
 }
 
 // dK_eff (kDK) or dV with `rows` key rows a block; with a.plan, the launch
@@ -1326,7 +1340,9 @@ int launch(int which, const Args& a) {
     case 0:
       return launch_dq_rows<T>(a);
     case 1:
-      return launch_dkdv_rows<T>(a);
+      if (a.plan != nullptr)
+        return plan_dkdv<T>(a.B, a.N, a.P, a.D, a.rows, a.plan);
+      return launch_dkdv<T>(a);
     case 2:
       return launch_dk_dv_rows<T, false>(a);
     case 3:
@@ -1365,29 +1381,51 @@ int sketchedit_contextual_attention_dq(int dtype, const void* q,
                        static_cast<cudaStream_t>(stream)});
 }
 
+// The fused dK/dV: the same arguments as dq, the two outputs, and a scratch
+// of sketchedit_contextual_attention_dkdv_scratch's bytes for these shapes
+// and its `rows` key rows a chunk.
 int sketchedit_contextual_attention_dkdv(int dtype, const void* q,
                                          const void* k, const void* v,
                                          const void* keep, const void* kscale,
                                          const void* dO, const void* lse,
                                          const void* delta, void* dk,
-                                         void* dv, int B, int N, int P, int D,
+                                         void* dv, void* scratch, int B,
+                                         int N, int P, int D, int rows,
                                          float scale, void* stream) {
-  return launch_typed(1, dtype,
-                      {q, k, v, f(keep), f(kscale), f(dO), f(lse), f(delta),
-                       f(dk), f(dv), B, N, P, D, scale,
-                       static_cast<cudaStream_t>(stream)});
+  Args a{q, k, v, f(keep), f(kscale), f(dO), f(lse), f(delta),
+         f(dk), f(dv), B, N, P, D, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.scratch = scratch;
+  a.rows = rows;
+  return launch_typed(1, dtype, a);
 }
 
-// The fused dK/dV kernel's launch plan for these shapes on the current
-// device, without a launch (V taken to be K, as on the main path): plan[0]
-// tile keys, [1] blocks per cluster, [2] the most clusters resident at once
-// (cudaOccupancyMaxActiveClusters), [3] dynamic shared-memory bytes per
-// block, [4] clusters in the grid.
-int sketchedit_contextual_attention_dkdv_plan(int dtype, int B, int N, int P,
-                                              int D, int* plan) {
+// Bytes of scratch the fused dK/dV needs for these shapes (same: V is K,
+// one pointer) when the part that grows with the key rows (S, dP and the
+// weights' terms) may take `cap` bytes; *rows gets the key rows a chunk.
+// Returns -1 for shapes it refuses.
+long long sketchedit_contextual_attention_dkdv_scratch(int dtype, int same,
+                                                       int B, int N, int P,
+                                                       int D, long long cap,
+                                                       int* rows) {
+  if (B <= 0 || N <= 0 || P <= 0 || D <= 0 || cap <= 0 ||
+      (dtype != 0 && dtype != 1))
+    return -1;
+  *rows = grad_chunk_rows(B, N, P, cap);
+  return (long long)grad_layout(dtype == 0, same != 0, B, N, P, D, *rows)
+      .total;
+}
+
+// The fused dK/dV's launch plan for these shapes and `rows` key rows a
+// chunk on the current device, without a launch: the 23 ints plan_dkdv
+// fills.
+int sketchedit_contextual_attention_dkdv_plan(int dtype, int rows, int B,
+                                              int N, int P, int D,
+                                              int* plan) {
   Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
          nullptr, nullptr, nullptr, B,       N,       P,       D,
          0.f,     nullptr, plan};
+  a.rows = rows;
   return launch_typed(1, dtype, a);
 }
 

@@ -1,11 +1,11 @@
 // Device code shared by the contextual-attention kernels for Hopper
 // (contextual_attention_fwd.cu and contextual_attention_bwd.cu): the
 // float32-accurate tensor-core product (split TF32 on mma.sync) that the
-// D-split forward and the four backward kernels are built on, with their
-// block shape, per-warp cp.async staging and launch plans. Every one of
-// them runs kThreads = 256 threads a block and walks its streamed axis in
-// tiles of kT = 64. (The default and shared forwards run wgmma instead:
-// hopper_async.cuh.)
+// D-split forward and the dQ, dV and dK backward kernels are built on,
+// with their block shape, per-warp cp.async staging and launch plans.
+// Every one of them runs kThreads = 256 threads a block and walks its
+// streamed axis in tiles of kT = 64. (The default and shared forwards and
+// the fused dK/dV run wgmma instead: contextual_attention_wgmma.cuh.)
 
 #pragma once
 
@@ -107,9 +107,9 @@ __device__ __forceinline__ void mma_tile(float (&c)[kN][4],
 // is kWarps warps over kRows owned rows (queries in dQ; keys in dK and dV)
 // and a slab of kSlab output columns; warp w
 // owns kGroups 32-column groups of the slab, and contracts Ds = mma_cols(D)
-// columns of D for its partial S. The kernels whose clusters split D over
-// two blocks (ca_fwd_dsplit_kernel, ca_dkdv_kernel) give each warp
-// kHalfGroups groups, a block kHalfCols columns.
+// columns of D for its partial S. The D-split forward, whose clusters split
+// D over two blocks (ca_fwd_dsplit_kernel), gives each warp kHalfGroups
+// groups, a block kHalfCols columns.
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;                    // the mma's m16
 constexpr int kGroups = 6;                   // 192 columns a warp
@@ -253,7 +253,7 @@ int sm_count() {
   return count;
 }
 
-// The width of the first half of D in the kernels whose clusters split D:
+// The width of the first half of D in the D-split forward's clusters:
 // ceil(D / 2), rounded up to 4 (float4 rows).
 __host__ __device__ inline int half_cut(int D) {
   return ((D + 1) / 2 + 3) / 4 * 4;

@@ -51,7 +51,9 @@
 //   P V     the same kernel over K = P keys, a block 128 rows x 96 output
 //           columns in float32, 64 x 192 in bfloat16; the epilogue writes
 //           O = acc / l in the output type.
-// ca_fwd_wgmma_kernel is two consumer warpgroups and a producer warp: the
+// ca_fwd_wgmma_kernel (its body, wgmma_product in
+// contextual_attention_wgmma.cuh, serves the fused dK/dV backward too) is
+// two consumer warpgroups and a producer warp: the
 // producer's lane 0 keeps TMA boxes (32 contraction elements x the tile's
 // rows, 128-byte swizzle, out-of-bounds elements zero-filled, which
 // replaces the ragged edges' bounds checks) of all four terms in flight
@@ -144,12 +146,10 @@
 // m16 tiles lifts that to 0.28 (scripts/dsplit_variants.py clocks).
 // Inference only.
 
-#include <atomic>
-
 #include <cooperative_groups.h>
 
 #include "contextual_attention_common.cuh"
-#include "hopper_async.cuh"
+#include "contextual_attention_wgmma.cuh"
 
 namespace {
 
@@ -529,37 +529,11 @@ ca_fwd_dsplit_kernel(const T* Q, const T* K, const T* V, const float* keep,
     }
 }
 // --- the default and shared forwards: TMA-fed wgmma ------------------------
+// (the prep bodies and the product's body: contextual_attention_wgmma.cuh)
 
-constexpr int kWgThreads = 288;  // two consumer warpgroups, one producer warp
-constexpr int kTileM = 64;       // query rows a block: wgmma's m64
-constexpr int kChunk = 32;       // contraction elements a stage: 128 bytes
 constexpr int kLogitCols = 64;   // keys a warpgroup in S
 constexpr int kOutCols = 96;     // output columns a warpgroup in P V
 constexpr int kOutRowGroups = 2; // P V's warpgroups over the rows (float32)
-constexpr int kSumStages = 4;    // stages S sums apart before its total
-
-__host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
-
-// x as two TF32 terms with their low 13 bits clear, x = hi + lo to within
-// 2^-22 |x|: hi = rna(x), lo = rna(x - hi) (to_tf32's rounding on the bits).
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-  lo = __uint_as_float((__float_as_uint(x - hi) + 0x1000u) & 0xffffe000u);
-}
-
-// x into hi[i] and lo[i] as TF32 terms, or into hi[i] alone where lo is
-// null (the value is exact in TF32: bfloat16 data).
-__device__ __forceinline__ void put_terms(float x, float* hi, float* lo,
-                                          long long i) {
-  if (lo == nullptr) {
-    hi[i] = x;
-    return;
-  }
-  float h, l;
-  split_tf32(x, h, l);
-  hi[i] = h;
-  lo[i] = l;
-}
 
 // Rows r0 .. r0 + rc of each image of `in` (B, rows_in, D), times ks (B, D)
 // where given, in float32, as TF32 terms into hi and lo (B, rc, Dp), 0 past
@@ -568,19 +542,7 @@ template <typename T>
 __global__ void __launch_bounds__(256)
 ca_fwd_split_rows(const T* in, const float* ks, float* hi, float* lo,
                   int rows_in, int r0, int rc, int D) {
-  const int Dp = round4(D);
-  const int b = blockIdx.x / rc, r = blockIdx.x % rc;
-  const T* src = in + ((long long)b * rows_in + r0 + r) * D;
-  const float* sc = ks == nullptr ? nullptr : ks + (long long)b * D;
-  const long long o = (long long)blockIdx.x * Dp;
-  for (int d = threadIdx.x; d < Dp; d += blockDim.x) {
-    float x = 0.f;
-    if (d < D) {
-      x = to_f(src[d]);
-      if (sc != nullptr) x *= sc[d];
-    }
-    put_terms(x, hi, lo, o + d);
-  }
+  split_rows(in, ks, hi, lo, rows_in, r0, rc, D);
 }
 
 // V (B, P, D) transposed to (B, D, Pp) as TF32 terms, 0 past P; 32 x 32
@@ -588,21 +550,7 @@ ca_fwd_split_rows(const T* in, const float* ks, float* hi, float* lo,
 template <typename T>
 __global__ void __launch_bounds__(256)
 ca_fwd_split_vt(const T* V, float* hi, float* lo, int P, int D) {
-  __shared__ float tile[32][33];
-  const int Pp = round4(P);
-  const int b = blockIdx.z, p0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const T* Vb = V + (long long)b * P * D;
-  for (int i = ty; i < 32; i += 8) {
-    const int p = p0 + i, d = d0 + tx;
-    tile[i][tx] = p < P && d < D ? to_f(Vb[(long long)p * D + d]) : 0.f;
-  }
-  __syncthreads();
-  for (int i = ty; i < 32; i += 8) {
-    const int d = d0 + i, p = p0 + tx;
-    if (d < D && p < Pp)
-      put_terms(tile[tx][i], hi, lo, ((long long)b * D + d) * Pp + p);
-  }
+  split_t(V, hi, lo, P, D);
 }
 
 // Where a product's epilogue writes. Logits: s[b][i][j] (rows x ld) =
@@ -617,62 +565,9 @@ struct Epi {
   int rows, cols, ld, N, r0;
 };
 
-// One k8 step of a warpgroup's product into the fresh accumulator f (a
-// pass per term: lo hi, hi lo where B is split, hi hi); then, once all but
-// this step's wgmma are done, the previous step's fresh accumulator `prev`
-// added into acc where `add_prev`.
-template <int kN, bool kSplitB>
-__device__ __forceinline__ void k8_step(float (&acc)[kN / 2],
-                                        float (&f)[kN / 2],
-                                        float (&prev)[kN / 2], uint64_t ah,
-                                        uint64_t al, uint64_t bh, uint64_t bl,
-                                        bool add_prev) {
-  wg_fence();
-  wgmma_tf32<kN>(f, al, bh, 0);
-  if constexpr (kSplitB) wgmma_tf32<kN>(f, ah, bl, 1);
-  wgmma_tf32<kN>(f, ah, bh, 1);
-  wg_commit();
-  wg_wait<1>();  // the previous step's group is done
-  pin(prev);
-  if (add_prev) {
-#pragma unroll
-    for (int i = 0; i < kN / 2; ++i) acc[i] += prev[i];
-  }
-}
-
-// One stage's four k8 steps (32 bytes, 2 descriptor units, apart in each
-// row) added into sum, alternating the fresh accumulators f0 and f1 so a
-// step's FADDs overlap the next step's wgmma; the last step is waited for
-// before the stage is released (an overlap carried across stages made
-// ptxas serialize every wgmma, C7514).
-template <int kN, bool kSplitB>
-__device__ __forceinline__ void stage_product(float (&sum)[kN / 2],
-                                              float (&f0)[kN / 2],
-                                              float (&f1)[kN / 2],
-                                              uint64_t ah, uint64_t al,
-                                              uint64_t bh, uint64_t bl) {
-  k8_step<kN, kSplitB>(sum, f0, f1, ah, al, bh, bl, false);
-  k8_step<kN, kSplitB>(sum, f1, f0, ah + 2, al + 2, bh + 2, bl + 2, true);
-  k8_step<kN, kSplitB>(sum, f0, f1, ah + 4, al + 4, bh + 4, bl + 4, true);
-  k8_step<kN, kSplitB>(sum, f1, f0, ah + 6, al + 6, bh + 6, bl + 6, true);
-  wg_wait<0>();
-  pin(f1);
-#pragma unroll
-  for (int i = 0; i < kN / 2; ++i) sum[i] += f1[i];
-}
-
-// C[b] = A[b] B[b]^T over K contraction elements, A (rows x K) and B
-// (cols x K) K-major float32 tensors given as their TF32 terms through
-// tensor maps (a_hi, a_lo, b_hi and, where B is split, b_lo). Warps 0-7
-// are two consumer warpgroups, each a 64-row x kWN-column tile: side by
-// side over the columns (kMW = 1: a block is 64 x 2 kWN) or one above the
-// other over the rows (kMW = 2: 128 x kWN, sharing each B box). Warp 8 is
-// the producer: its lane 0 keeps kStages stages of 32 contraction elements
-// in flight (each stage: the A terms' and the B terms' boxes, 128-byte
-// swizzled; a `full` mbarrier per stage counts their bytes, an `empty`
-// one the eight consumer warps' release). Each warpgroup runs a stage's
-// four k8 steps with stage_product. kLogits picks the epilogue and S's
-// grouped sum.
+// The logits (kLogits) or P V product: wgmma_product's block (A the
+// query rows' terms, B the keys' or the transposed values'), S summing its
+// steps in runs of kSumStages stages, and the epilogue e.
 template <int kWN, int kMW, bool kSplitB, int kStages, bool kLogits,
           typename TO>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -682,79 +577,14 @@ ca_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                     const __grid_constant__ CUtensorMap b_lo, int K,
                     Epi e) {
   constexpr int kBM = kTileM * kMW, kBN = kWN * 2 / kMW;  // the block's tile
-  constexpr int kA = kBM * 128, kB = kBN * 128;           // bytes a box
-  constexpr int kStage = 2 * kA + (kSplitB ? 2 : 1) * kB;
-  constexpr int kR = kWN / 2;                             // floats a thread
-  extern __shared__ uint8_t smem_raw[];
-  // 128-byte swizzled boxes want 1024-byte aligned stages
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage);
-  uint64_t* empty = full + kStages;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.z, row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
-  const int nchunk = (K + kChunk - 1) / kChunk;
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp == 8) {  // the producer
-    if (lane == 0) {
-      for (int c = 0; c < nchunk; ++c) {
-        const int s = c % kStages;
-        mbar_wait(&empty[s], ((c / kStages) & 1) ^ 1);
-        uint8_t* st = smem + s * kStage;
-        mbar_expect_tx(&full[s], kStage);
-        tma_load3(st, &a_hi, &full[s], c * kChunk, row0, b);
-        tma_load3(st + kA, &a_lo, &full[s], c * kChunk, row0, b);
-        tma_load3(st + 2 * kA, &b_hi, &full[s], c * kChunk, col0, b);
-        if constexpr (kSplitB)
-          tma_load3(st + 2 * kA + kB, &b_lo, &full[s], c * kChunk, col0, b);
-      }
-    }
-    return;
-  }
-
-  // a consumer warpgroup: its 64 x kWN tile's offsets in the block's
-  const int wg = warp >> 2;
+  float acc[kWN / 2];
+  if (!wgmma_product<kWN, kMW, kSplitB, kStages, kLogits ? kSumStages : 0>(
+          a_hi, a_lo, b_hi, b_lo, K, acc))
+    return;                                               // the producer
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
   const int wrow = kMW == 2 ? wg * kTileM : 0;
   const int wcol = kMW == 2 ? 0 : wg * kWN;
-  // S sums each run of kSumStages stages (16 k8 steps) apart and adds
-  // that to its total: a float32 sum over all of D's 192 k8 steps in one
-  // chain drifts ~3x further from float64 than the mma.sync kernels'
-  // per-warp partials (a chain of ~30), and the softmax scale amplifies S's
-  // error tenfold. P V (K = P keys) adds every step to its total.
-  float acc[kR], f0[kR], f1[kR], part[kLogits ? kR : 1];
-#pragma unroll
-  for (int i = 0; i < kR; ++i) acc[i] = f0[i] = f1[i] = 0.f;
-  for (int c = 0; c < nchunk; ++c) {
-    const int s = c % kStages;
-    mbar_wait(&full[s], (c / kStages) & 1);
-    const uint8_t* st = smem + s * kStage;
-    const uint64_t ah = desc_sw128(st + wrow * 128);
-    const uint64_t al = desc_sw128(st + kA + wrow * 128);
-    const uint64_t bh = desc_sw128(st + 2 * kA + wcol * 128);
-    const uint64_t bl =
-        kSplitB ? desc_sw128(st + 2 * kA + kB + wcol * 128) : 0;
-    if constexpr (kLogits) {
-      if (c % kSumStages == 0) {
-#pragma unroll
-        for (int i = 0; i < kR; ++i) part[i] = 0.f;
-      }
-      stage_product<kWN, kSplitB>(part, f0, f1, ah, al, bh, bl);
-      if (c % kSumStages == kSumStages - 1 || c == nchunk - 1) {
-#pragma unroll
-        for (int i = 0; i < kR; ++i) acc[i] += part[i];
-      }
-    } else {
-      stage_product<kWN, kSplitB>(acc, f0, f1, ah, al, bh, bl);
-    }
-    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with it
-  }
+  const int b = blockIdx.z, row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
 
   // acc[4j + h] is row 16 (warp % 4) + g (+ 8 for h >= 2), column 8j + 2t
   // (+ 1 for odd h) of the warpgroup's tile
@@ -890,22 +720,6 @@ int chunk_rows(int B, int N, int P, int D, long long cap) {
   return (int)(rows < kTileM ? kTileM : (rows > N ? N : rows));
 }
 
-// A product's block shape and pipeline: warpgroups of 64 x kWN, kMW of
-// them over the rows; as many stages as fit the opt-in shared memory.
-template <int kWN, int kMWv, bool kSplitB> struct Gemm {
-  static constexpr int kMW = kMWv;
-  static constexpr int kBM = kTileM * kMW, kBN = kWN * 2 / kMW;
-  static constexpr int kStage = 2 * kBM * 128 + (kSplitB ? 2 : 1) * kBN * 128;
-  static constexpr int kStages =
-      (int)((kMaxSmem - 1024) / (kStage + 16)) > 8
-          ? 8
-          : (int)((kMaxSmem - 1024) / (kStage + 16));
-  static constexpr size_t kSmem = (size_t)kStages * (kStage + 16) + 1024;
-  static dim3 grid(int rows, int cols, int B) {
-    return dim3((rows + kBM - 1) / kBM, (cols + kBN - 1) / kBN, B);
-  }
-};
-
 // The products' block shapes. Each moves its operands' terms from L2 for
 // every block, and that traffic per multiply-add is what sets their pace,
 // so the shapes follow it. Logits: 64 query rows x 128 keys (two
@@ -920,18 +734,6 @@ template <int kWN, int kMWv, bool kSplitB> struct Gemm {
 template <bool kF32> using LogitGemm = Gemm<kLogitCols, 1, kF32>;
 template <bool kF32>
 using OutGemm = Gemm<kOutCols, kF32 ? kOutRowGroups : 1, kF32>;
-
-// Sets a kernel's dynamic shared memory once per device it runs on.
-template <typename Kernel>
-int opt_in_once(Kernel kernel, size_t smem, std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  if (int err = (int)cudaGetDevice(&dev)) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load() & bit) return 0;
-  if (int err = opt_in_smem(kernel, smem)) return err;
-  done.fetch_or(bit);
-  return 0;
-}
 
 template <int kWN, int kMW, bool kSplitB, bool kLogits, typename TO>
 int launch_gemm(int rows, int cols, int B, const CUtensorMap (&m)[4], int K,

@@ -17,11 +17,12 @@ flash-style backward comes in the same two forms:
 ``attention_core_dq`` and ``attention_core_dkdv`` launch the kernels of
 ``csrc/contextual_attention_bwd.cu`` (replacing ``_dq_kernel`` and
 ``_dkdv_kernel``; the dQ kernel runs its three products on the tensor cores
-in split TF32, as the default forward does, and ``dq_plan`` says how it
-runs a shape; the dK/dV kernel is a two-block cluster over D, like the
-D-split forward, with its four products on the tensor cores in split
-TF32, and ``dkdv_plan`` says how it runs a shape) on CUDA
-tensors and take their plain versions on CPU ones, as do the single-output
+in split TF32, and ``dq_plan`` says how it runs a shape; the fused dK/dV
+is the default forward's sequence of launches on warpgroup ``wgmma`` fed
+by TMA: the operands' TF32 terms in a scratch, then per chunk of key rows
+S, dP, a weights pass forming P^T and dS^T, dV = P^T dO and dK = dS^T Q as
+products, ``dkdv_scratch`` and ``dkdv_plan`` say how it runs a shape) on
+CUDA tensors and take their plain versions on CPU ones, as do the single-output
 ``attention_core_dv`` and
 ``attention_core_dk`` (``_dv_kernel``, ``_dk_kernel``: dQ's block with
 keys owned and queries streamed, on the tensor cores in split TF32;
@@ -104,7 +105,8 @@ LAUNCHES_DK = 0
 _COUNT_LOCK = threading.Lock()
 # The default and shared forwards' scratch may spend up to this many bytes
 # on the part that grows with the query rows (their split terms, the
-# logits, P's terms); a larger call takes its query rows in chunks.
+# logits, P's terms), the fused dK/dV's on the part that grows with the key
+# rows (S, dP, the weights' terms); a larger call takes them in chunks.
 SCRATCH_CAP = 256 << 20
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -116,7 +118,7 @@ _ENTRY_POINTS = {
     "fwd_dsplit": ("contextual_attention_fwd", 2, 7, 4),
     "fwd_shared": ("contextual_attention_fwd", 2, 6, 4),
     "dq": ("contextual_attention_bwd", 1, 9, 4),
-    "dkdv": ("contextual_attention_bwd", 1, 10, 4),
+    "dkdv": ("contextual_attention_bwd", 1, 11, 5),
     "dv": ("contextual_attention_bwd", 1, 7, 4),
     "dk": ("contextual_attention_bwd", 1, 9, 4),
 }
@@ -365,23 +367,24 @@ def fwd_scratch(B: int, N: int, P: int, D: int, dtype=torch.float32,
     these shapes, and the query rows of each chunk, when the part that
     grows with the query rows may take ``cap`` bytes (``SCRATCH_CAP`` by
     default)."""
-    return _fwd_scratch(_DTYPE_CODES[dtype], B, N, P, D,
-                        SCRATCH_CAP if cap is None else cap)
+    return _scratch("fwd", _DTYPE_CODES[dtype], B, N, P, D,
+                    cap=SCRATCH_CAP if cap is None else cap)
 
 
 @functools.lru_cache(maxsize=256)
-def _fwd_scratch(code: int, B: int, N: int, P: int, D: int,
-                 cap: int) -> tuple[int, int]:
+def _scratch(name: str, *ints: int, cap: int) -> tuple[int, int]:
+    """(bytes, rows) from the C entry point ``..._<name>_scratch``, which
+    takes ``ints``, the cap and a pointer that gets the chunk's rows."""
     from sketchedit_tpu_torch.ops import _build
-    lib = _build.load()["contextual_attention_fwd"]
-    fn = lib.sketchedit_contextual_attention_fwd_scratch
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+    lib = _build.load()[_ENTRY_POINTS[name][0]]
+    fn = getattr(lib, f"sketchedit_contextual_attention_{name}_scratch")
+    fn.argtypes = ([ctypes.c_int] * len(ints)
+                   + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_longlong
     rows = ctypes.c_int(0)
-    nbytes = fn(code, B, N, P, D, cap, ctypes.addressof(rows))
+    nbytes = fn(*ints, cap, ctypes.addressof(rows))
     if nbytes < 0:
-        raise ValueError(f"no forward scratch for B={B}, N={N}, P={P}, "
-                         f"D={D}")
+        raise ValueError(f"no {name} scratch for {ints}")
     return int(nbytes), rows.value
 
 
@@ -425,13 +428,47 @@ def dq_plan(B: int, N: int, P: int, D: int, dtype=torch.float32) -> dict:
     return _plan("dq", (_DTYPE_CODES[dtype],), B, N, P, D, _FWD_PLAN_KEYS)
 
 
-def dkdv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32) -> dict:
-    """How the fused dK/dV kernel runs these shapes on the current CUDA
-    device, without launching it, in ``dsplit_plan``'s keys: the key tile's
-    rows (``tile_rows``), the blocks of a cluster, the most clusters
-    resident at once, each block's dynamic shared memory in bytes, and the
-    clusters of the grid."""
-    return _plan("dkdv", (_DTYPE_CODES[dtype],), B, N, P, D)
+def dkdv_scratch(B: int, N: int, P: int, D: int, dtype=torch.float32,
+                 same: bool = True, cap: Optional[int] = None
+                 ) -> tuple[int, int]:
+    """(bytes, rows): the scratch the fused dK/dV takes for these shapes
+    (``same``: V is K, one tensor, whose terms serve S and dP), and the key
+    rows of each chunk, when the part that grows with the key rows may take
+    ``cap`` bytes (``SCRATCH_CAP`` by default)."""
+    return _scratch("dkdv", _DTYPE_CODES[dtype], int(same), B, N, P, D,
+                    cap=SCRATCH_CAP if cap is None else cap)
+
+
+# the phases of the fused dK/dV, in launch order: the split copies (by
+# rows: K, Q kscale, dO; transposed: Q, dO), then per chunk of key rows
+# the S and dP products, the weights pass and the dV and dK products
+DKDV_PHASES = ("keys", "queries", "grads", "queries_t", "grads_t", "logits",
+               "dp", "weights", "dv", "dk")
+_DKDV_PLAN_KEYS = ("chunk_rows", "chunks", "logits_blocks", "weights_blocks",
+                   "dv_blocks", "dk_blocks", "logits_smem_bytes",
+                   "dv_smem_bytes", "dk_smem_bytes", "logits_stages",
+                   "dv_stages", "dk_stages", "logits_blocks_per_sm",
+                   "dv_blocks_per_sm", "dk_blocks_per_sm",
+                   "threads_per_block", "launches_per_call",
+                   "logits_block_rows", "logits_block_cols",
+                   "dv_block_rows", "dv_block_cols", "dk_block_rows",
+                   "dk_block_cols")
+
+
+def dkdv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
+              cap: Optional[int] = None) -> dict:
+    """How the fused dK/dV runs these shapes on the current CUDA device (V
+    taken to be K, as on the main path), without launching it: the key
+    rows of a chunk and the chunks, the blocks of the S (``logits``; dP's
+    are the same), weights, dV and dK launches of a full chunk, the three
+    product kinds' dynamic shared memory per block, their pipeline stages
+    and resident blocks per SM, the threads of a product block, the CUDA
+    launches per call, each product's block rows and columns, ``phases``
+    in launch order and the scratch in bytes (``dkdv_scratch``)."""
+    nbytes, rows = dkdv_scratch(B, N, P, D, dtype, True, cap)
+    plan = _plan("dkdv", (_DTYPE_CODES[dtype], rows), B, N, P, D,
+                 _DKDV_PLAN_KEYS)
+    return {**plan, "phases": list(DKDV_PHASES), "scratch_bytes": nbytes}
 
 
 def dk_dv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
@@ -524,16 +561,16 @@ def _kscale_or_ones(Q, kscale):
                       device=Q.device)
 
 
-def _launch_bwd(name, Q, K, tensors, softmax_scale):
+def _launch_bwd(name, Q, K, tensors, softmax_scale, extra=()):
     """Launch the backward kernel ``name`` with Q's dtype code, the data
-    pointers of ``tensors`` in the C signature's order, and the
-    dimensions."""
+    pointers of ``tensors`` in the C signature's order, the dimensions and
+    the ints ``extra`` after them."""
     B, N, D = Q.shape
     P = K.shape[1]
     fn, err_str = _kernel(name)
     with torch.cuda.device(Q.device):  # a launch runs on the current device
         rc = fn(_DTYPE_CODES[Q.dtype], *(t.data_ptr() for t in tensors),
-                B, N, P, D, float(softmax_scale),
+                B, N, P, D, *extra, float(softmax_scale),
                 torch.cuda.current_stream(Q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"contextual_attention_{name} launch failed "
@@ -676,8 +713,13 @@ def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
 @_dkdv_op.register_kernel("cuda")
 def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
     dK, dV = _f32_like(K, K)
+    B, N, D = Q.shape
+    nbytes, rows = dkdv_scratch(B, N, K.shape[1], D, Q.dtype,
+                                K.data_ptr() == V.data_ptr())
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=Q.device)
     _launch_bwd("dkdv", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
-                               lse, delta, dK, dV), softmax_scale)
+                               lse, delta, dK, dV, scratch), softmax_scale,
+                (rows,))
     _count("LAUNCHES_DKDV")
     return dK, dV
 
@@ -716,11 +758,11 @@ def attention_core_dq(Q, K, V, keep, lse, delta, dO,
 def attention_core_dkdv(Q, K, V, keep, lse, delta, dO,
                         softmax_scale: float = 10.0, kscale=None):
     """(dK_eff, dV), float32, of ``attention_core``: dK_eff is the gradient
-    of the keys K * kscale. A CUDA tensor launches the fused dK/dV kernel
-    (a key tile is a cluster of two blocks, each owning one half of D, which
-    sum their partial S^T and dP^T through distributed shared memory; needs
-    sm_90; ``dkdv_plan`` says how it runs a shape); a CPU tensor takes the
-    plain version."""
+    of the keys K * kscale. A CUDA tensor launches the fused dK/dV's
+    sequence (split copies, then per chunk of key rows S, dP, the weights,
+    dV and dK, the products on TMA-fed ``wgmma``; needs sm_90a;
+    ``dkdv_plan`` says how it runs a shape); a CPU tensor takes the plain
+    version."""
     _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
     return _dkdv_op(Q, K, V, keep, lse, delta, dO, float(softmax_scale),
                     kscale)

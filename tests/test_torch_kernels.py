@@ -528,74 +528,80 @@ def _bwd_case(seed, B, N, P, D, keep_p, dtype, device):
     return _bwd_args(Q, K, V, keep, dO, kscale)
 
 
-def _dkdv_tile(sms, B, P, D=1536):
-    """The key tile the launch rule picks on a card with ``sms`` SMs: 16
-    keys a cluster where those clusters give every SM a block or where
-    8-key ones would not all fit at once, else 8 (a cluster per column slab
-    of 1536)."""
-    blocks = lambda r: 2 * -(-D // 1536) * B * -(-P // r)
-    return 16 if blocks(16) >= sms or blocks(8) > sms else 8
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dkdv_kernel_in_chunks(cuda, monkeypatch, dtype):
+    """A scratch cap that takes the keys in several chunks (the last one
+    ragged) gives what one chunk gives, bit for bit: every S, dP and
+    weight is formed alike in any chunk, and each output row sums its
+    queries in the same order."""
+    args = _bwd_case(24, 2, 300, 700, 1536, 0.8, dtype, cuda)
+    B, N, D = args[0].shape
+    P = args[1].shape[1]
+    want = attention_core_dkdv(*args)
+    assert dkdv_plan(B, N, P, D, dtype)["chunks"] == 1
+    monkeypatch.setattr(attention_cuda, "SCRATCH_CAP", 2 << 20)
+    plan = dkdv_plan(B, N, P, D, dtype, cap=2 << 20)
+    print("dkdv chunks", str(dtype), plan["chunks"], plan["chunk_rows"])
+    assert plan["chunks"] >= 3 and P % plan["chunk_rows"] != 0
+    assert plan["launches_per_call"] == 5 + 5 * plan["chunks"]
+    got = _check_dkdv(args, "chunks")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tile_rows,keys_per_sm_pair", [
-    (16, 32),     # twice the keys 16-key clusters need to fill the SMs
-    (16, 16),     # 16-key clusters fill them
-    (16, 8),      # they do not; 8-key clusters would take two waves
-    (8, 0),       # few enough 8-key clusters to fit at once
+@pytest.mark.parametrize("shape,keep_p", [
+    ((2, 130, 150, 70), 0.7),     # N off the 64-row and 32-query tiles
+    ((1, 17, 65, 33), 0.5),       # fewer queries than a stage, odd D
+    ((3, 200, 300, 97), 0.8),     # P off the 128-key and 128-row blocks
+    ((2, 65, 129, 190), 0.9),     # one past a block on every side
+    ((1, 2, 3, 1), 1.0),          # two queries, three keys, one column
 ])
-def test_dkdv_kernel_ragged_at_each_tile_height(cuda, dtype, tile_rows,
-                                                keys_per_sm_pair):
-    """P not a multiple of the key tile, N not a multiple of 64, at the
-    model's D. The launch rule picks the tile from the SM count, so P is
-    sized from the card's: keys_per_sm_pair keys for every pair of SMs, and
-    5 more (77 keys when 0)."""
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    B, N, D = 1, 150, 1536
-    P = sms // 2 * keys_per_sm_pair + 5 if keys_per_sm_pair else 77
-    plan = dkdv_plan(B, N, P, D, dtype)
-    assert (plan["tile_rows"], plan["cluster_blocks"]) == (tile_rows, 2), plan
-    assert plan["max_active_clusters"] > 0, plan
-    assert plan["grid_clusters"] == B * -(-P // tile_rows), plan
-    args = _bwd_case(P + tile_rows, B, N, P, D, 0.8, dtype, cuda)
-    _check_dkdv(args, f"tile{tile_rows}")
+def test_dkdv_kernel_ragged(cuda, dtype, shape, keep_p):
+    """N, P and D off every tile of every phase: the split copies' rows
+    padded to 4, the products' blocks and 32-element stages, the weights'
+    32 x 32 tiles; TMA's zeros past the maps' extents."""
+    _check_dkdv(_bwd_case(sum(shape) + 3, *shape, keep_p, dtype, cuda),
+                f"ragged{list(shape)}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 9, 9, 3), (2, 70, 90, 3)])
-def test_dkdv_kernel_empty_second_half(cuda, dtype, shape):
-    """D = 3 is below the cut (4): the second block of every cluster owns
-    no columns, takes every cluster barrier with zero partials and writes
-    nothing; a block that returned early would hang its peer."""
-    assert dsplit_cut(shape[3]) >= shape[3]
-    _check_dkdv(_bwd_case(sum(shape), *shape, 0.8, dtype, cuda), "D3")
+def test_dkdv_kernel_wide_d(cuda, dtype):
+    """D = 4099: shared memory sets no widest D (every product streams its
+    contraction in 32-element stages), and an odd D pads the split rows."""
+    _check_dkdv(_bwd_case(4099, 1, 30, 90, 4099, 0.8, dtype, cuda), "D4099")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dkdv_kernel_halves_form_the_same_weights(cuda, dtype):
-    """Q, K, V, dO and kscale repeat their first half of columns in their
-    second, so both blocks of a cluster contract the same partials and
-    accumulate the same values: dK_eff's and dV's two halves are equal bit
-    for bit only if both blocks formed P^T and dS^T from the same sums."""
-    B, N, P, D = 9, 130, 500, 1536          # 16-key tiles
-    cut = dsplit_cut(D)
-    assert 2 * cut == D
-    Q, K, V, keep = _inputs(21, B, N, P, D, 0.8, dtype, cuda)
-    rs = np.random.RandomState(21)
-    dO = torch.from_numpy(rs.randn(B, N, D).astype(np.float32)).to(cuda)
-    kscale = torch.from_numpy((0.5 + rs.rand(B, D)).astype(np.float32)
-                              ).to(cuda)
-    Q, K, V, dO, kscale = (torch.cat([t[..., :cut], t[..., :cut]], -1
-                                     ).contiguous()
-                           for t in (Q, K, V, dO, kscale))
-    dK, dV = _check_dkdv(_bwd_args(Q, K, V, keep, dO, kscale), "halves")
-    assert torch.equal(dK[..., :cut], dK[..., cut:])
-    assert torch.equal(dV[..., :cut], dV[..., cut:])
+@pytest.mark.parametrize("B,blocks_132", [(1, 128), (8, 1024)])
+def test_dkdv_plan_at_the_main_path_shapes(cuda, B, blocks_132):
+    """256^2 training (N = P = 961, D = 1536): one chunk of all 961 keys;
+    S (and dP) in blocks of 64 queries x 128 keys, dV in 128 keys x 96
+    columns, dK the same in float32 and 64 x 192 in bfloat16: 128 blocks
+    each at B = 1, which covers a 132-SM card in one wave, 1024 at B = 8;
+    every block within the shared memory a block may opt into; ten
+    launches a call."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = dkdv_plan(B, 961, 961, 1536, dtype)
+        print("dkdv_plan", B, str(dtype), plan)
+        dk = (128, 96) if dtype == torch.float32 else (64, 192)
+        assert plan["chunks"] == 1 and plan["chunk_rows"] == 961
+        assert (plan["logits_blocks"] == plan["dv_blocks"]
+                == plan["dk_blocks"] == blocks_132)
+        assert (plan["logits_block_rows"],
+                plan["logits_block_cols"]) == (64, 128)
+        assert (plan["dv_block_rows"], plan["dv_block_cols"]) == (128, 96)
+        assert (plan["dk_block_rows"], plan["dk_block_cols"]) == dk
+        for k in ("logits", "dv", "dk"):
+            assert 0 < plan[f"{k}_smem_bytes"] <= 232448
+            assert plan[f"{k}_blocks_per_sm"] >= 1
+            assert plan[f"{k}_stages"] >= 3
+        assert plan["launches_per_call"] == 10
+        assert plan["phases"] == list(attention_cuda.DKDV_PHASES)
+        assert plan["scratch_bytes"] > 0
 
 
 def test_dkdv_kernel_repeats_bit_for_bit(cuda):
-    """Two calls on the same inputs give the same bits: each block owns its
-    output columns, and no sum depends on which block gets there first."""
+    """Two calls on the same inputs give the same bits: each product block
+    owns its outputs, and no sum depends on which block gets there first."""
     args = _bwd_case(22, 9, 130, 500, 1536, 0.9, torch.float32, cuda)
     first = attention_core_dkdv(*args)
     second = attention_core_dkdv(*args)
@@ -606,92 +612,20 @@ def test_dkdv_kernel_repeats_bit_for_bit(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dkdv_kernel_all_keys_gated(cuda, dtype):
-    """Every key gated, at 16-key tiles: logits 0, so P is uniform and dV
-    the column sums of dO over P; the dS multiplier is 0, so dK_eff is 0."""
+    """Every key gated: logits 0, so P is uniform and dV the column sums of
+    dO over P; the dS multiplier is 0, so dK_eff is 0."""
     args = _bwd_case(23, 9, 130, 500, 1536, 0.0, dtype, cuda)
     assert not args[3].any()
     dK, _ = _check_dkdv(args, "all_gated")
     assert not dK.any()
 
 
-@pytest.mark.parametrize("B,tile_rows_132", [(1, 16), (8, 16)])
-def test_dkdv_plan_at_the_main_path_shapes(cuda, B, tile_rows_132):
-    """256^2 training (N = P = 961, D = 1536): 16-key clusters at B = 8,
-    and at B = 1, where 8-key ones would take two waves (on a 132-SM card;
-    the rule's pick elsewhere), every block within the shared memory a
-    block may opt into."""
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for dtype in (torch.float32, torch.bfloat16):
-        plan = dkdv_plan(B, 961, 961, 1536, dtype)
-        print("dkdv_plan", B, str(dtype), plan)
-        want = _dkdv_tile(sms, B, 961)
-        assert sms != 132 or want == tile_rows_132
-        assert plan["tile_rows"] == want and plan["cluster_blocks"] == 2
-        assert plan["grid_clusters"] == B * -(-961 // want)
-        assert 0 < plan["smem_bytes"] <= 232448
-        assert plan["max_active_clusters"] > 0
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [1544, 1928])
-def test_dkdv_kernel_beyond_one_slab(cuda, dtype, D):
-    """D past two 768-column halves: a second column slab of clusters,
-    each recomputing S^T and dP^T over all of D, and a block's owned K
-    tile over half of D (964 columns at 1928)."""
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    B, N, P = 2, 150, 90
-    plan = dkdv_plan(B, N, P, D, dtype)
-    tile = _dkdv_tile(sms, B, P, D)
-    assert plan["tile_rows"] == tile and plan["cluster_blocks"] == 2, plan
-    assert plan["grid_clusters"] == 2 * B * -(-P // tile), plan
-    assert 0 < plan["smem_bytes"] <= 232448, plan
-    # lse and delta from the plain forward: the forward kernel's block
-    # holds all of D and fits up to about 1750 columns
-    Q, K, V, keep = _inputs(D, B, N, P, D, 0.8, dtype, cuda)
-    rs = np.random.RandomState(D + 7)
-    dO = torch.from_numpy(rs.randn(B, N, D).astype(np.float32)).to(cuda)
-    kscale = torch.from_numpy((0.5 + rs.rand(B, D)).astype(np.float32)
-                              ).to(cuda)
-    out, lse = attention_core_reference(Q, K, V, keep, return_lse=True,
-                                        out_dtype=torch.float32,
-                                        kscale=kscale)
-    _check_dkdv((Q, K, V, keep, lse, (dO * out).sum(-1), dO, 10.0, kscale),
-                f"D{D}")
-
-
-@pytest.mark.parametrize("dtype,widest", [(torch.float32, 2816),
-                                          (torch.bfloat16, 6400)])
-def test_dkdv_kernel_widest_d(cuda, dtype, widest):
-    """The owned K tile over half of D bounds D: the widest D whose block
-    fits the card's shared memory runs and matches the plain version, one
-    step wider fails with the launch's error rather than a wrong result.
-    The D-split forward stops first, at D = 3584; the default and shared
-    forwards have no bound from shared memory."""
-    B, N, P = 1, 70, 20
-    for D in (widest, widest + 4):
-        Q, K, V, keep = _inputs(D, B, N, P, D, 0.8, dtype, cuda)
-        rs = np.random.RandomState(D + 7)
-        dO = torch.from_numpy(rs.randn(B, N, D).astype(np.float32)).to(cuda)
-        kscale = torch.from_numpy((0.5 + rs.rand(B, D)).astype(np.float32)
-                                  ).to(cuda)
-        out, lse = attention_core_reference(Q, K, V, keep, return_lse=True,
-                                            out_dtype=torch.float32,
-                                            kscale=kscale)
-        args = (Q, K, V, keep, lse, (dO * out).sum(-1), dO, 10.0, kscale)
-        if D == widest:
-            assert dkdv_plan(B, N, P, D, dtype)["smem_bytes"] <= 232448
-            _check_dkdv(args, f"D{D}")
-        else:
-            with pytest.raises(RuntimeError, match="dkdv launch failed"):
-                attention_core_dkdv(*args)
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dkdv_kernel_v_apart_from_k(cuda, dtype):
-    """The build that stages V's owned rows with every dP^T step (K and V
-    apart) on the main path's inputs: the same values in the same order as
-    the one-tensor build, whose dP^T takes its A rows from the K tile, so
-    the same bits, and within tolerance of the plain version."""
+    """K and V apart on the main path's inputs (V's own split terms feed
+    dP): the same values in the same order as the one-tensor call, whose
+    one set of K terms serves S and dP, so the same bits, and within
+    tolerance of the plain version."""
     args = _main_path_bwd(33, 8, 64, dtype, cuda)
     Q, K, V, *rest = args
     apart = (Q, K.clone(), V.clone(), *rest)

@@ -12,7 +12,11 @@ the single-output kernels' products (S^T = (K kscale) Q^T with kscale on
 the owned keys, dP^T = K dO^T with the keys raw, then dS^T Q or P^T dO)
 on the same inputs and must agree with the same function's dK and dV
 under SKETCHEDIT_SPLIT_DKDV=1 (its ``_dk_kernel`` and ``_dv_kernel``)
-within BWD_TOL.
+within BWD_TOL. The fused dK/dV emulation runs the wgmma sequence's four
+products (S = (Q kscale) K^T and dP = dO V^T over D, each summed in runs
+of 16 k8 steps added to the total with Kahan's compensation; then P^T dO
+and dS^T Q over the queries, every step to the total) and must agree with the same function's default dK and dV (its
+``_dkdv_kernel``) within BWD_TOL.
 """
 
 import functools
@@ -51,25 +55,29 @@ def emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
 @functools.lru_cache(maxsize=None)
 def dq_case(dtype_name):
     """case()'s inputs with a seeded dO, delta = rowsum(dO O) from the JAX
-    forward, and the JAX package's dQ on them (float32 values of the
-    inputs, as the forward's case)."""
+    forward, and the JAX package's dQ, dK and dV on them from its default
+    kernels (``_dq_kernel``, ``_dkdv_kernel``; float32 values of the inputs,
+    as the forward's case)."""
+    assert os.environ.get("SKETCHEDIT_SPLIT_DKDV") != "1"
     Q, V, keep, kscale, out, lse = case(dtype_name)
     dO = torch.from_numpy(np.random.RandomState(8).randn(*Q.shape).astype(
         np.float32))
     K = V.float() * kscale[:, None, :]
     with pltpu.force_tpu_interpret_mode():
-        dq = _attention_core_bwd_pallas(
+        grads = _attention_core_bwd_pallas(
             jnp.asarray(Q.float().numpy()), jnp.asarray(K.numpy()),
             jnp.asarray(V.float().numpy()), jnp.asarray(keep.numpy()),
             jnp.asarray(out.numpy()), jnp.asarray(lse.numpy()),
-            jnp.asarray(dO.numpy()), SCALE)[0]
-    return dO, (dO * out).sum(-1), torch.from_numpy(np.array(dq))
+            jnp.asarray(dO.numpy()), SCALE)
+    return (dO, (dO * out).sum(-1),
+            *(torch.from_numpy(np.array(g)) for g in grads))
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-def test_split_tf32_dq_matches_jax(dtype_name):
+def test_split_tf32_dq_matches_jax(dtype_name, monkeypatch):
+    monkeypatch.delenv("SKETCHEDIT_SPLIT_DKDV", raising=False)
     Q, V, keep, kscale, _, lse = case(dtype_name)
-    dO, delta, want = dq_case(dtype_name)
+    dO, delta, want, _, _ = dq_case(dtype_name)
     scale = want.abs().max().item()
     assert want.shape == (1, 961, 1536) and scale > 0
     got = emulated_dq(Q, V, keep, kscale, lse, delta, dO)
@@ -138,6 +146,50 @@ def test_split_tf32_dk_dv_match_jax(dtype_name, monkeypatch):
         assert want.shape == (1, 961, 1536) and scale > 0, name
         print(dtype_name, name, "split", (g - want).abs().max().item() / scale,
               "one pass", (o - want).abs().max().item() / scale,
+              "(shares of max |.|)")
+        torch.testing.assert_close(g, want, rtol=0, atol=BWD_TOL * scale,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+def emulated_dkdv(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
+    """(dK_eff, dV) of ``attention_core(Q, V, V, keep, kscale=kscale)`` as
+    the fused dK/dV's wgmma sequence computes them: S = (Q kscale) K^T with
+    kscale on the query rows (split) and the keys raw (split where they
+    hold float32 values), dP = dO V^T (dO split), both summed in runs of 16
+    k8 steps added to the total with Kahan's compensation; P = exp(S g -
+    lse) and dS = P (dP - delta) g with g = keep * scale per key; dV = P^T dO and dK_eff = dS^T Q over the queries, P^T,
+    dS^T and dO split, Q split where it holds float32 values, every step
+    added to the total."""
+    f32 = Q.dtype == torch.float32
+    Kf, Qf = V.float(), Q.float()
+    passes = 1 if one_pass else 3
+    S = mma(operand(Qf * kscale[:, None, :], True),
+            operand(Kf.transpose(1, 2), f32 or one_pass), passes, group=16,
+            compensate=True)
+    dP = mma(operand(dO, True), operand(Kf.transpose(1, 2), f32 or one_pass),
+             passes, group=16, compensate=True)
+    g = keep[:, None, :] * SCALE
+    P = torch.exp(S * g - lse[..., None])
+    dS = P * (dP - delta[..., None]) * g
+    return (mma(operand(dS.transpose(1, 2), True), operand(Qf, f32 or one_pass),
+                passes),
+            mma(operand(P.transpose(1, 2), True), operand(dO, True), passes))
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_split_tf32_dkdv_matches_jax(dtype_name, monkeypatch):
+    monkeypatch.delenv("SKETCHEDIT_SPLIT_DKDV", raising=False)
+    Q, V, keep, kscale, _, lse = case(dtype_name)
+    dO, delta, _, want_dk, want_dv = dq_case(dtype_name)
+    args = (Q, V, keep, kscale, lse, delta, dO)
+    got = emulated_dkdv(*args)
+    one = emulated_dkdv(*args, one_pass=True)
+    for name, g, o, want in zip(("dK_eff", "dV"), got, one,
+                                (want_dk, want_dv)):
+        scale = want.abs().max().item()
+        assert want.shape == (1, 961, 1536) and scale > 0, name
+        print(dtype_name, name, "fused split", (g - want).abs().max().item()
+              / scale, "one pass", (o - want).abs().max().item() / scale,
               "(shares of max |.|)")
         torch.testing.assert_close(g, want, rtol=0, atol=BWD_TOL * scale,
                                    msg=lambda m, n=name: f"{n}: {m}")

@@ -11,7 +11,8 @@ other operand holds bfloat16 data (exact in TF32) two. Each pass
 accumulates in float32 over 8-deep k steps, as an m16n8k8 mma.sync tile
 and an m64nNk8 wgmma both do; every kernel starts each k step's product
 afresh and adds it to its running sum in order, which ``mma`` models (the
-wgmma forwards' S sums runs of 16 steps apart first: ``group``).
+wgmma forwards' S sums runs of 16 steps apart first: ``group``; the fused
+dK/dV's S and dP add those runs with Kahan's compensation: ``compensate``).
 """
 
 import functools
@@ -46,12 +47,14 @@ def operand(x, split):
     return hi, tf32(x - hi)
 
 
-def mma(a, b, passes=3, group=None):
+def mma(a, b, passes=3, group=None, compensate=False):
     """a (B, M, K) @ b (B, K, N) from operand pairs: float32 accumulation
     over 8-deep k steps; ``passes`` 3 for split x split, 2 where one side is
     whole (its lo is None), 1 for hi x hi alone. ``group``: the steps are
     summed apart in runs of that many, each run then added to the total
-    (the wgmma forwards' S, 16); else every step goes to the total."""
+    (the wgmma forwards' S, 16), with Kahan's compensation where
+    ``compensate`` (the fused dK/dV's S and dP); else every step goes to
+    the total."""
     (ah, al), (bh, bl) = a, b
     terms = [(ah, bh)]
     if passes > 1:
@@ -60,6 +63,18 @@ def mma(a, b, passes=3, group=None):
     B, M, K = ah.shape
     acc = torch.zeros(B, M, bh.shape[2])
     part, n = (torch.zeros_like(acc) if group else acc), 0
+    comp = torch.zeros_like(acc)
+
+    def add_run():
+        nonlocal acc
+        if not compensate:
+            acc += part
+            return
+        y = part - comp
+        t = acc + y
+        comp.copy_((t - acc) - y)
+        acc = t
+
     # the 8-deep products of `chunk` k steps at once, added in order
     chunk = 8
     for k0 in range(0, K, 8 * chunk):
@@ -80,11 +95,11 @@ def mma(a, b, passes=3, group=None):
                 part += prod[:, i]
             n += 1
             if group and n % group == 0:
-                acc += part
+                add_run()
                 part.zero_()
     if group and n % group:
-        acc += part
-    return acc
+        add_run()
+    return acc - comp
 
 
 @functools.lru_cache(maxsize=None)
