@@ -22,14 +22,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    dK/dV's wgmma sequence at each training shape (chunks and their key
    rows, the blocks, block shapes, stages, shared memory and resident
    blocks per SM of each product, launches per call, scratch bytes), a
-   `bwd_vs_float64` line each of its and the dK and dV kernels' distance
-   from a float64 evaluation at 256^2 (B = 1 and 8, float32: the fused
-   sequence's relative L2 within 1.5x of theirs), a `dq_plan` line the dQ kernel's rows per block, column
-   slabs, resident blocks per SM and shared memory, `dk_dv_plan` lines the
-   same for the dV and dK kernels, and `fwd_ptxas`, `dq_ptxas`,
-   `dk_dv_ptxas`, `dkdv_ptxas` and `dsplit_ptxas` lines the forward's
-   wgmma products', the dQ, dV and dK, fused dK/dV (its ca_dkdv_* kernels)
-   and D-split instantiations' registers and spills;
+   `dq_plan` line the same for dQ's wgmma sequence (chunks of query rows),
+   a `bwd_vs_float64` line each of its, dQ's and the dK and dV kernels'
+   distance from a float64 evaluation at 256^2 (B = 1 and 8, float32: the
+   fused sequence's relative L2 within 1.5x of theirs; dQ's over the fused
+   dK_eff's within 1.5x of that ratio with the mma.sync dQ kernel it
+   replaced), `dk_dv_plan` lines the dV and dK kernels' rows per block,
+   column slabs, resident blocks per SM and shared memory, and
+   `fwd_ptxas`, `dq_ptxas`, `dk_dv_ptxas`, `dkdv_ptxas` and
+   `dsplit_ptxas` lines the forward's wgmma products', dQ's (its ca_dq_*
+   kernels), the dV and dK, fused dK/dV (its ca_dkdv_* kernels) and
+   D-split instantiations' registers and spills;
 4. inference path: the runner's EditPipeline on uint8 batches at 256^2
    (B = 1 and 4, float32 and bfloat16) and 252^2, one forward launch per
    netG forward, checked against the same pipeline with dense attention
@@ -188,6 +191,11 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # float32 arithmetic and outputs on both sides for either input type, with
 # S recomputed in another summation order
 BWD_TOL = 2e-4
+# dQ's relative L2 from float64 over the fused dK/dV's dK_eff's at 256^2,
+# float32, by batch, with the mma.sync dQ kernel that dQ's wgmma sequence
+# replaced: the lowest over seeds 0-3 (scripts/dq_variants.py --seeds 4,
+# PERF.md PR 18); the sequence must stay within 1.5x of it
+DQ_F64_BEFORE = {1: 1.323, 8: 1.333}
 # train step, kernel path vs dense path and GPU vs CPU (float32, TF32 off):
 # each gradient tensor's relative L2 error, ||got - want|| / ||want||. The
 # two sides differ by summation order only, but the discriminator's leaky
@@ -688,17 +696,17 @@ def main():
                 print(f"ptxas[{name}]: {ln.strip()}")
     emit({"phase": "build", "seconds": round(build_s, 3),
           "nvcc_seconds": _build.build_seconds, **card})
-    # registers and spills of each dQ instantiation (ca_dq_kernel<T, kSame,
-    # kVec>), each dV and dK one (ca_dk_or_dv_kernel<T, kDK, kSame, kVec>),
-    # each fused dK/dV one (ca_dkdv_*: its products, ca_dkdv_wgmma_kernel<
-    # kWN, kMW, kSplitB, kStages, kGroup>, and its prep and weights
-    # kernels) and each D-split
+    # registers and spills of each dQ instantiation (ca_dq_*: its products,
+    # ca_dq_wgmma_kernel<kWN, kMW, kSplitB, kStages, kGroup, kCompensate>,
+    # and its prep and weights kernels), each dV and dK one
+    # (ca_dk_or_dv_kernel<T, kDK, kSame, kVec>), each fused dK/dV one
+    # (ca_dkdv_*, the same kinds as dQ's) and each D-split
     # one (ca_fwd_dsplit_kernel<T, TO, kMT, kVec>), where this run built the
     # library
     ptxas = {}
     for phase, stem, kernel in (
             ("fwd_ptxas", "fwd", "ca_fwd_wgmma_kernel"),
-            ("dq_ptxas", "bwd", "ca_dq_kernel"),
+            ("dq_ptxas", "bwd", "ca_dq_"),
             ("dk_dv_ptxas", "bwd", "ca_dk_or_dv_kernel"),
             ("dkdv_ptxas", "bwd", "ca_dkdv_"),
             ("dsplit_ptxas", "fwd", "ca_fwd_dsplit_kernel")):
@@ -950,8 +958,9 @@ def main():
                   "dtype": str(dt).split(".")[-1],
                   **dkdv_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt),
                   **card})
-            # how the dQ kernel runs it: query rows per block, column slabs,
-            # blocks resident per SM, shared memory, against the grid's blocks
+            # and dQ's: chunks of query rows, each product's blocks, block
+            # shape, stages, shared memory and resident blocks per SM,
+            # launches per call, scratch bytes
             emit({"phase": "dq_plan", "image_hw": [256, 256],
                   "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
                   "dtype": str(dt).split(".")[-1],
@@ -983,12 +992,15 @@ def main():
     Q, V, keep, ksc = attention_inputs(fa, fa, torch.ones(1, 1, 64, 64,
                                                           device=dev))
     check_bwd("all_gated", Q, V, V, keep, ksc)
-    # the fused dK/dV and the dK and dV kernels against a float64
+    # the fused dK/dV, dQ and the dK and dV kernels against a float64
     # evaluation of the same function at the training path's call (256^2,
     # B = 1 and 8, float32): all run split TF32, and the fused sequence,
     # whose S and dP sum runs of 16 k8 steps where the single-output
     # kernels sum per-warp partials, must be as close (relative L2 within
-    # 1.5x of theirs, each gradient); the largest |difference| is reported
+    # 1.5x of theirs, each gradient); dQ's relative L2 over the fused
+    # dK_eff's must stay within 1.5x of that ratio with the mma.sync dQ
+    # kernel that dQ's wgmma sequence replaced (DQ_F64_BEFORE); the largest
+    # |difference| is reported
     for B in (1, 8):
         bargs = bwd_inputs[(B, torch.float32)]
         Q, K, V, keep, lse, delta, dO, sc, ksc = bargs
@@ -1001,7 +1013,9 @@ def main():
                     - delta.double()[..., None]) * g
         exact = (torch.bmm(dSd.transpose(1, 2), Qd),
                  torch.bmm(Pd.transpose(1, 2), dO.double()))
+        exact_dq = torch.bmm(dSd, K.double() * ksc.double()[:, None, :])
         del Pd, dSd, Qd
+        dq_diff = attention_core_dq(*bargs).double() - exact_dq
         fused = attention_core_dkdv(*bargs)
         alone = (attention_core_dk(*bargs),
                  attention_core_dv(Q, K, keep, lse, dO, sc, ksc))
@@ -1017,10 +1031,17 @@ def main():
             row[f"{name}_fused_x_alone_rel_l2"] = (
                 row[f"{name}_fused_rel_l2_vs_float64"]
                 / row[f"{name}_alone_rel_l2_vs_float64"])
+        row["dQ_rel_l2_vs_float64"] = (dq_diff.norm()
+                                       / exact_dq.norm()).item()
+        row["dQ_max_abs_vs_float64"] = dq_diff.abs().max().item()
+        row["dQ_x_dK_eff_rel_l2"] = (row["dQ_rel_l2_vs_float64"]
+                                     / row["dK_eff_fused_rel_l2_vs_float64"])
+        row["dQ_x_dK_eff_before"] = DQ_F64_BEFORE[B]
         emit({**row, **card})
         for name in ("dK_eff", "dV"):
             assert row[f"{name}_fused_x_alone_rel_l2"] <= 1.5, row
-        del exact, fused, alone
+        assert row["dQ_x_dK_eff_rel_l2"] <= 1.5 * DQ_F64_BEFORE[B], row
+        del exact, exact_dq, dq_diff, fused, alone
 
     # 4. main path --------------------------------------------------------
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")   # removed at exit

@@ -32,7 +32,7 @@ BACKWARD = "autograd::engine::evaluate_function:"
 def category(name: str) -> str:
     low = name.lower()
     for kernel, cat in (("ca_fwd", "attention_fwd"),
-                        ("ca_dq_kernel", "attention_dq"),
+                        ("ca_dq_", "attention_dq"),
                         ("ca_dkdv_", "attention_dkdv"),
                         ("ca_dk_or_dv_kernel", "attention_dk_dv")):
         if kernel in low:

@@ -12,7 +12,7 @@ each is timed in its own process: bits, cvt, cvt, bits. One JSON line per
 copy, batch and dtype at 256^2 (B = 1 and 8, D = 1536, chip_smoke.py's
 inputs): ms by CUDA events after warm-up of the default and shared
 forwards (float32 output, as on the main path), dQ, dV, dK and the fused
-dK/dV (the wgmma forwards and the fused dK/dV split their operands in
+dK/dV (the wgmma forwards, dQ and the fused dK/dV split their operands in
 their own prep kernels, not with ``to_tf32``, so they are the same code in
 both copies); a digest of each kernel's output, which must be the same in both
 copies, since the two roundings give the same operands; and the card's

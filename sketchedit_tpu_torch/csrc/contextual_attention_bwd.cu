@@ -9,7 +9,7 @@
 //
 //   S_ij  = Q_i . K_eff_j,    P_ij = exp(S_ij g_j - lse_i)   (real j < P)
 //   dP_ij = dO_i . V_j,       dS_ij = P_ij (dP_ij - delta_i) g_j
-//   dq kernel:   dQ_i     = sum_j dS_ij K_eff_j
+//   dq:          dQ_i     = sum_j dS_ij K_eff_j
 //   dkdv:        dV_j     = sum_i P_ij dO_i,   dK_eff_j = sum_i dS_ij Q_i
 //   dv kernel:   dV alone (reads neither V nor delta)
 //   dk kernel:   dK_eff alone
@@ -24,8 +24,8 @@
 // kernels are bound by operations, not bytes, so the rounding would buy
 // nothing.
 //
-// What bounds them on an H100. At 256^2 (N = P = 961, D = 1536) the dq
-// kernel runs three products of N P D multiply-adds (6 N P D = 8.5 GFLOP
+// What bounds them on an H100. At 256^2 (N = P = 961, D = 1536) dq runs
+// three products of N P D multiply-adds (6 N P D = 8.5 GFLOP
 // per image, 0.127 ms at the SXM's 67 TFLOP/s of float32, 0.052 ms as split
 // TF32 at three passes of 495 TFLOP/s) and the fused dK/dV four (11.4
 // GFLOP, 0.169 ms, 0.069 ms as split TF32), against ~30 MB of float32 traffic
@@ -35,55 +35,41 @@
 //
 // Design. Blocks run in parallel, so the sequential axis of each TPU grid
 // becomes a loop inside the block or a launch of its own, and each block
-// owns its output rows outright (no atomics, no second pass):
-// - dq: split TF32 on the tensor cores (mma.sync): 8 warps over kRows = 16 query
-//   rows (8 where 16-row blocks would leave SMs idle, the lower half of
-//   every A tile then zero) of one image, all keys, a slab of up to 1536 dQ
-//   columns. Warp w owns 192 dQ columns as 24 m16n8 fragments in registers
-//   (96 floats a thread), so no accumulator sits in shared memory. All
-//   three products are mma.sync m16n8k8 TF32 through mma_tile: an operand
-//   holding float32 values is split in two TF32 terms, one holding
-//   bfloat16 data enters whole, so a product takes three passes in float32
-//   and two with bfloat16 inputs. kscale goes on the query side of S (the
-//   staged Q tile is Q kscale in float32, 99 KB at D = 1536), so K enters
-//   raw in S and in dS K and dQ is scaled once at the end. Per key tile of
-//   kT = 64:
-//     S, dP  warp w contracts its own 1/8 of D, 16 columns a step, into
-//            partial S and dP (16 x 64 each): it stages K rows, the block's
-//            dO rows (float32, re-read from L2 on every key tile since the
-//            Q tile leaves no room for a dO tile) and, where V is not K, V
-//            rows with cp.async in its own 12.8 KB area, steps ahead; where
-//            V is K (the main path) one set of K fragments feeds both
-//            products, four mma tiles (S and dP, two k8 steps) per n8 tile;
-//     dS     after a barrier warp w sums rows 2w and 2w + 1 of the eight
-//            partials in warp order (so two launches give the same bits)
-//            and writes dS = P (dP - delta) g to shared memory;
-//     dS K   after a second barrier each warp adds dS K for its columns,
-//            dS's A fragments from shared memory, K rows at its 192 columns
-//            staged with cp.async, steps ahead.
-//   The tensor cores add into an accumulator with truncation, so every k8
-//   step starts a fresh one and is added with a round-to-nearest FADD (the
-//   forward's rule: S and dP sum 192 k8 steps at D = 1536, dS K up to 121).
-//   What holds it back is each warp's own chain of fragment loads, splits,
-//   mma passes and FADDs, not L2: more steps in flight change nothing,
-//   while staging and splitting V apart from K costs a quarter more
-//   (scripts/dq_variants.py; S and dP run at ~0.29 mma a cycle per SM,
-//   dS K at ~0.25, against a TF32 peak of 1).
-//   Keys past the last real one of a tile are skipped. At D = 1536 a block
-//   takes 206 KB of shared memory and runs alone on its SM; D up to 1920
-//   fits, a wider D takes more column slabs, each recomputing S and dP.
-// - dkdv: the default forward's wgmma sequence (contextual_attention_fwd.cu
-//   header; contextual_attention_wgmma.cuh: TMA-fed warpgroup products, a
-//   fresh accumulator per k8 step added with one round-to-nearest FADD, no
-//   atomics and a fixed order, so two calls give the same bits), on a
-//   scratch the wrapper allocates. Phases, each one launch named
-//   ca_dkdv_*:
+// owns its output rows outright (no atomics, no second pass). dq and dkdv
+// are the default forward's wgmma sequence (contextual_attention_fwd.cu
+// header; contextual_attention_wgmma.cuh: TMA-fed warpgroup products, a
+// fresh accumulator per k8 step added with one round-to-nearest FADD, no
+// atomics and a fixed order, so two calls give the same bits), each on a
+// scratch the wrapper allocates, each phase one launch:
+// - dq, launches named ca_dq_*, the forward's shape with dS in place of P:
+//     prep     once a call, the TF32 terms of K by rows (B, P, Dp; V's
+//              apart where V is not K, so on the main path one set serves
+//              S and dP), of K transposed (B, D, Pp), the B operand of
+//              dS K (TF32 wgmma takes both operands K-major: only 16-bit
+//              types may be transposed), and of Q kscale and dO by rows
+//              (B, N, Dp), all queries at once, so only S, dP and dS grow
+//              with the query rows. A bfloat16 K is one exact term;
+//   then per chunk of query rows (the part of the scratch that grows with
+//   the query rows, S, dP and dS's terms, is capped as the forward's is,
+//   so large shapes take chunks):
+//     S, dP    (Q kscale) K^T and dO V^T, dkdv's score block and sum below,
+//              so the same values as its S and dP;
+//     weights  P = exp(S g - lse) and dS = P (dP - delta) g, written by
+//              rows (B, rows, Pp) as TF32 terms, 0 past P;
+//     dQ       dS (K^T)^T, the forward's P V block (128 queries x 96
+//              columns, two warpgroups over the rows sharing each B box;
+//              64 x 192 in bfloat16, whose K^T terms are one), every step
+//              added to the total (a chain of 121 at P = 961), and kscale
+//              on each column in the epilogue, so K enters raw and stays
+//              one term in bfloat16.
+//   At 256^2, B = 1 every product is 128 blocks on 132 SMs; 8 launches a
+//   call.
+// - dkdv, launches named ca_dkdv_*:
 //     prep     once a call, the TF32 terms of K (V's apart where V is not K;
 //              on the main path one set serves S and dP), of Q kscale and
 //              dO by rows (B, N, Dp), and of Q and dO transposed to (B, D,
-//              Np): TF32 wgmma takes both operands K-major (only 16-bit
-//              types may be transposed), and dV and dK contract over the
-//              queries. A bfloat16 Q or K is one exact term;
+//              Np): dV and dK contract over the queries. A bfloat16 Q or K
+//              is one exact term;
 //   then per chunk of key rows (the part of the scratch that grows with
 //   the keys, S, dP and the weights' terms, is capped as the forward's
 //   is, so large shapes take chunks):
@@ -107,17 +93,22 @@
 //   hold float32 values); the tensor maps' extents end the contraction at
 //   D or N, so TMA reads zeros past them. Shared memory sets no widest D.
 //   At 256^2, B = 1 every product is 128 blocks on 132 SMs.
-// - dv and dk: dq's block with the roles of owned and streamed rows
-//   swapped: 8 warps over kRows = 16 key rows (8 where 16-row blocks would
-//   leave SMs idle), all queries in tiles of kT = 64, a slab of up to 1536
-//   output columns, 192 a warp in registers (no shared-memory accumulator);
-//   split TF32 through mma_tile, a fresh accumulator per k8 step. The owned
-//   K rows stay raw in the input type in shared memory (99 KB in float32,
-//   50 KB in bfloat16 at D = 1536; a float32 tile costs 5% in bfloat16),
-//   and kscale goes on them as S^T's A fragments are formed, so in bfloat16
-//   Q enters S^T whole and K enters dP^T whole: both products take two
-//   passes, and only dO and K kscale are split (three passes in float32).
-//   Per query tile:
+// - dv and dk: split TF32 on the tensor cores (mma.sync): 8 warps over
+//   kRows = 16 key rows (8 where 16-row blocks would leave SMs idle, the
+//   lower half of every A tile then zero) of one image, all queries in
+//   tiles of kT = 64, a slab of up to 1536 output columns. Warp w owns 192
+//   output columns as 24 m16n8 fragments in registers (96 floats a
+//   thread), so no accumulator sits in shared memory. Every product is
+//   mma.sync m16n8k8 TF32 through mma_tile: an operand holding float32
+//   values is split in two TF32 terms, one holding bfloat16 data enters
+//   whole. The tensor cores add into an accumulator with truncation, so
+//   every k8 step starts a fresh one and is added with a round-to-nearest
+//   FADD. The owned K rows stay raw in the input type in shared memory
+//   (99 KB in float32, 50 KB in bfloat16 at D = 1536; a float32 tile costs
+//   5% in bfloat16), and kscale goes on them as S^T's A fragments are
+//   formed, so in bfloat16 Q enters S^T whole and K enters dP^T whole:
+//   both products take two passes, and only dO and K kscale are split
+//   (three passes in float32). Per query tile:
 //     S^T, dP^T  warp w contracts its own 1/8 of D, 16 columns a step, into
 //            partial S^T = (K kscale) Q^T and (dk) dP^T = V dO^T (16 x 64
 //            each), staging the tile's Q or dO rows (with S^T the step's 16
@@ -135,17 +126,14 @@
 //     W X    after a second barrier each warp adds P^T dO (dv; dO split in
 //            both dtypes) or dS^T Q (dk) for its columns, the weights' A
 //            fragments from shared memory, 8 streamed rows at its 192
-//            columns staged with cp.async, steps ahead (dq's dS K).
+//            columns staged with cp.async, steps ahead.
 //   dK_eff is written as accumulated. A block takes 206 KB of shared memory
 //   in float32 and runs alone on its SM; D up to 1920 fits, a wider D than
-//   1536 takes more column slabs, each recomputing S^T and dP^T. Like dq's,
-//   each warp is held back by its own chain of fragment loads, splits, mma
-//   passes and FADDs: the streamed side is two tensors (Q and dO) where
-//   dq's is one K serving S and dP, so a float32 step converts 80 operands
-//   to dq's 48 for the same mma (scripts/dk_dv_variants.py clocks each
-//   phase; 16-row blocks, 8 where 16 leave SMs idle, 64-query tiles and a
-//   12.8 KB area measured best).
-// A dq, dv or dk block runs alone on its SM, as a dkdv product block does.
+//   1536 takes more column slabs, each recomputing S^T and dP^T. Each warp
+//   is held back by its own chain of fragment loads, splits, mma passes
+//   and FADDs: a float32 step converts 80 operands for its mma
+//   (scripts/dk_dv_variants.py clocks each phase; 16-row blocks, 8 where
+//   16 leave SMs idle, 64-query tiles and a 12.8 KB area measured best).
 
 #include <type_traits>
 
@@ -154,345 +142,12 @@
 
 namespace {
 
-// dQ's per-warp staging area, kDqArea bytes, holds one of three things in
-// turn: kStages1 steps of the S and dP products (K rows k0 .. k0 + 63 at 16
-// columns of D in T, V's rows too where V is not K, and the block's 16 dO
-// rows at the same columns in float32), or the warp's partial S and dP
-// [2][kRows][kPartLd] floats, or kStages3 steps of dS K (8 K rows at the
-// warp's 192 columns, padded as the forward's V steps). 12,800 bytes a
-// warp keep the block at the forward's 206 KB at D = 1536 and admit D up to
-// 1920 (a 15 KB area, one more step in flight, measured no faster:
-// scripts/dq_variants.py `deep`).
-constexpr int kDqArea = 12800;
-template <typename T, bool kSame> struct DqStage {
-  static constexpr int kK = kT * 16;                    // K (or V) step, T
-  static constexpr int kO = kRows * 16;                 // dO step, floats
-  static constexpr int kOOff = (kSame ? 1 : 2) * kK * (int)sizeof(T);
-  static constexpr int kStep1 = kOOff + kO * (int)sizeof(float);  // bytes
-  static constexpr int kStages1 = kDqArea / kStep1;
-  static constexpr int kKLd = kGroups * 32 + 32 / (int)sizeof(T);
-  static constexpr int kK3 = 8 * kKLd;                  // dS K step, T
-  static constexpr int kStages3 = kDqArea / (kK3 * (int)sizeof(T));
-  static_assert(kStages1 >= 1 && kStages3 >= 1, "a step must fit");
-  static_assert(2 * kRows * kPartLd * sizeof(float) <= (size_t)kDqArea,
-                "the partials must fit");
-};
-
-// Shared-memory bytes of a dQ block: the Q tile (times kscale), the warps'
-// areas, dS [kRows][kPLd], lse and delta per row.
-size_t dq_smem_bytes(int D) {
-  return sizeof(float) * ((size_t)kRows * mma_q_ld(D) + kRows * kPLd +
-                          2 * kRows) + (size_t)kWarps * kDqArea;
-}
-
-// One block: query rows [q0, q0 + rows) of one image (rows is 16, or 8
-// with the lower half of every A tile zero), all keys, dQ columns
-// [blockIdx.y * kSlab, + kSlab). kSame: V is K (one pointer), so one staged
-// step of K rows serves S and dP. kVec: D is a multiple of 4 and every
-// pointer is 16-byte aligned.
-template <typename T, bool kSame, bool kVec>
-__global__ void __launch_bounds__(kThreads, 1)
-ca_dq_kernel(const T* Q, const T* K, const T* V, const float* keep,
-             const float* kscale, const float* dO, const float* lse,
-             const float* delta, float* dQ, int rows, int N, int P, int D,
-             float scale) {
-  constexpr bool kF32 = sizeof(T) == sizeof(float);  // K and V split too
-  using St = DqStage<T, kSame>;
-  extern __shared__ __align__(16) float smem[];
-  const int Ds = mma_cols(D), ldq = mma_q_ld(D), qcols = kWarps * Ds;
-  float* qs = smem;                              // [kRows][ldq]
-  char* areas = reinterpret_cast<char*>(qs + kRows * ldq);
-  float* ds_s = reinterpret_cast<float*>(areas + kWarps * kDqArea);
-  float* lse_s = ds_s + kRows * kPLd;            // [kRows]
-  float* delta_s = lse_s + kRows;                // [kRows]
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * rows;
-  const T* Qb = Q + (size_t)b * N * D;
-  const T* Kb = K + (size_t)b * P * D;
-  const T* Vb = V + (size_t)b * P * D;
-  const float* dOb = dO + (size_t)b * N * D;
-  const float* keep_b = keep + (size_t)b * P;
-  const float* ks_b = kscale + (size_t)b * D;
-  char* mine = areas + w * kDqArea;              // this warp's area
-  float* part = reinterpret_cast<float*>(mine);  // [2][kRows][kPartLd]
-  T* kst3 = reinterpret_cast<T*>(mine);          // [kStages3][8][kKLd]
-
-  // the Q tile times kscale in float32; rows past the tile or N and
-  // columns past D are 0
-  for (int i = tid; i < kRows * qcols; i += kThreads) {
-    const int r = i / qcols, d = i % qcols;
-    float x = 0.f;
-    if (r < rows && q0 + r < N && d < D)
-      x = to_f(Qb[(size_t)(q0 + r) * D + d]) * ks_b[d];
-    qs[r * ldq + d] = x;
-  }
-  for (int i = tid; i < kRows * kPLd; i += kThreads) ds_s[i] = 0.f;
-  if (tid < kRows) {  // rows past the tile or N: lse = delta = 0
-    const bool in = tid < rows && q0 + tid < N;
-    lse_s[tid] = in ? lse[(size_t)b * N + q0 + tid] : 0.f;
-    delta_s[tid] = in ? delta[(size_t)b * N + q0 + tid] : 0.f;
-  }
-  __syncthreads();
-
-  float acc[kGroups][4][4];
-#pragma unroll
-  for (int c = 0; c < kGroups; ++c)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
-  // dS rows: warp w forms rows 2w and 2w + 1, 16 lanes a row, 4 keys a lane
-  const int srow = 2 * w + (lane >> 4), skey = 4 * (lane & 15);
-  const int d_lo = w * Ds, d_hi = min(D, d_lo + Ds);
-  const int nstep = d_hi > d_lo ? (d_hi - d_lo + 15) / 16 : 0;
-  const int cw = blockIdx.y * kSlab + w * (kGroups * 32);  // warp's columns
-
-  for (int k0 = 0; k0 < P; k0 += kT) {
-    const int kn = min(kT, P - k0);              // real keys of the tile
-    // 1. this warp's partial S = (Q kscale) K^T and dP = dO V^T over
-    // columns [d_lo, d_hi) of D, 16 at a time: step i stages K rows k0 ..
-    // k0 + 63 (and V's where V is not K) and dO rows q0 .. q0 + 15 at
-    // columns d_lo + 16i .. + 15, kStages1 - 1 steps ahead. Lane (g, t)
-    // reads row 8j + g, columns 4t .. 4t + 3 for n8 tile j: k = t and t + 4
-    // of k8 step h are 4t + 2h and + 1, and the A fragments of Q kscale
-    // and dO follow the same order. Each n8 tile is four mma tiles, S and
-    // dP for both k8 steps, from one set of K fragments where V is K.
-    auto stage1 = [&](int i) {
-      if (i < nstep) {
-        char* slot = mine + (i % St::kStages1) * St::kStep1;
-        T* kd = reinterpret_cast<T*>(slot);
-        float* od = reinterpret_cast<float*>(slot + St::kOOff);
-        const int d0 = d_lo + 16 * i, q = (lane & 3) * 4;
-        const size_t r0 = (size_t)(k0 + (lane >> 2)) * D;
-#pragma unroll (kVec ? kT * 4 / 32 : 1)
-        for (int n = 0; n < kT * 4 / 32; ++n) {
-          const int r = (lane >> 2) + 8 * n;
-          copy4<kVec>(kd + r * 16 + q, Kb + r0 + (size_t)(8 * n) * D,
-                      k0 + r < P, d0 + q, D);
-          if constexpr (!kSame)
-            copy4<kVec>(kd + St::kK + r * 16 + q,
-                        Vb + r0 + (size_t)(8 * n) * D, k0 + r < P, d0 + q, D);
-        }
-#pragma unroll
-        for (int n = 0; n < kRows * 4 / 32; ++n) {
-          const int r = (lane >> 2) + 8 * n;
-          copy4<kVec>(od + r * 16 + q, dOb + (size_t)(q0 + r) * D,
-                      r < rows && q0 + r < N, d0 + q, D);
-        }
-      }
-      cp_commit();
-    };
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int i = 0; i < St::kStages1 - 1; ++i) stage1(i);
-#pragma unroll 1
-    for (int i = 0; i < nstep; ++i) {
-      stage1(i + St::kStages1 - 1);
-      cp_wait<St::kStages1 - 1>();
-      __syncwarp();                    // step i is staged, by every lane
-      const char* slot = mine + (i % St::kStages1) * St::kStep1;
-      const T* kb = reinterpret_cast<const T*>(slot);
-      const T* vb = kSame ? kb : kb + St::kK;
-      const float* ob = reinterpret_cast<const float*>(slot + St::kOOff);
-      const int d = d_lo + 16 * i + 4 * t;
-      const float4 qa = lds4(qs + g * ldq + d);
-      const float4 qb = lds4(qs + (g + 8) * ldq + d);
-      const float4 oa = lds4(ob + g * 16 + 4 * t);
-      const float4 obb = lds4(ob + (g + 8) * 16 + 4 * t);
-      // A fragments: 0 and 1 Q kscale at k8 steps 0 and 1, 2 and 3 dO
-      uint32_t ah[4][4], al[4][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        to_tf32<true>(elem(qa, 2 * h), ah[h][0], al[h][0]);
-        to_tf32<true>(elem(qb, 2 * h), ah[h][1], al[h][1]);
-        to_tf32<true>(elem(qa, 2 * h + 1), ah[h][2], al[h][2]);
-        to_tf32<true>(elem(qb, 2 * h + 1), ah[h][3], al[h][3]);
-        to_tf32<true>(elem(oa, 2 * h), ah[2 + h][0], al[2 + h][0]);
-        to_tf32<true>(elem(obb, 2 * h), ah[2 + h][1], al[2 + h][1]);
-        to_tf32<true>(elem(oa, 2 * h + 1), ah[2 + h][2], al[2 + h][2]);
-        to_tf32<true>(elem(obb, 2 * h + 1), ah[2 + h][3], al[2 + h][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (8 * j >= kn) break;        // no real key left in the tile
-        fence();
-        const float4 kf = lds4(kb + (8 * j + g) * 16 + 4 * t);
-        const float4 vf = kSame ? kf : lds4(vb + (8 * j + g) * 16 + 4 * t);
-        uint32_t bh[4][2], bl[4][2];
-        float x[4][4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          to_tf32<kF32>(elem(kf, 2 * h), bh[h][0], bl[h][0]);
-          to_tf32<kF32>(elem(kf, 2 * h + 1), bh[h][1], bl[h][1]);
-          if constexpr (kSame) {
-            bh[2 + h][0] = bh[h][0]; bl[2 + h][0] = bl[h][0];
-            bh[2 + h][1] = bh[h][1]; bl[2 + h][1] = bl[h][1];
-          } else {
-            to_tf32<kF32>(elem(vf, 2 * h), bh[2 + h][0], bl[2 + h][0]);
-            to_tf32<kF32>(elem(vf, 2 * h + 1), bh[2 + h][1], bl[2 + h][1]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
-        mma_tile<true, kF32, 4, 4>(x, ah, al, bh, bl);  // S h0, h1, dP h0, h1
-        add_into(s[j], x[0]);
-        add_into(s[j], x[1]);
-        add_into(dp[j], x[2]);
-        add_into(dp[j], x[3]);
-      }
-      __syncwarp();                    // every lane is done with step i
-    }
-    cp_wait<0>();
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float* ps = part + g * kPartLd + 8 * j + 2 * t;
-      float* pd = ps + kRows * kPartLd;
-      *reinterpret_cast<float2*>(ps) = make_float2(s[j][0], s[j][1]);
-      *reinterpret_cast<float2*>(ps + 8 * kPartLd) =
-          make_float2(s[j][2], s[j][3]);
-      *reinterpret_cast<float2*>(pd) = make_float2(dp[j][0], dp[j][1]);
-      *reinterpret_cast<float2*>(pd + 8 * kPartLd) =
-          make_float2(dp[j][2], dp[j][3]);
-    }
-    __syncthreads();  // every partial is written
-
-    // 2. S and dP = the eight partials each, summed in warp order; dS =
-    // P (dP - delta) g with P = exp(S g - lse), g = keep * scale: a gated
-    // key's g is 0, a key past P or a row past N gives 0.
-    if (srow < rows) {
-      const float* p0 = reinterpret_cast<const float*>(areas) +
-                        srow * kPartLd + skey;
-      float4 sx = lds4(p0), dx = lds4(p0 + kRows * kPartLd);
-#pragma unroll
-      for (int u = 1; u < kWarps; ++u) {
-        const float* pu =
-            reinterpret_cast<const float*>(areas + u * kDqArea) +
-            srow * kPartLd + skey;
-        const float4 y = lds4(pu), z = lds4(pu + kRows * kPartLd);
-        sx.x += y.x; sx.y += y.y; sx.z += y.z; sx.w += y.w;
-        dx.x += z.x; dx.y += z.y; dx.z += z.z; dx.w += z.w;
-      }
-      const bool row_in = q0 + srow < N;
-      const float l = lse_s[srow], dl = delta_s[srow];
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = k0 + skey + e;
-        ds[e] = 0.f;
-        if (row_in && j < P) {
-          const float gm = keep_b[j] * scale;
-          const float p = expf(elem(sx, e) * gm - l);
-          ds[e] = p * (elem(dx, e) - dl) * gm;
-        }
-      }
-      *reinterpret_cast<float4*>(ds_s + srow * kPLd + skey) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();  // dS is written; the partials are read
-
-    // 3. acc += dS K over this warp's columns, 8 keys a step: step i
-    // stages K rows k0 + 8i .. + 7 at the warp's 192 columns, kStages3 - 1
-    // steps ahead. Group c's rows t and t + 4 at columns 32c + 4g .. + 3
-    // give the B fragments of its four n8 tiles (tile e's column n is 32c
-    // + 4n + e).
-    const int nstep3 = cw < D ? (kn + 7) / 8 : 0;
-    auto stage3 = [&](int i) {
-      if (i < nstep3) {
-        T* dst = kst3 + (i % St::kStages3) * St::kK3;
-        const T* krow = Kb + (size_t)(k0 + 8 * i) * D;
-        // a row's 48 four-element chunks: lanes 0-31, then lanes 0-15
-#pragma unroll (kVec ? 8 : 1)
-        for (int r = 0; r < 8; ++r) {
-          const bool ok = k0 + 8 * i + r < P;
-          const int q = 4 * lane;
-          copy4<kVec>(dst + r * St::kKLd + q, krow + (size_t)r * D, ok,
-                      cw + q, D);
-          if (lane < kGroups * 8 - 32)
-            copy4<kVec>(dst + r * St::kKLd + 128 + q, krow + (size_t)r * D,
-                        ok, cw + 128 + q, D);
-        }
-      }
-      cp_commit();
-    };
-#pragma unroll
-    for (int i = 0; i < St::kStages3 - 1; ++i) stage3(i);
-#pragma unroll 1
-    for (int i = 0; i < nstep3; ++i) {
-      stage3(i + St::kStages3 - 1);
-      cp_wait<St::kStages3 - 1>();
-      __syncwarp();                    // step i is staged, by every lane
-      uint32_t ah[1][4], al[1][4];
-      to_tf32<true>(ds_s[g * kPLd + 8 * i + t], ah[0][0], al[0][0]);
-      to_tf32<true>(ds_s[(g + 8) * kPLd + 8 * i + t], ah[0][1], al[0][1]);
-      to_tf32<true>(ds_s[g * kPLd + 8 * i + t + 4], ah[0][2], al[0][2]);
-      to_tf32<true>(ds_s[(g + 8) * kPLd + 8 * i + t + 4], ah[0][3],
-                    al[0][3]);
-      const T* kb = kst3 + (i % St::kStages3) * St::kK3;
-      // one 32-column group at a time: its four n8 tiles
-#pragma unroll
-      for (int c = 0; c < kGroups; ++c) {
-        fence();
-        const float4 ka = lds4(kb + t * St::kKLd + 32 * c + 4 * g);
-        const float4 kc = lds4(kb + (t + 4) * St::kKLd + 32 * c + 4 * g);
-        uint32_t bh[4][2], bl[4][2];
-        float x[4][4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          to_tf32<kF32>(elem(ka, e), bh[e][0], bl[e][0]);
-          to_tf32<kF32>(elem(kc, e), bh[e][1], bl[e][1]);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) x[e][k] = 0.f;
-        }
-        mma_tile<true, kF32, 4, 1>(x, ah, al, bh, bl);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) add_into(acc[c][e], x[e]);
-      }
-      __syncwarp();                    // every lane is done with step i
-    }
-    cp_wait<0>();
-  }
-
-  // dQ = acc * kscale; each thread writes the columns it accumulated
-  float* dQb = dQ + (size_t)b * N * D;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = g + 8 * half;
-    if (r >= rows || q0 + r >= N) continue;
-    float* orow = dQb + (size_t)(q0 + r) * D;
-#pragma unroll
-    for (int c = 0; c < kGroups; ++c) {
-      const int col = cw + 32 * c + 8 * t;  // tile e, n = 2t (+1): col + e (+4)
-      const float4 k0v = ldg4<kVec>(ks_b, col, D);
-      const float4 k1v = ldg4<kVec>(ks_b, col + 4, D);
-      store4<kVec>(orow, col, D,
-                   make_float4(acc[c][0][2 * half] * k0v.x,
-                               acc[c][1][2 * half] * k0v.y,
-                               acc[c][2][2 * half] * k0v.z,
-                               acc[c][3][2 * half] * k0v.w));
-      store4<kVec>(orow, col + 4, D,
-                   make_float4(acc[c][0][2 * half + 1] * k1v.x,
-                               acc[c][1][2 * half + 1] * k1v.y,
-                               acc[c][2][2 * half + 1] * k1v.z,
-                               acc[c][3][2 * half + 1] * k1v.w));
-    }
-  }
-}
-
-// The dK and dV kernels' per-warp staging area, kDkArea bytes (dQ's), holds
+// The dK and dV kernels' per-warp staging area, kDkArea bytes, holds
 // one of three things in turn: steps of one partial product (the block's kTq
 // streamed Q or dO rows at 16 columns of D, and V's owned rows at the same
 // columns where V is not K), or the warp's partials [2][kRows][kQLd]
 // (S^T, then dP^T), or steps of the accumulation (8 streamed Q or dO rows at
-// the warp's 192 columns, padded as dQ's K steps). S^T and dP^T run as two
+// the warp's 192 columns, rows padded by 32 bytes). S^T and dP^T run as two
 // loops, so a float32 step holds one streamed tensor (4 KB) and three steps
 // are in flight, where one loop over both would stage 8 KB a step and fit
 // one.
@@ -782,8 +437,7 @@ ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
 
     // 3. acc += W X over this warp's columns, 8 queries a step (W = dS^T
     // and X = Q for dK_eff, W = P^T and X = dO for dV): step i stages rows
-    // i0 + 8i .. + 7 at the warp's 192 columns, kStages3 - 1 steps ahead;
-    // dQ's dS K step with the roles of keys and queries swapped.
+    // i0 + 8i .. + 7 at the warp's 192 columns, kStages3 - 1 steps ahead.
     const int nstep3 = cw < D ? (qn + 7) / 8 : 0;
     auto stage3 = [&](int i) {
       if (i < nstep3) {
@@ -865,14 +519,14 @@ ca_dk_or_dv_kernel(const T* Q, const T* K, const T* V, const float* keep,
   }
 }
 
-// --- the fused dK/dV: TMA-fed wgmma ------------------------------------------
+// --- dQ and the fused dK/dV: TMA-fed wgmma ----------------------------------
 // (the prep bodies and the product's body: contextual_attention_wgmma.cuh)
 
 constexpr int kKeyCols = 64;     // keys a warpgroup in S and dP
-constexpr int kGradCols = 96;    // output columns a warpgroup in dV and dK
+constexpr int kGradCols = 96;    // output columns a warpgroup in dQ, dV, dK
 constexpr int kScoreGroup = kSumStages;  // stages S and dP sum apart
 constexpr bool kScoreKahan = true;       // and add to their totals
-constexpr int kGradGroup = 0;            // and dV and dK (every step)
+constexpr int kGradGroup = 0;            // and dQ, dV and dK (every step)
 
 // Rows r0 .. r0 + rc of each image of `in` (B, rows_in, D), times ks (B, D)
 // where given, as TF32 terms (B, rc, Dp); one block a row.
@@ -882,6 +536,12 @@ ca_dkdv_split_rows(const T* in, const float* ks, float* hi, float* lo,
                    int rows_in, int r0, int rc, int D) {
   split_rows(in, ks, hi, lo, rows_in, r0, rc, D);
 }
+template <typename T>
+__global__ void __launch_bounds__(256)
+ca_dq_split_rows(const T* in, const float* ks, float* hi, float* lo,
+                 int rows_in, int r0, int rc, int D) {
+  split_rows(in, ks, hi, lo, rows_in, r0, rc, D);
+}
 
 // X (B, N, D) transposed to (B, D, Np) as TF32 terms, 0 past N.
 template <typename T>
@@ -889,27 +549,34 @@ __global__ void __launch_bounds__(256)
 ca_dkdv_split_t(const T* X, float* hi, float* lo, int N, int D) {
   split_t(X, hi, lo, N, D);
 }
+template <typename T>
+__global__ void __launch_bounds__(256)
+ca_dq_split_t(const T* X, float* hi, float* lo, int N, int D) {
+  split_t(X, hi, lo, N, D);
+}
 
-// Where a product's epilogue writes: out[b * bstride + i * ld + j] = acc for
-// rows i < rows and columns j < cols of image b.
+// Where a product's epilogue writes: out[b * bstride + i * ld + j] = acc,
+// times cs[b * cols + j] where cs is given (dQ's kscale), for rows i <
+// rows and columns j < cols of image b.
 struct GradEpi {
   float* out;
   long long bstride;
   int rows, cols, ld;
+  const float* cs;
 };
 
-// A product of the fused dK/dV (S, dP, dV or dK): wgmma_product's block,
-// summing its steps in runs of kGroup stages where kGroup > 0 (the runs
-// added to the total with Kahan's compensation where kCompensate), and a
-// plain float32 store of each accumulator.
+// A product of dQ or the fused dK/dV (S, dP, dQ, dV or dK):
+// wgmma_product's block, summing its steps in runs of kGroup stages where
+// kGroup > 0 (the runs added to the total with Kahan's compensation where
+// kCompensate), and a float32 store of each accumulator, scaled by its
+// column's cs where e.cs is given.
 template <int kWN, int kMW, bool kSplitB, int kStages, int kGroup,
           bool kCompensate>
-__global__ void __launch_bounds__(kWgThreads, 1)
-ca_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
-                     const __grid_constant__ CUtensorMap a_lo,
-                     const __grid_constant__ CUtensorMap b_hi,
-                     const __grid_constant__ CUtensorMap b_lo, int K,
-                     GradEpi e) {
+__device__ __forceinline__ void grad_product(const CUtensorMap& a_hi,
+                                             const CUtensorMap& a_lo,
+                                             const CUtensorMap& b_hi,
+                                             const CUtensorMap& b_lo, int K,
+                                             const GradEpi& e) {
   constexpr int kBM = kTileM * kMW, kBN = kWN * 2 / kMW;  // the block's tile
   float acc[kWN / 2];
   if (!wgmma_product<kWN, kMW, kSplitB, kStages, kGroup, kCompensate>(
@@ -921,6 +588,8 @@ ca_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                 16 * (warp & 3) + (lane >> 2);
   const int cb = blockIdx.y * kBN + (kMW == 2 ? 0 : wg * kWN) + 2 * (lane & 3);
   float* o = e.out + (long long)blockIdx.z * e.bstride;
+  const float* cs =
+      e.cs == nullptr ? nullptr : e.cs + (long long)blockIdx.z * e.cols;
 #pragma unroll
   for (int v = 0; v < 2; ++v) {
     const int i = r + 8 * v;
@@ -931,8 +600,70 @@ ca_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = cb + 8 * j + h;
-        if (col < e.cols) orow[col] = acc[4 * j + 2 * v + h];
+        if (col >= e.cols) continue;
+        const float x = acc[4 * j + 2 * v + h];
+        orow[col] = cs == nullptr ? x : x * __ldg(cs + col);
       }
+  }
+}
+
+template <int kWN, int kMW, bool kSplitB, int kStages, int kGroup,
+          bool kCompensate>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ca_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
+                     const __grid_constant__ CUtensorMap a_lo,
+                     const __grid_constant__ CUtensorMap b_hi,
+                     const __grid_constant__ CUtensorMap b_lo, int K,
+                     GradEpi e) {
+  grad_product<kWN, kMW, kSplitB, kStages, kGroup, kCompensate>(
+      a_hi, a_lo, b_hi, b_lo, K, e);
+}
+template <int kWN, int kMW, bool kSplitB, int kStages, int kGroup,
+          bool kCompensate>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ca_dq_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
+                   const __grid_constant__ CUtensorMap a_lo,
+                   const __grid_constant__ CUtensorMap b_hi,
+                   const __grid_constant__ CUtensorMap b_lo, int K,
+                   GradEpi e) {
+  grad_product<kWN, kMW, kSplitB, kStages, kGroup, kCompensate>(
+      a_hi, a_lo, b_hi, b_lo, K, e);
+}
+
+// dQ's weights for one chunk of rc query rows from r0 on, one block a row,
+// 4 keys a thread: with g = keep * scale, P = exp(S g - lse) and dS =
+// P (dP - delta) g from S and dP (B, rc, Pp), written by rows (B, rc, Pp)
+// as TF32 terms; 0 past P. (The same expressions as the fused dK/dV's
+// weights, so the same dS.)
+__global__ void __launch_bounds__(256)
+ca_dq_weights(const float* s, const float* dp, const float* keep,
+              const float* lse, const float* delta, float* d_hi, float* d_lo,
+              int N, int P, int r0, int rc, float scale) {
+  const int Pp = round4(P);
+  const int b = blockIdx.x / rc, i = r0 + blockIdx.x % rc;
+  const long long row = (long long)blockIdx.x * Pp;
+  const float l = lse[(long long)b * N + i];
+  const float dl = delta[(long long)b * N + i];
+  const float* kb = keep + (long long)b * P;
+  for (int q = threadIdx.x; 4 * q < Pp; q += blockDim.x) {
+    const float4 sx = reinterpret_cast<const float4*>(s + row)[q];
+    const float4 dx = reinterpret_cast<const float4*>(dp + row)[q];
+    float h[4], lo[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = 4 * q + u;
+      float d = 0.f;
+      if (j < P) {
+        const float g = kb[j] * scale;
+        const float p = expf(elem(sx, u) * g - l);
+        d = p * (elem(dx, u) - dl) * g;
+      }
+      split_tf32(d, h[u], lo[u]);
+    }
+    reinterpret_cast<float4*>(d_hi + row)[q] =
+        make_float4(h[0], h[1], h[2], h[3]);
+    reinterpret_cast<float4*>(d_lo + row)[q] =
+        make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
 }
 
@@ -1031,11 +762,63 @@ int grad_chunk_rows(int B, int N, int P, long long cap) {
   return (int)(rows < 128 ? (P < 128 ? P : 128) : (rows > P ? P : rows));
 }
 
+// dQ's scratch, in bytes from its start (each part 256-byte aligned): the
+// TF32 terms of K by rows (B, P, Dp; V's apart where V is not K; lo parts
+// only for float32 input) and of K transposed (B, D, Pp), of Q kscale and
+// dO by rows (B, N, Dp), then, for a chunk of `rows` query rows, S and dP
+// (B, rows, Pp) and the terms of dS (B, rows, Pp).
+struct DqLayout {
+  int Dp, Pp;
+  size_t kh, kl, vh, vl, kth, ktl, qh, ql, oh, ol, s, dp, dh, dl, total;
+};
+
+DqLayout dq_layout(bool f32, bool same, int B, int N, int P, int D,
+                   int rows) {
+  DqLayout L;
+  L.Dp = round4(D);
+  L.Pp = round4(P);
+  size_t at = 0;
+  const auto take = [&](size_t bytes) {
+    const size_t o = at;
+    at = (at + bytes + 255) / 256 * 256;
+    return o;
+  };
+  const size_t kb = 4 * (size_t)B * P * L.Dp, qb = 4 * (size_t)B * N * L.Dp;
+  const size_t tb = 4 * (size_t)B * D * L.Pp;
+  const size_t sb = 4 * (size_t)B * rows * L.Pp;
+  L.kh = take(kb);
+  L.kl = f32 ? take(kb) : L.kh;
+  L.vh = same ? L.kh : take(kb);
+  L.vl = same ? L.kl : (f32 ? take(kb) : L.vh);
+  L.kth = take(tb);
+  L.ktl = f32 ? take(tb) : L.kth;
+  L.qh = take(qb);
+  L.ql = take(qb);
+  L.oh = take(qb);
+  L.ol = take(qb);
+  L.s = take(sb);
+  L.dp = take(sb);
+  L.dh = take(sb);
+  L.dl = take(sb);
+  L.total = at;
+  return L;
+}
+
+// Query rows a chunk of dQ: all N where the chunked part of the scratch
+// (S, dP and dS's terms) fits in `cap` bytes, else the most multiples of
+// 128 (the dQ product's row block in float32) that fit, at least 128.
+int dq_chunk_rows(int B, int N, int P, long long cap) {
+  const long long per_row = 16ll * B * round4(P);
+  if ((long long)N * per_row <= cap) return N;
+  const long long rows = cap / per_row / 128 * 128;
+  return (int)(rows < 128 ? (N < 128 ? N : 128) : (rows > N ? N : rows));
+}
+
 // The products' block shapes, the forward's: S and dP as its logits (64
-// queries x 128 keys), dV and dK as its P V (128 keys x 96 columns, two
-// warpgroups over the rows sharing each B box, where B is split; 64 x 192
-// for dK in bfloat16, whose Q^T terms are one, half the bytes). Each gives
-// 128 blocks at 256^2, B = 1.
+// queries x 128 keys), dQ, dV and dK as its P V (128 rows x 96 columns,
+// two warpgroups over the rows sharing each B box, where B is split; 64 x
+// 192 for dQ and dK in bfloat16, whose K^T and Q^T terms are one, half the
+// bytes). Each gives 128 blocks at 256^2, B = 1.
 template <bool kF32>
 using ScoreGemm =
     Gemm<kKeyCols, 1, kF32, kScoreKahan ? kCompBytes<kKeyCols> : 0>;
@@ -1050,60 +833,34 @@ struct Args {
   float scale;
   cudaStream_t stream;
   int* plan = nullptr;  // fill the launch plan, do not launch
-  void* scratch = nullptr;  // the fused dK/dV's scratch
-  int rows = 0;             // and its key rows a chunk
+  void* scratch = nullptr;  // dQ's or the fused dK/dV's scratch
+  int rows = 0;             // and its query or key rows a chunk
 };
 
-// dQ with `rows` query rows a block; with a.plan, the launch plan instead.
-template <typename T, bool kSame, bool kVec>
-int launch_dq(const Args& a, int rows) {
-  const size_t smem = dq_smem_bytes(a.D);
-  const auto kernel = ca_dq_kernel<T, kSame, kVec>;
-  if (int err = opt_in_smem(kernel, smem)) return err;
-  const dim3 grid((a.N + rows - 1) / rows, (a.D + kSlab - 1) / kSlab, a.B);
-  if (a.plan != nullptr) return block_plan(kernel, grid, smem, rows, a.plan);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.keep, a.kscale, a.dO, a.lse, a.delta,
-      a.out, rows, a.N, a.P, a.D, a.scale);
-  return (int)cudaGetLastError();
+// The product kernel of dQ (kDq) or of the fused dK/dV.
+template <bool kDq, int kWN, int kMW, bool kSplitB, int kStages, int kGroup,
+          bool kCompensate>
+auto grad_kernel() {
+  if constexpr (kDq)
+    return ca_dq_wgmma_kernel<kWN, kMW, kSplitB, kStages, kGroup,
+                              kCompensate>;
+  else
+    return ca_dkdv_wgmma_kernel<kWN, kMW, kSplitB, kStages, kGroup,
+                                kCompensate>;
 }
 
-// dQ: 16-row blocks, or 8-row ones when 16-row blocks would leave SMs idle
-// (the forward's rule); one build whose staged K rows serve S and dP where
-// V is K (the main path's call), one that stages both; 16-byte copies where
-// D is a multiple of 4 and every pointer is aligned, else element by
-// element.
-template <typename T>
-int launch_dq_rows(const Args& a) {
-  if (a.B > 65535) return (int)cudaErrorInvalidValue;
-  const int rows =
-      (long long)a.B * ((a.N + kRows - 1) / kRows) < sm_count() ? 8 : kRows;
-  const auto aligned = [](const void* p) {
-    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const bool vec = a.D % 4 == 0 && aligned(a.q) && aligned(a.k) &&
-                   aligned(a.v) && aligned(a.dO) && aligned(a.kscale) &&
-                   aligned(a.out);
-  const bool same = a.k == a.v;
-  if (same)
-    return vec ? launch_dq<T, true, true>(a, rows)
-               : launch_dq<T, true, false>(a, rows);
-  return vec ? launch_dq<T, false, true>(a, rows)
-             : launch_dq<T, false, false>(a, rows);
-}
-
-// One product of the fused dK/dV: a grid of Gemm<kWN, kMW, kSplitB>
-// blocks over rows x cols of each image (with room for the compensations
-// where kCompensate); with per_sm, the resident blocks per SM instead of
-// a launch.
-template <int kWN, int kMW, bool kSplitB, int kGroup, bool kCompensate>
+// One product of dQ (kDq) or the fused dK/dV: a grid of Gemm<kWN, kMW,
+// kSplitB> blocks over rows x cols of each image (with room for the
+// compensations where kCompensate); with per_sm, the resident blocks per
+// SM instead of a launch.
+template <int kWN, int kMW, bool kSplitB, int kGroup, bool kCompensate,
+          bool kDq = false>
 int launch_grad_gemm(int rows, int cols, int B, const CUtensorMap (&m)[4],
                      int K, const GradEpi& e, cudaStream_t stream,
                      int* per_sm = nullptr) {
   using G = Gemm<kWN, kMW, kSplitB, kCompensate ? kCompBytes<kWN> : 0>;
-  const auto kernel = ca_dkdv_wgmma_kernel<kWN, kMW, kSplitB, G::kStages,
-                                           kGroup, kCompensate>;
+  const auto kernel = grad_kernel<kDq, kWN, kMW, kSplitB, G::kStages, kGroup,
+                                  kCompensate>();
   static std::atomic<unsigned long long> opted{0};
   if (int err = opt_in_once(kernel, G::kSmem, opted)) return err;
   if (per_sm != nullptr)
@@ -1290,6 +1047,151 @@ int plan_dkdv(int B, int N, int P, int D, int rows, int* plan) {
   return 0;
 }
 
+// dQ on a.scratch, laid out by dq_layout() for chunks of a.rows query
+// rows: the prep launches, then S, dP, the weights and the dQ product per
+// chunk. a.out is dQ.
+template <typename T>
+int launch_dq(const Args& a) {
+  constexpr bool kF32 = sizeof(T) == sizeof(float);
+  const int B = a.B, N = a.N, P = a.P, D = a.D, rows = a.rows;
+  if (rows <= 0 || rows > N || B > 65535 || (long long)B * P > 0x7fffffff ||
+      (long long)B * N > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const bool same = a.k == a.v;
+  const DqLayout L = dq_layout(kF32, same, B, N, P, D, rows);
+  char* base = static_cast<char*>(a.scratch);
+  const auto at = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
+  float *kh = at(L.kh), *kl = kF32 ? at(L.kl) : nullptr;
+  float *vh = at(L.vh), *vl = kF32 ? at(L.vl) : nullptr;
+  float *kth = at(L.kth), *ktl = kF32 ? at(L.ktl) : nullptr;
+  float *qh = at(L.qh), *ql = at(L.ql), *oh = at(L.oh), *ol = at(L.ol);
+  float *s = at(L.s), *dp = at(L.dp), *dh = at(L.dh), *dl = at(L.dl);
+  cudaStream_t st = a.stream;
+
+  ca_dq_split_rows<T><<<B * P, 256, 0, st>>>(k, nullptr, kh, kl, P, 0, P, D);
+  if (int err = (int)cudaGetLastError()) return err;
+  if (!same) {
+    ca_dq_split_rows<T><<<B * P, 256, 0, st>>>(v, nullptr, vh, vl, P, 0, P,
+                                               D);
+    if (int err = (int)cudaGetLastError()) return err;
+  }
+  ca_dq_split_t<T><<<dim3((L.Pp + 31) / 32, (D + 31) / 32, B), 256, 0, st>>>(
+      k, kth, ktl, P, D);
+  if (int err = (int)cudaGetLastError()) return err;
+  ca_dq_split_rows<T><<<B * N, 256, 0, st>>>(q, a.kscale, qh, ql, N, 0, N, D);
+  if (int err = (int)cudaGetLastError()) return err;
+  ca_dq_split_rows<float><<<B * N, 256, 0, st>>>(a.dO, nullptr, oh, ol, N, 0,
+                                                 N, D);
+  if (int err = (int)cudaGetLastError()) return err;
+
+  using GS = ScoreGemm<kF32>;
+  using GQ = GradGemm<kF32>;
+  // ms: S = (Q kscale) K^T, mp: dP = dO V^T over D; mq: dQ = dS (K^T)^T
+  // over the keys, whose extent P ends the maps' contraction there (TMA
+  // reads zeros past it)
+  CUtensorMap ms[4], mp[4], mq[4];
+  const long long kstride = (long long)P * L.Dp, tstride = (long long)D * L.Pp;
+  if (int err = make_map(&ms[2], kh, D, P, B, L.Dp, kstride, GS::kBN))
+    return err;
+  if (int err = make_map(&ms[3], kF32 ? kl : kh, D, P, B, L.Dp, kstride,
+                         GS::kBN))
+    return err;
+  if (int err = make_map(&mp[2], vh, D, P, B, L.Dp, kstride, GS::kBN))
+    return err;
+  if (int err = make_map(&mp[3], kF32 ? vl : vh, D, P, B, L.Dp, kstride,
+                         GS::kBN))
+    return err;
+  if (int err = make_map(&mq[2], kth, P, D, B, L.Pp, tstride, GQ::kBN))
+    return err;
+  if (int err = make_map(&mq[3], kF32 ? ktl : kth, P, D, B, L.Pp, tstride,
+                         GQ::kBN))
+    return err;
+  const long long qstride = (long long)N * L.Dp;
+  for (int r0 = 0; r0 < N; r0 += rows) {
+    const int rc = rows < N - r0 ? rows : N - r0;
+    const long long qo = (long long)r0 * L.Dp;
+    if (int err = make_map(&ms[0], qh + qo, D, rc, B, L.Dp, qstride, GS::kBM))
+      return err;
+    if (int err = make_map(&ms[1], ql + qo, D, rc, B, L.Dp, qstride, GS::kBM))
+      return err;
+    if (int err = make_map(&mp[0], oh + qo, D, rc, B, L.Dp, qstride, GS::kBM))
+      return err;
+    if (int err = make_map(&mp[1], ol + qo, D, rc, B, L.Dp, qstride, GS::kBM))
+      return err;
+    const long long sstride = (long long)rc * L.Pp;
+    constexpr auto score = launch_grad_gemm<kKeyCols, 1, kF32, kScoreGroup,
+                                            kScoreKahan, true>;
+    if (int err = score(rc, P, B, ms, D, GradEpi{s, sstride, rc, P, L.Pp},
+                        st, nullptr))
+      return err;
+    if (int err = score(rc, P, B, mp, D, GradEpi{dp, sstride, rc, P, L.Pp},
+                        st, nullptr))
+      return err;
+    ca_dq_weights<<<B * rc, 256, 0, st>>>(s, dp, a.keep, a.lse, a.delta, dh,
+                                          dl, N, P, r0, rc, a.scale);
+    if (int err = (int)cudaGetLastError()) return err;
+    if (int err = make_map(&mq[0], dh, P, rc, B, L.Pp, sstride, GQ::kBM))
+      return err;
+    if (int err = make_map(&mq[1], dl, P, rc, B, L.Pp, sstride, GQ::kBM))
+      return err;
+    constexpr auto grad_q =
+        launch_grad_gemm<kGradCols, GQ::kMW, kF32, kGradGroup, false, true>;
+    if (int err = grad_q(rc, D, B, mq, P,
+                         GradEpi{a.out + (long long)r0 * D, (long long)N * D,
+                                 rc, D, D, a.kscale},
+                         st, nullptr))
+      return err;
+  }
+  return 0;
+}
+
+// The plan of launch_dq for these shapes and chunk rows (V taken to be K,
+// as on the main path), without a launch: plan[0] chunk rows, [1] chunks,
+// [2] S blocks (dP's are the same; a full chunk's grid), [3] weights
+// blocks, [4] dQ product blocks, [5] and [6] the S and dQ products'
+// dynamic shared memory per block, [7] and [8] their stages, [9] and [10]
+// their resident blocks per SM, [11] threads a product block, [12]
+// launches per call, [13] and [14] the S block's rows and columns, [15]
+// and [16] the dQ block's.
+template <typename T>
+int plan_dq(int B, int N, int P, int D, int rows, int* plan) {
+  constexpr bool kF32 = sizeof(T) == sizeof(float);
+  using GS = ScoreGemm<kF32>;
+  using GQ = GradGemm<kF32>;
+  if (rows <= 0 || rows > N) return (int)cudaErrorInvalidValue;
+  const CUtensorMap none[4] = {};
+  const GradEpi e{};
+  const auto blocks = [](dim3 g) { return (int)(g.x * g.y * g.z); };
+  const int chunks = (N + rows - 1) / rows;
+  plan[0] = rows;
+  plan[1] = chunks;
+  plan[2] = blocks(GS::grid(rows, P, B));
+  plan[3] = rows * B;
+  plan[4] = blocks(GQ::grid(rows, D, B));
+  plan[5] = (int)GS::kSmem;
+  plan[6] = (int)GQ::kSmem;
+  plan[7] = GS::kStages;
+  plan[8] = GQ::kStages;
+  if (int err = launch_grad_gemm<kKeyCols, 1, kF32, kScoreGroup, kScoreKahan,
+                                 true>(1, 1, 1, none, 0, e, nullptr,
+                                       &plan[9]))
+    return err;
+  if (int err = launch_grad_gemm<kGradCols, GQ::kMW, kF32, kGradGroup, false,
+                                 true>(1, 1, 1, none, 0, e, nullptr,
+                                       &plan[10]))
+    return err;
+  plan[11] = kWgThreads;
+  plan[12] = 4 + 4 * chunks;
+  plan[13] = GS::kBM;
+  plan[14] = GS::kBN;
+  plan[15] = GQ::kBM;
+  plan[16] = GQ::kBN;
+  return 0;
+}
+
 // dK_eff (kDK) or dV with `rows` key rows a block; with a.plan, the launch
 // plan instead.
 template <typename T, bool kDK, bool kSame, bool kVec>
@@ -1306,11 +1208,11 @@ int launch_dk_dv(const Args& a, int rows) {
   return (int)cudaGetLastError();
 }
 
-// dK_eff or dV: dQ's rule with keys for queries (16-row blocks, or 8-row
-// ones when 16-row blocks would leave SMs idle), and dQ's builds: for dK one
-// whose owned K rows serve S^T and dP^T where V is K (the main path's call),
-// one that stages V's rows; 16-byte copies where D is a multiple of 4 and
-// every pointer is aligned, else element by element. dV reads no V.
+// dK_eff or dV: 16-row blocks, or 8-row ones when 16-row blocks would
+// leave SMs idle; for dK one build whose owned K rows serve S^T and dP^T
+// where V is K (the main path's call), one that stages V's rows; 16-byte
+// copies where D is a multiple of 4 and every pointer is aligned, else
+// element by element. dV reads no V.
 template <typename T, bool kDK>
 int launch_dk_dv_rows(const Args& a) {
   if (a.B > 65535) return (int)cudaErrorInvalidValue;
@@ -1338,7 +1240,9 @@ int launch(int which, const Args& a) {
     return (int)cudaErrorInvalidValue;
   switch (which) {
     case 0:
-      return launch_dq_rows<T>(a);
+      if (a.plan != nullptr)
+        return plan_dq<T>(a.B, a.N, a.P, a.D, a.rows, a.plan);
+      return launch_dq<T>(a);
     case 1:
       if (a.plan != nullptr)
         return plan_dkdv<T>(a.B, a.N, a.P, a.D, a.rows, a.plan);
@@ -1368,17 +1272,50 @@ extern "C" {
 // contiguous. keep (B,P), kscale (B,D), dO (B,N,D), lse and delta (B,N):
 // float32. Outputs float32: dQ (B,N,D); dK_eff and dV (B,P,D).
 // Each returns the cudaError_t of its launch (0 on success).
+
+// dQ, with a scratch of sketchedit_contextual_attention_dq_scratch's bytes
+// for these shapes and its `rows` query rows a chunk.
 int sketchedit_contextual_attention_dq(int dtype, const void* q,
                                        const void* k, const void* v,
                                        const void* keep, const void* kscale,
                                        const void* dO, const void* lse,
-                                       const void* delta, void* dq, int B,
-                                       int N, int P, int D, float scale,
+                                       const void* delta, void* dq,
+                                       void* scratch, int B, int N, int P,
+                                       int D, int rows, float scale,
                                        void* stream) {
-  return launch_typed(0, dtype,
-                      {q, k, v, f(keep), f(kscale), f(dO), f(lse), f(delta),
-                       f(dq), nullptr, B, N, P, D, scale,
-                       static_cast<cudaStream_t>(stream)});
+  Args a{q, k, v, f(keep), f(kscale), f(dO), f(lse), f(delta),
+         f(dq), nullptr, B, N, P, D, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.scratch = scratch;
+  a.rows = rows;
+  return launch_typed(0, dtype, a);
+}
+
+// Bytes of scratch dQ needs for these shapes (same: V is K, one pointer)
+// when the part that grows with the query rows (S, dP and dS's terms) may
+// take `cap` bytes; *rows gets the query rows a chunk. Returns -1 for
+// shapes it refuses.
+long long sketchedit_contextual_attention_dq_scratch(int dtype, int same,
+                                                     int B, int N, int P,
+                                                     int D, long long cap,
+                                                     int* rows) {
+  if (B <= 0 || N <= 0 || P <= 0 || D <= 0 || cap <= 0 ||
+      (dtype != 0 && dtype != 1))
+    return -1;
+  *rows = dq_chunk_rows(B, N, P, cap);
+  return (long long)dq_layout(dtype == 0, same != 0, B, N, P, D, *rows)
+      .total;
+}
+
+// dQ's launch plan for these shapes and `rows` query rows a chunk on the
+// current device, without a launch: the 17 ints plan_dq fills.
+int sketchedit_contextual_attention_dq_plan(int dtype, int rows, int B, int N,
+                                            int P, int D, int* plan) {
+  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         nullptr, nullptr, nullptr, B,       N,       P,       D,
+         0.f,     nullptr, plan};
+  a.rows = rows;
+  return launch_typed(0, dtype, a);
 }
 
 // The fused dK/dV: the same arguments as dq, the two outputs, and a scratch
@@ -1429,22 +1366,9 @@ int sketchedit_contextual_attention_dkdv_plan(int dtype, int rows, int B,
   return launch_typed(1, dtype, a);
 }
 
-// The dQ kernel's launch plan for these shapes on the current device,
-// without a launch (V taken to be K, as on the main path): plan[0] query
-// rows per block, [1] column slabs, [2] the most blocks resident at once on
-// an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), [3] dynamic
-// shared-memory bytes per block, [4] blocks in the grid.
-int sketchedit_contextual_attention_dq_plan(int dtype, int B, int N, int P,
-                                            int D, int* plan) {
-  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-         nullptr, nullptr, nullptr, B,       N,       P,       D,
-         0.f,     nullptr, plan};
-  return launch_typed(0, dtype, a);
-}
-
 // The dV (dk = 0) or dK (dk = 1) kernel's launch plan for these shapes on
 // the current device, without a launch (V taken to be K, as on the main
-// path), in dq_plan's order: plan[0] key rows per block, [1] column slabs,
+// path): plan[0] key rows per block, [1] column slabs,
 // [2] the most blocks resident at once on an SM, [3] dynamic shared-memory
 // bytes per block, [4] blocks in the grid.
 int sketchedit_contextual_attention_dv_plan(int dtype, int B, int N, int P,

@@ -1,11 +1,11 @@
 // Device code shared by the contextual-attention kernels for Hopper
 // (contextual_attention_fwd.cu and contextual_attention_bwd.cu): the
 // float32-accurate tensor-core product (split TF32 on mma.sync) that the
-// D-split forward and the dQ, dV and dK backward kernels are built on,
-// with their block shape, per-warp cp.async staging and launch plans.
-// Every one of them runs kThreads = 256 threads a block and walks its
-// streamed axis in tiles of kT = 64. (The default and shared forwards and
-// the fused dK/dV run wgmma instead: contextual_attention_wgmma.cuh.)
+// D-split forward and the dV and dK backward kernels are built on, with
+// their block shape, per-warp cp.async staging and launch plans. Every one
+// of them runs kThreads = 256 threads a block and walks its streamed axis
+// in tiles of kT = 64. (The default and shared forwards, dQ and the fused
+// dK/dV run wgmma instead: contextual_attention_wgmma.cuh.)
 
 #pragma once
 
@@ -103,9 +103,8 @@ __device__ __forceinline__ void mma_tile(float (&c)[kN][4],
   for (int n = 0; n < kN; ++n) mma_tf32(c[n], ah[n % kA], bh[n]);
 }
 
-// The split-TF32 kernels (ca_dq_kernel and ca_dk_or_dv_kernel): a block
-// is kWarps warps over kRows owned rows (queries in dQ; keys in dK and dV)
-// and a slab of kSlab output columns; warp w
+// The split-TF32 kernels (ca_dk_or_dv_kernel): a block is kWarps warps
+// over kRows owned rows (keys) and a slab of kSlab output columns; warp w
 // owns kGroups 32-column groups of the slab, and contracts Ds = mma_cols(D)
 // columns of D for its partial S. The D-split forward, whose clusters split
 // D over two blocks (ca_fwd_dsplit_kernel), gives each warp kHalfGroups
@@ -167,19 +166,6 @@ __device__ __forceinline__ void copy4(T* dst, const T* row, bool ok, int d,
     for (int i = 0; i < 4; ++i)
       dst[i] = ok && d + i < D ? row[d + i] : zero<T>();
   }
-}
-
-// Four consecutive float32 values of a D-long vector from c, 0 past D (kVec: D is a
-// multiple of 4 and p 16-byte aligned).
-template <bool kVec>
-__device__ __forceinline__ float4 ldg4(const float* p, int c, int D) {
-  if (kVec && c < D) return __ldg(reinterpret_cast<const float4*>(p + c));
-  float4 x;
-  x.x = c < D ? p[c] : 0.f;
-  x.y = c + 1 < D ? p[c + 1] : 0.f;
-  x.z = c + 2 < D ? p[c + 2] : 0.f;
-  x.w = c + 3 < D ? p[c + 3] : 0.f;
-  return x;
 }
 
 // Four consecutive staged elements as float32.

@@ -1,5 +1,5 @@
 // The split-TF32 product on TMA-fed warpgroup wgmma that the default and
-// shared forwards (contextual_attention_fwd.cu) and the fused dK/dV
+// shared forwards (contextual_attention_fwd.cu), dQ and the fused dK/dV
 // backward (contextual_attention_bwd.cu) are built on: the prep bodies that
 // write an operand's TF32 terms, by rows or transposed, and the body of a
 // product block, C[b] = A[b] B[b]^T, up to its accumulators. Each file

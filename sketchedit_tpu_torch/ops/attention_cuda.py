@@ -16,13 +16,14 @@ cores; inference only; ``dsplit_plan`` says how it runs a shape). The
 flash-style backward comes in the same two forms:
 ``attention_core_dq`` and ``attention_core_dkdv`` launch the kernels of
 ``csrc/contextual_attention_bwd.cu`` (replacing ``_dq_kernel`` and
-``_dkdv_kernel``; the dQ kernel runs its three products on the tensor cores
-in split TF32, and ``dq_plan`` says how it runs a shape; the fused dK/dV
-is the default forward's sequence of launches on warpgroup ``wgmma`` fed
-by TMA: the operands' TF32 terms in a scratch, then per chunk of key rows
-S, dP, a weights pass forming P^T and dS^T, dV = P^T dO and dK = dS^T Q as
-products, ``dkdv_scratch`` and ``dkdv_plan`` say how it runs a shape) on
-CUDA tensors and take their plain versions on CPU ones, as do the single-output
+``_dkdv_kernel``; both are the default forward's sequence of launches on
+warpgroup ``wgmma`` fed by TMA: the operands' TF32 terms in a scratch,
+then for dQ per chunk of query rows S, dP, a weights pass forming dS and
+dQ = dS K as products, ``dq_scratch`` and ``dq_plan`` say how it runs a
+shape; for the fused dK/dV per chunk of key rows S, dP, a weights pass
+forming P^T and dS^T, dV = P^T dO and dK = dS^T Q as products,
+``dkdv_scratch`` and ``dkdv_plan`` say how it runs a shape) on CUDA
+tensors and take their plain versions on CPU ones, as do the single-output
 ``attention_core_dv`` and
 ``attention_core_dk`` (``_dv_kernel``, ``_dk_kernel``: dQ's block with
 keys owned and queries streamed, on the tensor cores in split TF32;
@@ -105,8 +106,9 @@ LAUNCHES_DK = 0
 _COUNT_LOCK = threading.Lock()
 # The default and shared forwards' scratch may spend up to this many bytes
 # on the part that grows with the query rows (their split terms, the
-# logits, P's terms), the fused dK/dV's on the part that grows with the key
-# rows (S, dP, the weights' terms); a larger call takes them in chunks.
+# logits, P's terms), dQ's on the same part (S, dP, dS's terms), the fused
+# dK/dV's on the part that grows with the key rows (S, dP, the weights'
+# terms); a larger call takes them in chunks.
 SCRATCH_CAP = 256 << 20
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,7 +119,7 @@ _ENTRY_POINTS = {
     "fwd": ("contextual_attention_fwd", 2, 8, 5),
     "fwd_dsplit": ("contextual_attention_fwd", 2, 7, 4),
     "fwd_shared": ("contextual_attention_fwd", 2, 6, 4),
-    "dq": ("contextual_attention_bwd", 1, 9, 4),
+    "dq": ("contextual_attention_bwd", 1, 10, 5),
     "dkdv": ("contextual_attention_bwd", 1, 11, 5),
     "dv": ("contextual_attention_bwd", 1, 7, 4),
     "dk": ("contextual_attention_bwd", 1, 9, 4),
@@ -419,13 +421,44 @@ def fwd_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
     return {**plan, "phases": list(FWD_PHASES), "scratch_bytes": nbytes}
 
 
-def dq_plan(B: int, N: int, P: int, D: int, dtype=torch.float32) -> dict:
-    """How the dQ kernel runs these shapes on the current CUDA device (V
-    taken to be K, as on the main path), without launching it, in
-    ``fwd_plan``'s keys: the query rows of a block, the slabs of up to 1536
-    dQ columns, the most blocks resident at once on an SM, each block's
-    dynamic shared memory in bytes, and the blocks of the grid."""
-    return _plan("dq", (_DTYPE_CODES[dtype],), B, N, P, D, _FWD_PLAN_KEYS)
+def dq_scratch(B: int, N: int, P: int, D: int, dtype=torch.float32,
+               same: bool = True, cap: Optional[int] = None
+               ) -> tuple[int, int]:
+    """(bytes, rows): the scratch dQ takes for these shapes (``same``: V is
+    K, one tensor, whose terms serve S and dP), and the query rows of each
+    chunk, when the part that grows with the query rows may take ``cap``
+    bytes (``SCRATCH_CAP`` by default)."""
+    return _scratch("dq", _DTYPE_CODES[dtype], int(same), B, N, P, D,
+                    cap=SCRATCH_CAP if cap is None else cap)
+
+
+# the phases of dQ, in launch order: the split copies (K by rows, K
+# transposed, Q kscale and dO by rows), then per chunk of query rows the S
+# and dP products, the weights pass and the dQ product
+DQ_PHASES = ("keys", "keys_t", "queries", "grads", "logits", "dp", "weights",
+             "dq")
+_DQ_PLAN_KEYS = ("chunk_rows", "chunks", "logits_blocks", "weights_blocks",
+                 "dq_blocks", "logits_smem_bytes", "dq_smem_bytes",
+                 "logits_stages", "dq_stages", "logits_blocks_per_sm",
+                 "dq_blocks_per_sm", "threads_per_block", "launches_per_call",
+                 "logits_block_rows", "logits_block_cols", "dq_block_rows",
+                 "dq_block_cols")
+
+
+def dq_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
+            cap: Optional[int] = None) -> dict:
+    """How dQ runs these shapes on the current CUDA device (V taken to be
+    K, as on the main path), without launching it: the query rows of a
+    chunk and the chunks, the blocks of the S (``logits``; dP's are the
+    same), weights and dQ launches of a full chunk, the two product kinds'
+    dynamic shared memory per block, their pipeline stages and resident
+    blocks per SM, the threads of a product block, the CUDA launches per
+    call, each product's block rows and columns, ``phases`` in launch order
+    and the scratch in bytes (``dq_scratch``)."""
+    nbytes, rows = dq_scratch(B, N, P, D, dtype, True, cap)
+    plan = _plan("dq", (_DTYPE_CODES[dtype], rows), B, N, P, D,
+                 _DQ_PLAN_KEYS)
+    return {**plan, "phases": list(DQ_PHASES), "scratch_bytes": nbytes}
 
 
 def dkdv_scratch(B: int, N: int, P: int, D: int, dtype=torch.float32,
@@ -475,8 +508,8 @@ def dk_dv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
                dk: bool = True) -> dict:
     """How the dK kernel (or, without ``dk``, the dV kernel) runs these
     shapes on the current CUDA device (V taken to be K, as on the main
-    path), without launching it, in ``dq_plan``'s keys: the key rows of a
-    block (``tile_rows``), the slabs of up to 1536 output columns, the most
+    path), without launching it: the key rows of a block (``tile_rows``),
+    the slabs of up to 1536 output columns, the most
     blocks resident at once on an SM, each block's dynamic shared memory in
     bytes, and the blocks of the grid."""
     return _plan("dk" if dk else "dv", (_DTYPE_CODES[dtype],), B, N, P, D,
@@ -704,8 +737,12 @@ _dk_op = _backward_op("dk", _dk_cpu, lambda Q, K, *_: _f32_like(K))
 @_dq_op.register_kernel("cuda")
 def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
     dQ = _f32_like(Q)
+    B, N, D = Q.shape
+    nbytes, rows = dq_scratch(B, N, K.shape[1], D, Q.dtype,
+                              K.data_ptr() == V.data_ptr())
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=Q.device)
     _launch_bwd("dq", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
-                             lse, delta, dQ), softmax_scale)
+                             lse, delta, dQ, scratch), softmax_scale, (rows,))
     _count("LAUNCHES_DQ")
     return dQ
 
@@ -750,7 +787,10 @@ def attention_core_dq(Q, K, V, keep, lse, delta, dO,
                       softmax_scale: float = 10.0, kscale=None):
     """dQ (float32) of ``attention_core``, given the forward's logsumexp,
     delta = rowsum(dO O) and the float32 output gradient dO. A CUDA tensor
-    launches the dQ kernel; a CPU tensor takes the plain version."""
+    launches dQ's sequence (split copies, then per chunk of query rows S,
+    dP, the weights and dQ = dS K, the products on TMA-fed ``wgmma``;
+    needs sm_90a; ``dq_plan`` says how it runs a shape); a CPU tensor takes
+    the plain version."""
     _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
     return _dq_op(Q, K, V, keep, lse, delta, dO, float(softmax_scale), kscale)
 

@@ -371,9 +371,8 @@ SHAPES = [
     ((3, 300, 200, 600), 0.9),
     ((16, 140, 175, 100), 0.7),       # enough tiles for 16-row dQ and dK/dV
 ]
-# dQ's further cases: D past one 1536-column slab (odd), and the main
-# path's 256^2 shape at B = 1 and 8, where the launch rule takes 8-row and
-# 16-row dQ blocks on a 132-SM card
+# further cases: D past one 1536-column slab (odd), and the main path's
+# 256^2 shape at B = 1 and 8
 BWD_SHAPES = SHAPES + [
     ((2, 50, 70, 1537), 0.8),
     ((1, 961, 961, 1536), 0.6),
@@ -384,8 +383,7 @@ BWD_SHAPES = SHAPES + [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,keep_p", BWD_SHAPES)
 def test_bwd_kernels_match_plain(cuda, dtype, shape, keep_p):
-    """Separate Q, K and V tensors (dQ's build that stages K and V
-    apart)."""
+    """Separate Q, K and V tensors (V's own split terms feed dP)."""
     Q, K, V, keep = _inputs(sum(shape) + 1, *shape, keep_p, dtype, cuda)
     rs = np.random.RandomState(sum(shape))
     B, N, _, D = shape
@@ -438,10 +436,9 @@ def _main_path_bwd(seed, B, H, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H", [(1, 64), (8, 64), (3, 29)])
 def test_dq_kernel_main_path_call(cuda, dtype, B, H):
-    """The one-tensor call of the training path (dQ's build whose staged K
-    rows serve S and dP) at 256^2 images, B = 1 and 8, and at a ragged
-    29^2 (N = P = 169, D = 1536), against the plain version at 2e-4 of
-    max |dQ|."""
+    """The one-tensor call of the training path (one set of K terms serves
+    S and dP) at 256^2 images, B = 1 and 8, and at a ragged 29^2 (N = P =
+    169, D = 1536), against the plain version at 2e-4 of max |dQ|."""
     args = _main_path_bwd(B * 100 + H, B, H, dtype, cuda)
     before = attention_cuda.LAUNCHES_DQ
     got = attention_core_dq(*args)
@@ -459,33 +456,127 @@ def test_dq_kernel_main_path_call(cuda, dtype, B, H):
 
 @pytest.mark.parametrize("same", [True, False], ids=["one_tensor", "apart"])
 def test_dq_kernel_repeats_bit_for_bit(cuda, same):
-    """Two launches on the same inputs give the same bits: each block owns
-    its dQ rows, and S and dP sum the warps' partials in a fixed order."""
+    """Two launches on the same inputs give the same bits: each product
+    block owns its outputs, and no sum depends on which block gets there
+    first."""
     args = _main_path_bwd(31, 8, 64, torch.float32, cuda)
-    if not same:          # K and V apart: the build that stages both
+    if not same:          # K and V apart: V's own split terms feed dP
         Q, K, V, *rest = args
         args = (Q, K.clone(), V.clone(), *rest)
     first, second = attention_core_dq(*args), attention_core_dq(*args)
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("B,rows_132", [(1, 8), (8, 16)])
-def test_dq_plan_at_the_main_path_shapes(cuda, B, rows_132):
-    """256^2 training (N = P = 961, D = 1536): 8-row dQ blocks at B = 1
-    and 16-row ones at B = 8 on a 132-SM card (the rule's pick elsewhere),
-    one column slab, every block within the shared memory a block may opt
-    into."""
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    want = 8 if B * -(-961 // 16) < sms else 16
-    assert sms != 132 or want == rows_132
+@pytest.mark.parametrize("B,blocks_132", [(1, 128), (8, 1024)])
+def test_dq_plan_at_the_main_path_shapes(cuda, B, blocks_132):
+    """256^2 training (N = P = 961, D = 1536): one chunk of all 961 query
+    rows (Q kscale's and dO's terms are split once a call, outside the
+    capped part, so B = 8 float32 takes one too); S (and dP) in blocks of
+    64 queries x 128 keys, the dQ product in 128 x 96 in float32 and
+    64 x 192 in bfloat16: 128 blocks each at B = 1, which covers a 132-SM
+    card in one wave, 1024 at B = 8; every block within the shared memory
+    a block may opt into; eight launches a call."""
     for dtype in (torch.float32, torch.bfloat16):
         plan = dq_plan(B, 961, 961, 1536, dtype)
         print("dq_plan", B, str(dtype), plan)
-        assert plan["tile_rows"] == want and plan["column_slabs"] == 1
-        assert plan["grid_blocks"] == B * -(-961 // want)
-        assert 0 < plan["smem_bytes"] <= 232448
-        assert plan["blocks_per_sm"] >= 1
-    assert dq_plan(2, 50, 70, 1537)["column_slabs"] == 2
+        dq = (128, 96) if dtype == torch.float32 else (64, 192)
+        assert plan["chunks"] == 1 and plan["chunk_rows"] == 961
+        assert plan["logits_blocks"] == plan["dq_blocks"] == blocks_132
+        assert plan["weights_blocks"] == B * 961
+        assert (plan["logits_block_rows"],
+                plan["logits_block_cols"]) == (64, 128)
+        assert (plan["dq_block_rows"], plan["dq_block_cols"]) == dq
+        for k in ("logits", "dq"):
+            assert 0 < plan[f"{k}_smem_bytes"] <= 232448
+            assert plan[f"{k}_blocks_per_sm"] >= 1
+            assert plan[f"{k}_stages"] >= 3
+        assert plan["launches_per_call"] == 8
+        assert plan["phases"] == list(attention_cuda.DQ_PHASES)
+        assert plan["scratch_bytes"] > 0
+
+
+def _check_dq(args, tag):
+    """One dQ call against its plain version (2e-4 of max |dQ|); prints the
+    largest difference; returns dQ."""
+    before = attention_cuda.LAUNCHES_DQ
+    got = attention_core_dq(*args)
+    torch.cuda.synchronize()
+    assert attention_cuda.LAUNCHES_DQ == before + 1
+    want = attention_core_dq_reference(*args)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    scale = max(want.abs().max().item(), 1e-6)
+    diff = (got - want).abs().max().item()
+    exact = _float64_grads(args)[2]
+    # shown with -rP, with each one's largest |difference| from float64
+    print("dq", tag, list(args[0].shape[:2]) + list(args[1].shape[1:]),
+          str(args[0].dtype), "max|dQ - plain| / max|dQ|", diff / scale,
+          "max|dQ - float64|", (got.double() - exact).abs().max().item(),
+          "max|plain - float64|", (want.double() - exact).abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4 * scale,
+                               msg=lambda m: f"{tag} dQ: {m}")
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_kernel_in_chunks(cuda, monkeypatch, dtype):
+    """A scratch cap that takes the query rows in several chunks (the last
+    one ragged) gives what one chunk gives, bit for bit: every S, dP and
+    dS is formed alike in any chunk, and each dQ row sums its keys in the
+    same order."""
+    args = _bwd_case(25, 2, 700, 300, 1536, 0.8, dtype, cuda)
+    B, N, D = args[0].shape
+    P = args[1].shape[1]
+    want = attention_core_dq(*args)
+    assert dq_plan(B, N, P, D, dtype)["chunks"] == 1
+    monkeypatch.setattr(attention_cuda, "SCRATCH_CAP", 1 << 20)
+    plan = dq_plan(B, N, P, D, dtype, cap=1 << 20)
+    print("dq chunks", str(dtype), plan["chunks"], plan["chunk_rows"])
+    assert plan["chunks"] >= 3 and N % plan["chunk_rows"] != 0
+    assert plan["launches_per_call"] == 4 + 4 * plan["chunks"]
+    assert torch.equal(_check_dq(args, "chunks"), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,keep_p", [
+    ((2, 150, 130, 70), 0.7),     # N off the 64- and 128-row blocks
+    ((1, 17, 65, 33), 0.5),       # fewer queries than a block, odd D
+    ((3, 300, 200, 97), 0.8),     # D off the 32-element stage and blocks
+    ((2, 129, 65, 193), 0.9),     # one past a block on every side
+    ((2, 481, 961, 1536), 0.6),   # the sharded path's 481-row query slice
+])
+def test_dq_kernel_ragged(cuda, dtype, shape, keep_p):
+    """N, P and D off every tile of every phase, N apart from P: the split
+    copies' rows padded to 4, the products' blocks and 32-element stages,
+    the weights' rows; TMA's zeros past the maps' extents."""
+    _check_dq(_bwd_case(sum(shape) + 4, *shape, keep_p, dtype, cuda),
+              f"ragged{list(shape)}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_kernel_wide_d(cuda, dtype):
+    """D = 4099: shared memory sets no widest D (every product streams its
+    contraction in 32-element stages), and an odd D pads the split rows."""
+    _check_dq(_bwd_case(4099, 1, 90, 30, 4099, 0.8, dtype, cuda), "D4099")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_kernel_all_keys_gated(cuda, dtype):
+    """Every key gated: the dS multiplier is 0, so dQ is exactly 0."""
+    args = _bwd_case(23, 9, 130, 500, 1536, 0.0, dtype, cuda)
+    assert not args[3].any()
+    assert not _check_dq(args, "all_gated").any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_kernel_v_apart_from_k(cuda, dtype):
+    """K and V apart on the main path's inputs (V's own split terms feed
+    dP): the same values in the same order as the one-tensor call, whose
+    one set of K terms serves S and dP, so the same bits, and within
+    tolerance of the plain version."""
+    args = _main_path_bwd(34, 8, 64, dtype, cuda)
+    Q, K, V, *rest = args
+    got = _check_dq((Q, K.clone(), V.clone(), *rest), "v_apart")
+    assert torch.equal(got, attention_core_dq(*args))
 
 
 def _bwd_args(Q, K, V, keep, dO, kscale):
@@ -636,16 +727,17 @@ def test_dkdv_kernel_v_apart_from_k(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, one))
 
 
-def _float64_dkdv(args):
-    """dK_eff and dV evaluated in float64 from the same inputs (the
+def _float64_grads(args):
+    """dK_eff, dV and dQ evaluated in float64 from the same inputs (the
     forward kernel's lse and delta)."""
     Q, K, V, keep, lse, delta, dO, scale, ks = (
         t.double() if torch.is_tensor(t) else t for t in args)
     g = keep[:, None, :] * scale
-    S = torch.bmm(Q, (K * ks[:, None, :]).transpose(1, 2))
-    P = torch.exp(S * g - lse[..., None])
+    Keff = K * ks[:, None, :]
+    P = torch.exp(torch.bmm(Q, Keff.transpose(1, 2)) * g - lse[..., None])
     dS = P * (torch.bmm(dO, V.transpose(1, 2)) - delta[..., None]) * g
-    return torch.bmm(dS.transpose(1, 2), Q), torch.bmm(P.transpose(1, 2), dO)
+    return (torch.bmm(dS.transpose(1, 2), Q), torch.bmm(P.transpose(1, 2), dO),
+            torch.bmm(dS, Keff))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -657,7 +749,7 @@ def test_dkdv_kernel_as_close_to_float64_as_dk_dv(cuda, dtype, B, H):
     TF32), each as a share of the largest value."""
     args = _main_path_bwd(B * 100 + H + 5, B, H, dtype, cuda)
     Q, K, _, keep, lse, _, dO, _, ks = args
-    want = _float64_dkdv(args)
+    want = _float64_grads(args)[:2]
     fused = attention_core_dkdv(*args)
     alone = (attention_core_dk(*args),
              attention_core_dv(Q, K, keep, lse, dO, 10.0, ks))
@@ -667,6 +759,30 @@ def test_dkdv_kernel_as_close_to_float64_as_dk_dv(cuda, dtype, B, H):
         print("dkdv float64", B, H, str(dtype), name, "fused", d_fused,
               "alone", d_alone)
         assert d_fused <= 2 * d_alone, (name, d_fused, d_alone)
+
+
+# dQ's relative L2 from float64 over the fused dK/dV's dK_eff's at each
+# case's inputs with the mma.sync dQ kernel that the wgmma sequence
+# replaced (scripts/dq_variants.py --seeds, PERF.md PR 18)
+DQ_F64_BEFORE = {(1, 64, torch.float32): 1.190, (1, 64, torch.bfloat16): 1.205,
+                 (3, 29, torch.float32): 1.192, (3, 29, torch.bfloat16): 2.045}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(1, 64), (3, 29)])
+def test_dq_kernel_as_close_to_float64_as_before(cuda, dtype, B, H):
+    """At test_dkdv_kernel_as_close_to_float64_as_dk_dv's inputs, dQ's
+    relative L2 from a float64 evaluation, over the fused dK/dV's dK_eff's,
+    stays within 1.5x of that ratio with the mma.sync dQ kernel."""
+    args = _main_path_bwd(B * 100 + H + 5, B, H, dtype, cuda)
+    want_dk, _, want_dq = _float64_grads(args)
+    l2 = lambda a, w: ((a.double() - w).norm() / w.norm()).item()
+    d_dq = l2(attention_core_dq(*args), want_dq)
+    d_dk = l2(attention_core_dkdv(*args)[0], want_dk)
+    before = DQ_F64_BEFORE[(B, H, dtype)]
+    print("dq float64", B, H, str(dtype), "dQ", d_dq, "dK_eff", d_dk,
+          "ratio", d_dq / d_dk, "before", before)
+    assert d_dq / d_dk <= 1.5 * before, (d_dq, d_dk, before)
 
 
 def test_launches_run_on_the_tensors_device(cuda):

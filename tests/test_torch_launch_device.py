@@ -88,7 +88,7 @@ def test_every_launch_runs_inside_its_tensors_device(stub_launches):
             name, Q, K, V, keep, 10.0, True, torch.float32, kscale)
         assert out.shape == (B, N, D) and got_lse.shape == (B, N)
     # the C signatures' pointer counts
-    backwards = (("dq", 9), ("dkdv", 11), ("dv", 7), ("dk", 9))
+    backwards = (("dq", 10), ("dkdv", 11), ("dv", 7), ("dk", 9))
     for name, n_ptrs in backwards:
         attention_cuda._launch_bwd(name, Q, K, (Q,) * n_ptrs, 10.0)
     names = [name for name in forwards] + [name for name, _ in backwards]

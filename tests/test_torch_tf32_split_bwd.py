@@ -2,12 +2,16 @@
 emulated in plain torch on the CPU (tests/tf32_emulation.py) and held
 against the JAX package's dQ, dK and dV.
 
-The dQ emulation runs S, dP and dS K the way the dQ kernel does (kscale
-on the query side of S, K raw; dO always split) on the main path's inputs
-at 64^2 features (256^2 images: N = P = 961, D = 1536) with a seeded dO
-and the JAX forward's lse and delta, and must agree with
-``_attention_core_bwd_pallas``'s dQ (interpret mode) within
-chip_smoke.py's BWD_TOL, 2e-4 of max |dQ|. The dK and dV emulations run
+The dQ emulation runs S, dP and dS K the way dQ's wgmma sequence does
+(kscale on the query side of S, K raw; dO always split; S and dP each
+summed in runs of 16 k8 steps added to the total with Kahan's
+compensation; dS K every step to the total, kscale on dQ's columns at the
+end) on the main path's inputs at 64^2 features (256^2 images: N = P =
+961, D = 1536) with a seeded dO and the JAX forward's lse and delta, and
+must agree with ``_attention_core_bwd_pallas``'s dQ (interpret mode)
+within chip_smoke.py's BWD_TOL, 2e-4 of max |dQ|; so must its first 481
+query rows alone (the sharded path's query slice, N apart from P) against
+the JAX function's dQ for that slice. The dK and dV emulations run
 the single-output kernels' products (S^T = (K kscale) Q^T with kscale on
 the owned keys, dP^T = K dO^T with the keys raw, then dS^T Q or P^T dO)
 on the same inputs and must agree with the same function's dK and dV
@@ -34,18 +38,21 @@ from tf32_emulation import BWD_TOL, SCALE, case, mma, operand
 
 
 def emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
-    """dQ of ``attention_core(Q, V, V, keep, kscale=kscale)`` as the dQ
-    kernel computes it: S = (Q kscale) V^T with kscale on the query side
-    and the keys raw, dP = dO V^T, dS = P (dP - delta) g with P = exp(S g -
-    lse) and g = keep * scale, dQ = (dS V) kscale; Q kscale, dO and dS are
-    split, V is split where it holds float32 values."""
+    """dQ of ``attention_core(Q, V, V, keep, kscale=kscale)`` as dQ's wgmma
+    sequence computes it: S = (Q kscale) V^T with kscale on the query side
+    and the keys raw, dP = dO V^T, both summed in runs of 16 k8 steps added
+    to the total with Kahan's compensation; dS = P (dP - delta) g with
+    P = exp(S g - lse) and g = keep * scale; dQ = (dS V) kscale, every step
+    added to the total and kscale on the columns at the end; Q kscale, dO
+    and dS are split, V is split where it holds float32 values."""
     f32 = Q.dtype == torch.float32
     Kf = V.float()
     passes = 1 if one_pass else 3
     S = mma(operand(Q.float() * kscale[:, None, :], True),
-            operand(Kf.transpose(1, 2), f32 or one_pass), passes)
+            operand(Kf.transpose(1, 2), f32 or one_pass), passes, group=16,
+            compensate=True)
     dP = mma(operand(dO, True), operand(Kf.transpose(1, 2), f32 or one_pass),
-             passes)
+             passes, group=16, compensate=True)
     g = keep[:, None, :] * SCALE
     dS = torch.exp(S * g - lse[..., None]) * (dP - delta[..., None]) * g
     return mma(operand(dS, True), operand(Kf, f32 or one_pass),
@@ -86,6 +93,32 @@ def test_split_tf32_dq_matches_jax(dtype_name, monkeypatch):
     one_err = (one - want).abs().max().item() / scale
     print(dtype_name, "dQ split", err, "one pass", one_err,
           "(shares of max |dQ|)")
+    torch.testing.assert_close(got, want, rtol=0, atol=BWD_TOL * scale)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_split_tf32_dq_query_slice_matches_jax(dtype_name, monkeypatch):
+    """The first 481 of 961 query rows against the whole key bank, as the
+    query-sharded path calls the backward: the JAX function's dQ for that
+    slice alone, against the emulation's."""
+    monkeypatch.delenv("SKETCHEDIT_SPLIT_DKDV", raising=False)
+    Q, V, keep, kscale, out, lse = case(dtype_name)
+    dO, delta, _, _, _ = dq_case(dtype_name)
+    n = 481
+    Qs, dOs, outs = (t[:, :n].contiguous() for t in (Q, dO, out))
+    K = V.float() * kscale[:, None, :]
+    with pltpu.force_tpu_interpret_mode():
+        want = _attention_core_bwd_pallas(
+            jnp.asarray(Qs.float().numpy()), jnp.asarray(K.numpy()),
+            jnp.asarray(V.float().numpy()), jnp.asarray(keep.numpy()),
+            jnp.asarray(outs.numpy()), jnp.asarray(lse[:, :n].numpy()),
+            jnp.asarray(dOs.numpy()), SCALE)[0]
+    want = torch.from_numpy(np.array(want))
+    scale = want.abs().max().item()
+    assert want.shape == (1, n, 1536) and scale > 0
+    got = emulated_dq(Qs, V, keep, kscale, lse[:, :n], delta[:, :n], dOs)
+    print(dtype_name, "dQ query slice split",
+          (got - want).abs().max().item() / scale, "(share of max |dQ|)")
     torch.testing.assert_close(got, want, rtol=0, atol=BWD_TOL * scale)
 
 
