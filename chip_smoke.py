@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the exit code is not 0:
 1. device: torch and CUDA versions, the card's name and power limit;
 2. build: nvcc builds every kernel in sketchedit_tpu_torch/csrc;
 3. kernels vs plain: the contextual-attention forward (its wgmma
-   sequence), then the dQ and dK/dV backward kernels, against their plain
+   sequence), then the dQ and dK/dV backward kernels and the joint
+   backward (bit for bit against the two at one chunk), against their plain
    PyTorch versions at the main paths' shapes (inference 256^2 B = 1, 4
    and 8, training 256^2 B = 1 and 8), float32 and bfloat16, plus ragged
    and all-gated cases, the forward with a scratch cap that takes its
@@ -23,9 +24,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    rows, the blocks, block shapes, stages, shared memory and resident
    blocks per SM of each product, launches per call, scratch bytes), a
    `dq_plan` line the same for dQ's wgmma sequence (chunks of query rows),
-   a `bwd_vs_float64` line each of its, dQ's and the dK and dV kernels'
-   distance from a float64 evaluation at 256^2 (B = 1 and 8, float32: the
-   fused sequence's relative L2 within 1.5x of theirs; dQ's over the fused
+   a `bwd_plan` line for the joint backward, a `bwd_vs_float64` line each
+   of its, the joint's, dQ's and the dK and dV kernels' distance from a
+   float64 evaluation at 256^2 (B = 1 and 8, float32: the fused and joint
+   sequences' relative L2 within 1.5x of theirs; dQ's over the fused
    dK_eff's within 1.5x of that ratio with the mma.sync dQ kernel it
    replaced), `dk_dv_plan` lines the dV and dK kernels' rows per block,
    column slabs, resident blocks per SM and shared memory, and
@@ -39,13 +41,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    and, at 64^2, against the port on the CPU;
 5. train step: one G+D step at 256^2, B = 8, per branch flag, through the
    kernels and through the dense attention (losses and every gradient
-   compared, launches counted), the same step under SKETCHEDIT_SPLIT_DKDV=1
-   and under SKETCHEDIT_SHARED_ATTN=1 against the default kernels' step,
+   compared, launches counted: the default backward is the joint one), the
+   same step under SKETCHEDIT_SPLIT_DKDV=1 and under
+   SKETCHEDIT_SHARED_ATTN=1 against the default kernels' step,
    the bfloat16 step's gradients held to the float32 ones, and the step on
    the GPU against the step on the CPU;
 6. training path: the train loop, 3 steps at 256^2, B = 8, in float32 and
    bfloat16 on batches from the editimage loader (synthetic PNGs), with
-   the launch counts of the forward and both backward kernels, and a saved
+   the launch counts of the forward and the joint backward, and a saved
    checkpoint reloaded; held-out validation in process (8 items at 256^2,
    float32: the kernel path's metrics against a dense netG's with the same
    weights, one forward launch per call, its time); then the train CLI for
@@ -318,10 +321,11 @@ def scale_weights_(net_m, net_g):
 
 
 # launch counters of ops/attention_cuda.py: the three forwards (fwd_lse:
-# those of any of them that wrote the logsumexp) and the four backwards
+# those of any of them that wrote the logsumexp), the four backwards and the
+# joint backward (bwd)
 COUNTERS = {"fwd": "LAUNCHES", "shared": "LAUNCHES_SHARED",
             "dsplit": "LAUNCHES_DSPLIT", "fwd_lse": "LAUNCHES_LSE",
-            "dq": "LAUNCHES_DQ", "dkdv": "LAUNCHES_DKDV",
+            "dq": "LAUNCHES_DQ", "dkdv": "LAUNCHES_DKDV", "bwd": "LAUNCHES_BWD",
             "dv": "LAUNCHES_DV", "dk": "LAUNCHES_DK"}
 
 
@@ -660,14 +664,16 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     from sketchedit_tpu_torch.ops import _build, attention_cuda
     from sketchedit_tpu_torch.ops.attention_cuda import (
-        attention_core, attention_core_dk, attention_core_dk_reference,
-        attention_core_dkdv, attention_core_dkdv_reference,
+        attention_core, attention_core_bwd_joint,
+        attention_core_bwd_joint_reference, attention_core_dk,
+        attention_core_dk_reference, attention_core_dkdv,
+        attention_core_dkdv_reference,
         attention_core_dq, attention_core_dq_reference,
         attention_core_dsplit, attention_core_dsplit_reference,
         attention_core_dv, attention_core_dv_reference,
         attention_core_reference, attention_core_shared,
-        attention_core_shared_reference, attention_inputs, dk_dv_plan,
-        dkdv_plan, dq_plan, dsplit_plan, fwd_plan)
+        attention_core_shared_reference, attention_inputs, bwd_plan,
+        dk_dv_plan, dkdv_plan, dq_plan, dsplit_plan, fwd_plan)
     from sketchedit_tpu_torch.options import parse_argv
     from sketchedit_tpu_torch.options.test_options import TestOptions
     from sketchedit_tpu_torch.runner import build_pipeline, set_precision
@@ -894,8 +900,11 @@ def main():
     bwd_inputs = {}
 
     def check_bwd(tag, Q, K, V, keep, kscale):
-        """dQ and (dK_eff, dV) from the two kernels against their plain
-        versions on the same inputs, the forward's lse and a random dO."""
+        """dQ and (dK_eff, dV) from the two kernels and from the joint
+        backward against their plain versions on the same inputs, the
+        forward's lse and a random dO; the joint's three outputs equal the
+        two kernels' bit for bit (one chunk: the same S, dP and dS, each
+        product in the same order)."""
         out, lse = attention_core(Q, K, V, keep, return_lse=True,
                                   out_dtype=torch.float32, kscale=kscale)
         dO = torch.randn(out.shape, generator=torch.Generator().manual_seed(
@@ -905,9 +914,12 @@ def main():
         got = (attention_core_dq(*bargs), *attention_core_dkdv(*bargs))
         dV1 = attention_core_dv(Q, K, keep, lse, dO, 10.0, kscale)
         dK1 = attention_core_dk(*bargs)
+        joint = attention_core_bwd_joint(*bargs)
         torch.cuda.synchronize()
         used = {k: v - before[k] for k, v in counts(attention_cuda).items()}
-        assert used == expect(dq=1, dkdv=1, dv=1, dk=1), (tag, used)
+        assert used == expect(dq=1, dkdv=1, dv=1, dk=1, bwd=1), (tag, used)
+        assert bwd_plan(Q.shape[0], Q.shape[1], K.shape[1],
+                        Q.shape[2], Q.dtype)["chunks"] == 1, tag
         want = (attention_core_dq_reference(*bargs),
                 *attention_core_dkdv_reference(*bargs))
         row = {"phase": "bwd_kernels_vs_plain", "case": tag,
@@ -921,6 +933,21 @@ def main():
             row[f"{name}_max_abs_err"] = err
             row[f"{name}_max_abs"] = scale
             assert err <= BWD_TOL * max(scale, 1e-6), f"{tag} {name}: {err}"
+        # the joint backward: against its plain version (P and dS formed
+        # once) and bit for bit against the dQ and fused dK/dV kernels
+        for name, g, w, two in zip(
+                ("dQ", "dK_eff", "dV"), joint,
+                attention_core_bwd_joint_reference(*bargs), got):
+            assert g.dtype == torch.float32 and g.shape == w.shape, tag
+            assert torch.isfinite(g).all(), f"{tag} joint {name}"
+            row[f"joint_{name}_max_abs_err"] = (g - w).abs().max().item()
+            row[f"joint_{name}_max_abs_diff_vs_two"] = (
+                g - two).abs().max().item()
+            assert row[f"joint_{name}_max_abs_err"] <= BWD_TOL * max(
+                w.abs().max().item(), 1e-6), (tag, "joint", name)
+        row["joint_bits_equal_two"] = all(
+            torch.equal(g, two) for g, two in zip(joint, got))
+        assert row["joint_bits_equal_two"], row
         # the single-output kernels: against their own plain versions and
         # against the fused kernel's outputs
         for name, g, w, sib in (
@@ -939,6 +966,8 @@ def main():
         bwd_errs[tag] = {"dq": row["dQ_max_abs_err"],
                          "dkdv": max(row["dK_eff_max_abs_err"],
                                      row["dV_max_abs_err"]),
+                         "bwd": max(row[f"joint_{n}_max_abs_err"]
+                                    for n in ("dQ", "dK_eff", "dV")),
                          "dv": row["dV_alone_max_abs_err"],
                          "dk": row["dK_alone_max_abs_err"]}
         emit(row)
@@ -957,6 +986,12 @@ def main():
                   "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
                   "dtype": str(dt).split(".")[-1],
                   **dkdv_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt),
+                  **card})
+            # and the joint backward's: the same, with dQ's product
+            emit({"phase": "bwd_plan", "image_hw": [256, 256],
+                  "shape_BNPD": [B, Q.shape[1], V.shape[1], Q.shape[2]],
+                  "dtype": str(dt).split(".")[-1],
+                  **bwd_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt),
                   **card})
             # and dQ's: chunks of query rows, each product's blocks, block
             # shape, stages, shared memory and resident blocks per SM,
@@ -1017,6 +1052,7 @@ def main():
         del Pd, dSd, Qd
         dq_diff = attention_core_dq(*bargs).double() - exact_dq
         fused = attention_core_dkdv(*bargs)
+        joint = attention_core_bwd_joint(*bargs)
         alone = (attention_core_dk(*bargs),
                  attention_core_dv(Q, K, keep, lse, dO, sc, ksc))
         row = {"phase": "bwd_vs_float64", "image_hw": [256, 256],
@@ -1037,11 +1073,27 @@ def main():
         row["dQ_x_dK_eff_rel_l2"] = (row["dQ_rel_l2_vs_float64"]
                                      / row["dK_eff_fused_rel_l2_vs_float64"])
         row["dQ_x_dK_eff_before"] = DQ_F64_BEFORE[B]
+        # the joint backward's three, held to the same bars
+        for name, g, w in zip(("dQ", "dK_eff", "dV"), joint,
+                              (exact_dq, *exact)):
+            diff = g.double() - w
+            row[f"joint_{name}_rel_l2_vs_float64"] = (
+                diff.norm() / w.norm()).item()
+            row[f"joint_{name}_max_abs_vs_float64"] = diff.abs().max().item()
+        for name in ("dK_eff", "dV"):
+            row[f"joint_{name}_x_alone_rel_l2"] = (
+                row[f"joint_{name}_rel_l2_vs_float64"]
+                / row[f"{name}_alone_rel_l2_vs_float64"])
+        row["joint_dQ_x_dK_eff_rel_l2"] = (
+            row["joint_dQ_rel_l2_vs_float64"]
+            / row["joint_dK_eff_rel_l2_vs_float64"])
         emit({**row, **card})
         for name in ("dK_eff", "dV"):
             assert row[f"{name}_fused_x_alone_rel_l2"] <= 1.5, row
+            assert row[f"joint_{name}_x_alone_rel_l2"] <= 1.5, row
         assert row["dQ_x_dK_eff_rel_l2"] <= 1.5 * DQ_F64_BEFORE[B], row
-        del exact, exact_dq, dq_diff, fused, alone
+        assert row["joint_dQ_x_dK_eff_rel_l2"] <= 1.5 * DQ_F64_BEFORE[B], row
+        del exact, exact_dq, dq_diff, fused, alone, joint
 
     # 4. main path --------------------------------------------------------
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")   # removed at exit
@@ -1287,9 +1339,9 @@ def main():
         m_k, g_k, n_k = one_step("float32", "kernel", batch8, (flag, flag))
         default_step[flag] = (m_k, g_k)
         m_d, g_d, n_d = one_step("float32", "dense", batch8, (flag, flag))
-        # one forward with lse, one dQ and one dK/dV in the G step; one
+        # one forward with lse and one joint backward in the G step; one
         # forward without lse in the D step's regeneration of the fakes
-        assert n_k == expect(fwd=2, fwd_lse=1, dq=1, dkdv=1), n_k
+        assert n_k == expect(fwd=2, fwd_lse=1, bwd=1), n_k
         assert not any(n_d.values()), n_d
         loss_diff = losses_agree(m_k, m_d)
         worst = grad_errors(g_k, g_d)
@@ -1306,7 +1358,7 @@ def main():
             ("SKETCHEDIT_SPLIT_DKDV",
              expect(fwd=2, fwd_lse=1, dq=1, dv=1, dk=1)),
             ("SKETCHEDIT_SHARED_ATTN",
-             expect(shared=2, fwd_lse=1, dq=1, dkdv=1))):
+             expect(shared=2, fwd_lse=1, bwd=1))):
         with env(**{switch: "1"}):
             m_s, g_s, n_s = one_step("float32", "kernel", batch8, (1, 1))
         assert n_s == want, (switch, n_s)
@@ -1321,7 +1373,7 @@ def main():
     # this card (attention_impl='sharded'), by default and under the split
     # switch: each kernel launches once per shard; gradients against the
     # default kernels' unsharded step
-    for switch, want in ((None, expect(fwd=4, fwd_lse=2, dq=2, dkdv=2)),
+    for switch, want in ((None, expect(fwd=4, fwd_lse=2, bwd=2)),
                          ("SKETCHEDIT_SPLIT_DKDV",
                           expect(fwd=4, fwd_lse=2, dq=2, dv=2, dk=2))):
         with env(**({switch: "1"} if switch else {})):
@@ -1408,7 +1460,7 @@ def main():
         used = counts(attention_cuda)
         loop_s = time.perf_counter() - t0
         assert len(seen) == 3 and state.step == 3
-        assert used == expect(fwd=6, fwd_lse=3, dq=3, dkdv=3), used
+        assert used == expect(fwd=6, fwd_lse=3, bwd=3), used
         train_launches[dt] = used
         losses = [{k: float(v) for k, v in m.items()} for m in seen]
         assert all(np.isfinite(v) for m in losses for v in m.values())
@@ -1697,7 +1749,7 @@ def main():
             assert np.array_equal(r0[k], r1[k]), f"ranks disagree on {k}"
         rank_counts = {k[6:]: int(v) for k, v in r0.items()
                        if k.startswith("count.")}
-        assert rank_counts == expect(fwd=2, fwd_lse=1, dq=1, dkdv=1), (
+        assert rank_counts == expect(fwd=2, fwd_lse=1, bwd=1), (
             rank_counts)
         for k, v in rank_counts.items():
             multi_launches[k] += 2 * v          # each rank's own launches
@@ -1720,7 +1772,7 @@ def main():
             assert distributed.agree_max(3, host) == 3
         finally:
             distributed.close()
-        assert nccl_counts == expect(fwd=2, fwd_lse=1, dq=1, dkdv=1), (
+        assert nccl_counts == expect(fwd=2, fwd_lse=1, bwd=1), (
             nccl_counts)
         for k, v in nccl_counts.items():
             multi_launches[k] += v
@@ -2537,8 +2589,8 @@ def main():
           "launches_counted": conv_launches})
     steps = result["steps"]
     assert rc == 0 and result["converges"], conv_lines[-2]
-    assert conv_launches == expect(fwd=2 * steps, fwd_lse=steps, dq=steps,
-                                   dkdv=steps), conv_launches
+    assert conv_launches == expect(fwd=2 * steps, fwd_lse=steps,
+                                   bwd=steps), conv_launches
 
     # 8c. `packing`: the space-to-depth packed fronts and tails
     # (ops/packed_tail.py) against the plain layers, the route forced with
@@ -2657,8 +2709,8 @@ def main():
         with env(SKETCHEDIT_PACK=flag):
             steps_pm[route] = one_step("float32", "kernel", batch8, (1, 1),
                                        scaled=False)
-        assert steps_pm[route][2] == expect(fwd=2, fwd_lse=1, dq=1,
-                                            dkdv=1), steps_pm[route][2]
+        assert steps_pm[route][2] == expect(fwd=2, fwd_lse=1,
+                                            bwd=1), steps_pm[route][2]
         add_launches("float32", steps_pm[route][2])
     row = {"phase": "packing", "check": "train_step", "hw": [256, 256],
            "batch": 8, "dtype": "float32", "flag": 1,
@@ -2893,6 +2945,8 @@ def main():
                "dtype": str(dt).split(".")[-1], **card}
         row["dq_ms"] = cuda_ms(lambda: attention_core_dq(*bargs), reps=10)
         row["dkdv_ms"] = cuda_ms(lambda: attention_core_dkdv(*bargs), reps=10)
+        row["bwd_ms"] = cuda_ms(lambda: attention_core_bwd_joint(*bargs),
+                                reps=10)
         row["dv_ms"] = cuda_ms(lambda: attention_core_dv(
             Q, K, keep, lse, dO, 10.0, ksc), reps=10)
         row["dk_ms"] = cuda_ms(lambda: attention_core_dk(*bargs), reps=10)
@@ -2900,6 +2954,8 @@ def main():
             lambda: attention_core_dq_reference(*bargs), reps=10)
         row["dkdv_plain_ms"] = cuda_ms(
             lambda: attention_core_dkdv_reference(*bargs), reps=10)
+        row["bwd_plain_ms"] = cuda_ms(
+            lambda: attention_core_bwd_joint_reference(*bargs), reps=10)
         row["dv_plain_ms"] = cuda_ms(lambda: attention_core_dv_reference(
             Q, K, keep, lse, dO, 10.0, ksc), reps=10)
         row["dk_plain_ms"] = cuda_ms(
@@ -2915,28 +2971,40 @@ def main():
         # every key (P > 0 for a gated key too), dS-products over the kept
         # keys only; the dK kernel alone needs S, dP and dS^T Q for the kept
         # keys only (a gated key's dS is 0), the dV kernel S and P^T dO for
-        # every key, so the split pair counts S twice; each input read once
-        # (Q, K and V are one tensor), each output written once
+        # every key, so the split pair counts S twice; the joint backward
+        # S, dP and dV over every key, dQ and dK over the kept ones; each
+        # input read once (Q, K and V are one tensor), each output written
+        # once
         kept = keep.sum().item()
         nprod = 2.0 * B * N * P * D
         flops = {"dq": 2 * nprod + 2.0 * N * D * kept,
                  "dkdv": 3 * nprod + 2.0 * N * D * kept,
+                 "bwd": 3 * nprod + 4.0 * N * D * kept,
                  "dv": 2 * nprod, "dk": 6.0 * N * D * kept}
         inputs = B * (Q.element_size() * P * D + 4 * (P + D + N * D + 2 * N))
         nbytes = {"dq": inputs + 4 * B * N * D, "dkdv": inputs + 8 * B * P * D,
+                  "bwd": inputs + 4 * B * N * D + 8 * B * P * D,
                   "dv": inputs - 4 * B * N + 4 * B * P * D,
                   "dk": inputs + 4 * B * P * D}
-        for k in ("dq", "dkdv", "dv", "dk"):
+        for k in ("dq", "dkdv", "bwd", "dv", "dk"):
             t_ops = ops_ms(flops[k], str(dt).split(".")[-1], peaks)
             t_bytes = nbytes[k] / peaks["bytes"] * 1e3
             row[f"{k}_bound_ms"] = max(t_ops, t_bytes)
             row[f"{k}_bound_by"] = "bytes" if t_bytes > t_ops else "operations"
             row[f"{k}_gflop"] = flops[k] / 1e9
         # each kernel's loss to the library call and multiple of the bound;
-        # dK/dV against the split dV + dK, and the split pair against it
-        for k in ("dq", "dkdv", "dv", "dk"):
+        # dK/dV against the split dV + dK, and the split pair against it;
+        # each route's sum of sequences (the joint; dQ + dK/dV; dQ + dV +
+        # dK) against the library call, which gives all three gradients,
+        # and the joint against dQ + dK/dV
+        for k in ("dq", "dkdv", "bwd", "dv", "dk"):
             row[f"{k}_x_library"] = row[f"{k}_ms"] / row["library_ms"]
             row[f"{k}_x_bound"] = row[f"{k}_ms"] / row[f"{k}_bound_ms"]
+        row["dq_dkdv_ms"] = row["dq_ms"] + row["dkdv_ms"]
+        row["dq_dv_dk_ms"] = row["dq_ms"] + row["dv_ms"] + row["dk_ms"]
+        row["dq_dkdv_x_library"] = row["dq_dkdv_ms"] / row["library_ms"]
+        row["dq_dv_dk_x_library"] = row["dq_dv_dk_ms"] / row["library_ms"]
+        row["bwd_x_dq_dkdv"] = row["bwd_ms"] / row["dq_dkdv_ms"]
         row["dkdv_x_split"] = row["dkdv_ms"] / (row["dv_ms"] + row["dk_ms"])
         row["split_x_fused"] = (row["dv_ms"] + row["dk_ms"]) / row["dkdv_ms"]
         bwd_times[(B, dt)] = row
@@ -3136,9 +3204,14 @@ def main():
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
         row = bwd_times[(8, dt)]       # the training path's shapes
-        split = switch_launches["SKETCHEDIT_SPLIT_DKDV" + (
-            "" if dt == torch.float32 else "[bf16]")]
-        for k, src_line in (("dq", 262), ("dkdv", 304), ("dv", 350),
+        # the train steps under each switch in this dtype (the joint
+        # backward by default and under SHARED_ATTN; dQ, dV and dK under
+        # SPLIT_DKDV). The joint row stands for _dkdv_kernel too: no route
+        # runs the standalone fused dK/dV, which check_bwd and
+        # time_bwd_kernel hold to its plain version and time
+        switched = [v for k, v in switch_launches.items()
+                    if k.endswith("[bf16]") == (dt == torch.bfloat16)]
+        for k, src_line in (("bwd", 262), ("dq", 262), ("dv", 350),
                             ("dk", 383)):
             kernels.append({
                 "name": f"contextual_attention_{k}"
@@ -3146,8 +3219,10 @@ def main():
                 "route": "cuda",
                 "source": "sketchedit_tpu_torch/csrc/contextual_attention_bwd.cu",
                 "replaces": f"sketchedit_tpu/ops/attention_pallas.py:{src_line}",
-                "launches": (split if k in ("dv", "dk")
-                             else train_launches[name])[k] + (
+                **({"also_replaces": "sketchedit_tpu/ops/attention_pallas.py:304"}
+                   if k == "bwd" else {}),
+                "launches": train_launches[name][k]
+                + sum(n[k] for n in switched) + (
                     multi_launches[k] if dt == torch.float32
                     else conv_launches[k]) + pack_launches[name][k],
                 "max_abs_err": bwd_errs[f"B8_64sq_{name}"][k],

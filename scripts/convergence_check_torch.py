@@ -36,7 +36,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 LOSSES = ("G_total", "L1c", "L1f", "D_Fake", "D_real")
 COUNTERS = ("LAUNCHES", "LAUNCHES_LSE", "LAUNCHES_SHARED", "LAUNCHES_DSPLIT",
-            "LAUNCHES_DQ", "LAUNCHES_DKDV", "LAUNCHES_DV", "LAUNCHES_DK")
+            "LAUNCHES_DQ", "LAUNCHES_DKDV", "LAUNCHES_BWD", "LAUNCHES_DV",
+            "LAUNCHES_DK")
 
 
 def card(device) -> str | None:

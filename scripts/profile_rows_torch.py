@@ -12,8 +12,11 @@ carries none. ``row_times(events)`` then sums, per row, the device time of
 the kernels launched under the row's range (the forward, its gating
 included) and of the autograd nodes that the row's forward ops recorded
 (the backward, matched by sequence number). ``category`` files a kernel
-by its name: the attention kernels, the optimizer, cuDNN's convolutions
-(its FFT kernels among them) and everything else.
+by its name: the attention forward, the attention backward (every route's
+kernels in one category: the joint backward runs dQ's product kernel
+beside the fused dK/dV's, so a kernel's name does not tell its route), the
+optimizer, cuDNN's convolutions (its FFT kernels among them) and
+everything else.
 """
 
 from __future__ import annotations
@@ -32,9 +35,9 @@ BACKWARD = "autograd::engine::evaluate_function:"
 def category(name: str) -> str:
     low = name.lower()
     for kernel, cat in (("ca_fwd", "attention_fwd"),
-                        ("ca_dq_", "attention_dq"),
-                        ("ca_dkdv_", "attention_dkdv"),
-                        ("ca_dk_or_dv_kernel", "attention_dk_dv")):
+                        ("ca_dq_", "attention_bwd"),
+                        ("ca_dkdv_", "attention_bwd"),
+                        ("ca_dk_or_dv_kernel", "attention_bwd")):
         if kernel in low:
             return cat
     if "multi_tensor" in low or "adam" in low:

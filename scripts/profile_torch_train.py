@@ -8,8 +8,8 @@ Runs the port's ``train_step`` (released flags: use_cam, pool max,
 joint_train_inp; fresh seeded weights; a random batch; G and D flags 1)
 under torch.profiler after warm-up and prints one JSON line per mode:
 host wall ms per step, device kernel ms per step split into convolutions
-(forward and both backward passes, cuDNN), the three attention kernels
-(forward, dQ, dK/dV), the optimizer and everything else, the device's busy
+(forward and both backward passes, cuDNN), the attention forward and
+backward, the optimizer and everything else, the device's busy
 share (kernel time over wall time), the kernel launches per step and the
 ten kernels with the most device time, and the device ms of each spec row
 of netM, netG and netD, forward (its conv and gating) and backward (the

@@ -1,4 +1,5 @@
-// Contextual-attention backward for Hopper (sm_90a), CUDA C++: four kernels.
+// Contextual-attention backward for Hopper (sm_90a), CUDA C++: four kernels
+// and the joint sequence of two of them.
 //
 // Replaces sketchedit_tpu/ops/attention_pallas.py::_dq_kernel,
 // ::_dkdv_kernel, ::_dv_kernel and ::_dk_kernel (all launched by
@@ -11,6 +12,7 @@
 //   dP_ij = dO_i . V_j,       dS_ij = P_ij (dP_ij - delta_i) g_j
 //   dq:          dQ_i     = sum_j dS_ij K_eff_j
 //   dkdv:        dV_j     = sum_i P_ij dO_i,   dK_eff_j = sum_i dS_ij Q_i
+//   bwd (joint): dQ, dK_eff and dV, from one S, dP and dS
 //   dv kernel:   dV alone (reads neither V nor delta)
 //   dk kernel:   dK_eff alone
 //
@@ -93,6 +95,21 @@
 //   hold float32 values); the tensor maps' extents end the contraction at
 //   D or N, so TMA reads zeros past them. Shared memory sets no widest D.
 //   At 256^2, B = 1 every product is 128 blocks on 132 SMs.
+// - bwd, the default route: dkdv's sequence with dQ added, so S, dP and dS
+//   are formed once for the three products where dq and dkdv each form
+//   them (the same bits: both use the same blocks and sums):
+//     prep     dkdv's copies, and K transposed (B, D, Pp) as dq's prep
+//              forms it;
+//   then per chunk of key rows (dS's terms by rows counted in the cap):
+//     S, dP, weights, dV, dK   as dkdv's, the weights pass also writing dS
+//              by rows (B, N, ld) from the values it transposes;
+//     dQ       dS[:, chunk] K_eff[chunk]: dq's product block over the
+//              chunk's keys (A the chunk's dS rows, B K^T's columns r0 on),
+//              kscale on the columns; the first chunk stores dQ, each later
+//              one adds its part with one FADD (the launches are ordered on
+//              the stream and each block owns its tile: no atomics). One
+//              chunk gives dq's dQ bit for bit.
+//   At 256^2 12 launches a call, where dq and dkdv take 8 + 10.
 // - dv and dk: split TF32 on the tensor cores (mma.sync): 8 warps over
 //   kRows = 16 key rows (8 where 16-row blocks would leave SMs idle, the
 //   lower half of every A tile then zero) of one image, all queries in
@@ -557,12 +574,15 @@ ca_dq_split_t(const T* X, float* hi, float* lo, int N, int D) {
 
 // Where a product's epilogue writes: out[b * bstride + i * ld + j] = acc,
 // times cs[b * cols + j] where cs is given (dQ's kscale), for rows i <
-// rows and columns j < cols of image b.
+// rows and columns j < cols of image b; where `add`, added to what out
+// holds there with one round-to-nearest FADD (the joint backward's dQ
+// after its first chunk of keys).
 struct GradEpi {
   float* out;
   long long bstride;
   int rows, cols, ld;
   const float* cs;
+  bool add;
 };
 
 // A product of dQ or the fused dK/dV (S, dP, dQ, dV or dK):
@@ -602,7 +622,8 @@ __device__ __forceinline__ void grad_product(const CUtensorMap& a_hi,
         const int col = cb + 8 * j + h;
         if (col >= e.cols) continue;
         const float x = acc[4 * j + 2 * v + h];
-        orow[col] = cs == nullptr ? x : x * __ldg(cs + col);
+        const float y = cs == nullptr ? x : x * __ldg(cs + col);
+        orow[col] = e.add ? __fadd_rn(orow[col], y) : y;
       }
   }
 }
@@ -670,25 +691,29 @@ ca_dq_weights(const float* s, const float* dp, const float* keep,
 // The weights of one chunk of rc keys from r0 on, a block a 32 x 32 tile
 // of (queries, keys): with g = keep * scale, P = exp(S g - lse) and dS =
 // P (dP - delta) g from S and dP (B, N, ld), written transposed, keys by
-// queries (B, rc, Np), as TF32 terms; 0 past N.
+// queries (B, rc, Np), as TF32 terms; 0 past N. Where r_hi is given (the
+// joint backward), dS also by rows as TF32 terms into r_hi and r_lo (B, N,
+// ld), 0 past rc: the A operand of dQ = dS K, from the same values.
 __global__ void __launch_bounds__(256)
 ca_dkdv_weights(const float* s, const float* dp, const float* keep,
                 const float* lse, const float* delta, float* p_hi,
-                float* p_lo, float* d_hi, float* d_lo, int N, int P, int r0,
-                int rc, int ld, float scale) {
+                float* p_lo, float* d_hi, float* d_lo, float* r_hi,
+                float* r_lo, int N, int P, int r0, int rc, int ld,
+                float scale) {
   __shared__ float tp[32][33], td[32][33];
   const int Np = round4(N);
   const int b = blockIdx.z, j0 = blockIdx.x * 32, i0 = blockIdx.y * 32;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   for (int u = ty; u < 32; u += 8) {
     const int i = i0 + u, j = j0 + tx;
+    const long long o = ((long long)b * N + i) * ld + j;
     float p = 0.f, d = 0.f;
     if (i < N && j < rc) {
-      const long long o = ((long long)b * N + i) * ld + j;
       const float g = keep[(long long)b * P + r0 + j] * scale;
       p = expf(s[o] * g - lse[(long long)b * N + i]);
       d = p * (dp[o] - delta[(long long)b * N + i]) * g;
     }
+    if (r_hi != nullptr && i < N && j < ld) put_terms(d, r_hi, r_lo, o);
     tp[u][tx] = p;
     td[u][tx] = d;
   }
@@ -708,18 +733,21 @@ ca_dkdv_weights(const float* s, const float* dp, const float* keep,
 // for float32 input), of Q kscale and dO (B, N, Dp), of Q and dO
 // transposed (B, D, Np; Q's lo only for float32 input), then, for a chunk
 // of `rows` keys, S and dP (B, N, ld), ld = rows rounded up to 4, and the
-// terms of P^T and dS^T (B, rows, Np).
+// terms of P^T and dS^T (B, rows, Np). With dq (the joint backward), also
+// the terms of K transposed (B, D, Pp; lo only for float32 input) and, for
+// the chunk, of dS by rows (B, N, ld); without, those offsets are 0.
 struct GradLayout {
-  int Dp, Np, ld;
+  int Dp, Np, Pp, ld;
   size_t kh, kl, vh, vl, qh, ql, oh, ol, qth, qtl, oth, otl;
-  size_t s, dp, ph, pl, dh, dl, total;
+  size_t s, dp, ph, pl, dh, dl, kth, ktl, rh, rl, total;
 };
 
 GradLayout grad_layout(bool f32, bool same, int B, int N, int P, int D,
-                       int rows) {
+                       int rows, bool dq) {
   GradLayout L;
   L.Dp = round4(D);
   L.Np = round4(N);
+  L.Pp = round4(P);
   L.ld = round4(rows);
   size_t at = 0;
   const auto take = [&](size_t bytes) {
@@ -748,15 +776,25 @@ GradLayout grad_layout(bool f32, bool same, int B, int N, int P, int D,
   L.pl = take(wb);
   L.dh = take(wb);
   L.dl = take(wb);
+  L.kth = L.ktl = L.rh = L.rl = 0;
+  if (dq) {
+    const size_t ktb = 4 * (size_t)B * D * L.Pp;
+    L.kth = take(ktb);
+    L.ktl = f32 ? take(ktb) : L.kth;
+    L.rh = take(sb);
+    L.rl = take(sb);
+  }
   L.total = at;
   return L;
 }
 
 // Key rows a chunk: all P where the chunked part of the scratch (S, dP and
-// the weights' terms) fits in `cap` bytes, else the most multiples of 128
-// (dV's and dK's row block in float32) that fit, at least 128.
-int grad_chunk_rows(int B, int N, int P, long long cap) {
-  const long long per_row = 4ll * B * (2ll * N + 4ll * round4(N));
+// the weights' terms; with dq, dS's terms by rows too) fits in `cap` bytes,
+// else the most multiples of 128 (dV's and dK's row block in float32) that
+// fit, at least 128.
+int grad_chunk_rows(int B, int N, int P, long long cap, bool dq) {
+  const long long per_row =
+      4ll * B * ((dq ? 4ll : 2ll) * N + 4ll * round4(N));
   if ((long long)P * per_row <= cap) return P;
   const long long rows = cap / per_row / 128 * 128;
   return (int)(rows < 128 ? (P < 128 ? P : 128) : (rows > P ? P : rows));
@@ -835,6 +873,7 @@ struct Args {
   int* plan = nullptr;  // fill the launch plan, do not launch
   void* scratch = nullptr;  // dQ's or the fused dK/dV's scratch
   int rows = 0;             // and its query or key rows a chunk
+  float* dq = nullptr;      // the fused dK/dV's optional dQ (the joint)
 };
 
 // The product kernel of dQ (kDq) or of the fused dK/dV.
@@ -873,7 +912,10 @@ int launch_grad_gemm(int rows, int cols, int B, const CUtensorMap (&m)[4],
 
 // The fused dK/dV on a.scratch, laid out by grad_layout() for chunks of
 // a.rows key rows: the prep launches, then S, dP, the weights, dV and dK
-// per chunk. a.out is dK_eff, a.out2 dV.
+// per chunk. a.out is dK_eff, a.out2 dV. With a.dq, the joint backward:
+// the prep adds K transposed, the weights write dS by rows too, and each
+// chunk ends with dQ (+)= dS[:, chunk] K_eff[chunk], the first chunk
+// storing and later ones adding.
 template <typename T>
 int launch_dkdv(const Args& a) {
   constexpr bool kF32 = sizeof(T) == sizeof(float);
@@ -884,8 +926,8 @@ int launch_dkdv(const Args& a) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
-  const bool same = a.k == a.v;
-  const GradLayout L = grad_layout(kF32, same, B, N, P, D, rows);
+  const bool same = a.k == a.v, with_dq = a.dq != nullptr;
+  const GradLayout L = grad_layout(kF32, same, B, N, P, D, rows, with_dq);
   char* base = static_cast<char*>(a.scratch);
   const auto at = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
   float *kh = at(L.kh), *kl = kF32 ? at(L.kl) : nullptr;
@@ -895,6 +937,9 @@ int launch_dkdv(const Args& a) {
   float *oth = at(L.oth), *otl = at(L.otl);
   float *s = at(L.s), *dp = at(L.dp), *ph = at(L.ph), *pl = at(L.pl);
   float *dh = at(L.dh), *dl = at(L.dl);
+  float *kth = with_dq ? at(L.kth) : nullptr;
+  float *ktl = with_dq && kF32 ? at(L.ktl) : nullptr;
+  float *rh = with_dq ? at(L.rh) : nullptr, *rl = with_dq ? at(L.rl) : nullptr;
   cudaStream_t st = a.stream;
 
   ca_dkdv_split_rows<T><<<B * P, 256, 0, st>>>(k, nullptr, kh, kl, P, 0, P,
@@ -916,14 +961,20 @@ int launch_dkdv(const Args& a) {
   if (int err = (int)cudaGetLastError()) return err;
   ca_dkdv_split_t<float><<<tgrid, 256, 0, st>>>(a.dO, oth, otl, N, D);
   if (int err = (int)cudaGetLastError()) return err;
+  if (with_dq) {  // K transposed, dQ's B operand, as dQ's own prep forms it
+    ca_dkdv_split_t<T><<<dim3((L.Pp + 31) / 32, (D + 31) / 32, B), 256, 0,
+                         st>>>(k, kth, ktl, P, D);
+    if (int err = (int)cudaGetLastError()) return err;
+  }
 
   using GS = ScoreGemm<kF32>;
   using GV = GradGemm<true>;           // dO^T is split in both dtypes
-  using GK = GradGemm<kF32>;
+  using GK = GradGemm<kF32>;           // and dQ's: K^T is split as Q^T is
   // ms: S = (Q kscale) K^T, mp: dP = dO V^T over D; mv: dV = P^T dO, mk:
   // dK_eff = dS^T Q over the queries, whose extent N ends every map's
-  // contraction there (TMA reads zeros past it)
-  CUtensorMap ms[4], mp[4], mv[4], mk[4];
+  // contraction there (TMA reads zeros past it); mq: dQ = dS (K^T)^T over
+  // the chunk's keys, whose extent rc ends its contraction
+  CUtensorMap ms[4], mp[4], mv[4], mk[4], mq[4];
   const long long qstride = (long long)N * L.Dp, tstride = (long long)D * L.Np;
   if (int err = make_map(&ms[0], qh, D, N, B, L.Dp, qstride, GS::kBM))
     return err;
@@ -966,8 +1017,8 @@ int launch_dkdv(const Args& a) {
                         st, nullptr))
       return err;
     ca_dkdv_weights<<<dim3((rc + 31) / 32, (L.Np + 31) / 32, B), 256, 0,
-                      st>>>(s, dp, a.keep, a.lse, a.delta, ph, pl, dh, dl, N,
-                            P, r0, rc, L.ld, a.scale);
+                      st>>>(s, dp, a.keep, a.lse, a.delta, ph, pl, dh, dl, rh,
+                            rl, N, P, r0, rc, L.ld, a.scale);
     if (int err = (int)cudaGetLastError()) return err;
     const long long wstride = (long long)rc * L.Np;
     if (int err = make_map(&mv[0], ph, N, rc, B, L.Np, wstride, GV::kBM))
@@ -988,6 +1039,29 @@ int launch_dkdv(const Args& a) {
       return err;
     if (int err = grad_k(rc, D, B, mk, N,
                          GradEpi{a.out + oo, ostride, rc, D, D}, st, nullptr))
+      return err;
+    if (!with_dq) continue;
+    // dQ's block as launch_dq launches it: A dS by rows (N x rc, rows ld
+    // apart), B K^T's columns r0 .. r0 + rc (r0 a multiple of 128, so the
+    // base keeps TMA's 16-byte alignment), kscale on the columns
+    const long long rstride = (long long)N * L.ld;
+    const long long ktstride = (long long)D * L.Pp;
+    if (int err = make_map(&mq[0], rh, rc, N, B, L.ld, rstride, GK::kBM))
+      return err;
+    if (int err = make_map(&mq[1], rl, rc, N, B, L.ld, rstride, GK::kBM))
+      return err;
+    if (int err = make_map(&mq[2], kth + r0, rc, D, B, L.Pp, ktstride,
+                           GK::kBN))
+      return err;
+    if (int err = make_map(&mq[3], (kF32 ? ktl : kth) + r0, rc, D, B, L.Pp,
+                           ktstride, GK::kBN))
+      return err;
+    constexpr auto grad_q =
+        launch_grad_gemm<kGradCols, GK::kMW, kF32, kGradGroup, false, true>;
+    if (int err = grad_q(N, D, B, mq, rc,
+                         GradEpi{a.dq, (long long)N * D, N, D, D, a.kscale,
+                                 r0 > 0},
+                         st, nullptr))
       return err;
   }
   return 0;
@@ -1044,6 +1118,31 @@ int plan_dkdv(int B, int N, int P, int D, int rows, int* plan) {
   plan[20] = GV::kBN;
   plan[21] = GK::kBM;
   plan[22] = GK::kBN;
+  return 0;
+}
+
+// The plan of the joint backward (launch_dkdv with dQ; V taken to be K):
+// plan_dkdv's 23 ints for these chunk rows, [16] its launches per call,
+// then [23] dQ product blocks, [24] its dynamic shared memory per block,
+// [25] its stages, [26] its resident blocks per SM, [27] and [28] its
+// block's rows and columns.
+template <typename T>
+int plan_bwd(int B, int N, int P, int D, int rows, int* plan) {
+  constexpr bool kF32 = sizeof(T) == sizeof(float);
+  using GQ = GradGemm<kF32>;
+  if (int err = plan_dkdv<T>(B, N, P, D, rows, plan)) return err;
+  const dim3 g = GQ::grid(N, D, B);
+  plan[16] = 6 + 6 * plan[1];
+  plan[23] = (int)(g.x * g.y * g.z);
+  plan[24] = (int)GQ::kSmem;
+  plan[25] = GQ::kStages;
+  const CUtensorMap none[4] = {};
+  if (int err = launch_grad_gemm<kGradCols, GQ::kMW, kF32, kGradGroup, false,
+                                 true>(1, 1, 1, none, 0, GradEpi{}, nullptr,
+                                       &plan[26]))
+    return err;
+  plan[27] = GQ::kBM;
+  plan[28] = GQ::kBN;
   return 0;
 }
 
@@ -1233,12 +1332,17 @@ int launch_dk_dv_rows(const Args& a) {
              : launch_dk_dv<T, kDK, true, false>(a, rows);
 }
 
-// which: 0 dq, 1 dkdv, 2 dv, 3 dk.
+// which: 0 dq, 1 dkdv, 2 dv, 3 dk, 4 the joint backward (dkdv with a.dq).
 template <typename T>
 int launch(int which, const Args& a) {
   if (a.B <= 0 || a.N <= 0 || a.P <= 0 || a.D <= 0)
     return (int)cudaErrorInvalidValue;
   switch (which) {
+    case 4:
+      if (a.plan != nullptr)
+        return plan_bwd<T>(a.B, a.N, a.P, a.D, a.rows, a.plan);
+      if (a.dq == nullptr) return (int)cudaErrorInvalidValue;
+      return launch_dkdv<T>(a);
     case 0:
       if (a.plan != nullptr)
         return plan_dq<T>(a.B, a.N, a.P, a.D, a.rows, a.plan);
@@ -1348,8 +1452,9 @@ long long sketchedit_contextual_attention_dkdv_scratch(int dtype, int same,
   if (B <= 0 || N <= 0 || P <= 0 || D <= 0 || cap <= 0 ||
       (dtype != 0 && dtype != 1))
     return -1;
-  *rows = grad_chunk_rows(B, N, P, cap);
-  return (long long)grad_layout(dtype == 0, same != 0, B, N, P, D, *rows)
+  *rows = grad_chunk_rows(B, N, P, cap, false);
+  return (long long)grad_layout(dtype == 0, same != 0, B, N, P, D, *rows,
+                                false)
       .total;
 }
 
@@ -1364,6 +1469,57 @@ int sketchedit_contextual_attention_dkdv_plan(int dtype, int rows, int B,
          0.f,     nullptr, plan};
   a.rows = rows;
   return launch_typed(1, dtype, a);
+}
+
+// The joint backward: dQ, dK_eff and dV from one sequence (the fused
+// dK/dV's, its S, dP and dS shared by the three products), the same
+// arguments as dkdv with dq before dk, and a scratch of
+// sketchedit_contextual_attention_bwd_scratch's bytes for these shapes and
+// its `rows` key rows a chunk.
+int sketchedit_contextual_attention_bwd(int dtype, const void* q,
+                                        const void* k, const void* v,
+                                        const void* keep, const void* kscale,
+                                        const void* dO, const void* lse,
+                                        const void* delta, void* dq, void* dk,
+                                        void* dv, void* scratch, int B, int N,
+                                        int P, int D, int rows, float scale,
+                                        void* stream) {
+  Args a{q, k, v, f(keep), f(kscale), f(dO), f(lse), f(delta),
+         f(dk), f(dv), B, N, P, D, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.scratch = scratch;
+  a.rows = rows;
+  a.dq = f(dq);
+  return launch_typed(4, dtype, a);
+}
+
+// Bytes of scratch the joint backward needs (the fused dK/dV's, with K
+// transposed and, per chunk, dS's terms by rows) when its key-row part may
+// take `cap` bytes; *rows gets the key rows a chunk. -1 for shapes it
+// refuses.
+long long sketchedit_contextual_attention_bwd_scratch(int dtype, int same,
+                                                      int B, int N, int P,
+                                                      int D, long long cap,
+                                                      int* rows) {
+  if (B <= 0 || N <= 0 || P <= 0 || D <= 0 || cap <= 0 ||
+      (dtype != 0 && dtype != 1))
+    return -1;
+  *rows = grad_chunk_rows(B, N, P, cap, true);
+  return (long long)grad_layout(dtype == 0, same != 0, B, N, P, D, *rows,
+                                true)
+      .total;
+}
+
+// The joint backward's launch plan for these shapes and `rows` key rows a
+// chunk on the current device, without a launch: the 29 ints plan_bwd
+// fills.
+int sketchedit_contextual_attention_bwd_plan(int dtype, int rows, int B,
+                                             int N, int P, int D, int* plan) {
+  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         nullptr, nullptr, nullptr, B,       N,       P,       D,
+         0.f,     nullptr, plan};
+  a.rows = rows;
+  return launch_typed(4, dtype, a);
 }
 
 // The dV (dk = 0) or dK (dk = 1) kernel's launch plan for these shapes on

@@ -27,17 +27,21 @@ tensors and take their plain versions on CPU ones, as do the single-output
 ``attention_core_dv`` and
 ``attention_core_dk`` (``_dv_kernel``, ``_dk_kernel``: dQ's block with
 keys owned and queries streamed, on the tensor cores in split TF32;
-``dk_dv_plan`` says how they run a shape);
-``attention_core_bwd`` runs dQ and then the fused kernel or the split pair.
+``dk_dv_plan`` says how they run a shape). ``attention_core_bwd_joint``
+gives dQ, dK and dV from one sequence: the fused dK/dV's, whose weights
+pass also writes dS by rows, with dQ = dS K added to each chunk of keys,
+so S, dP and dS are formed once for the three products (``bwd_scratch``
+and ``bwd_plan`` say how it runs a shape). ``attention_core_bwd`` takes
+the joint sequence, or dQ and then the split pair.
 ``ContextualAttentionCore`` ties forward and backward together for
 autograd.
 
-Three environment variables, read on every call as in the JAX package,
-choose among the kernels: ``SKETCHEDIT_SHARED_ATTN=1`` (the shared forward,
+Three environment variables, read on every call (as the JAX package reads
+them), choose among the kernels: ``SKETCHEDIT_SHARED_ATTN=1`` (the shared forward,
 where foreground and background are one tensor) and
 ``SKETCHEDIT_DSPLIT_ATTN=1`` (the D-split forward) in
-``contextual_attention_fused``; ``SKETCHEDIT_SPLIT_DKDV=1`` (dV and dK
-kernels in place of the fused one) in ``attention_core_bwd``.
+``contextual_attention_fused``; ``SKETCHEDIT_SPLIT_DKDV=1`` in
+``attention_core_bwd`` (dQ's sequence, then the dV and dK kernels).
 
 The three forwards run both products on the tensor cores in split TF32
 (float32-accurate: three passes for float32 operands, two where one
@@ -62,10 +66,10 @@ rounding.
 Every kernel is a ``torch.library`` custom op of the ``sketchedit``
 namespace (``attention_fwd``, ``attention_fwd_shared``,
 ``attention_fwd_dsplit``, ``attention_dq``, ``attention_dkdv``,
-``attention_dv``, ``attention_dk``): its CUDA implementation launches the
-kernel, its CPU implementation is the plain version, and its fake
-implementation gives the output shapes, so ``torch.export`` traces a call
-into the graph (``server/artifact.py``). The dispatcher picks the
+``attention_bwd``, ``attention_dv``, ``attention_dk``): its CUDA
+implementation launches the kernel, its CPU implementation is the plain
+version, and its fake implementation gives the output shapes, so
+``torch.export`` traces a call into the graph (``server/artifact.py``). The dispatcher picks the
 implementation by the tensors' device; any device other than ``cuda`` or
 ``cpu`` raises. The public functions below check their inputs and call the
 ops. A forward op always returns (out, lse), the lse an empty tensor when it
@@ -73,11 +77,11 @@ was not asked for, since a custom op cannot return None.
 
 ``LAUNCHES``, ``LAUNCHES_SHARED`` and ``LAUNCHES_DSPLIT`` count the three
 forward kernels' launches (``LAUNCHES_LSE`` those of any of them that also
-wrote the logsumexp), ``LAUNCHES_DQ``, ``LAUNCHES_DKDV``, ``LAUNCHES_DV``
-and ``LAUNCHES_DK`` the backward kernels', so a run can show that its main
-path went through them; they may be read and set from outside, and the
-wrappers add to them under a lock, since pipeline replicas launch from
-several threads. Every launch runs with its tensors' device current,
+wrote the logsumexp), ``LAUNCHES_DQ``, ``LAUNCHES_DKDV``, ``LAUNCHES_BWD``
+(the joint sequence), ``LAUNCHES_DV`` and ``LAUNCHES_DK`` the backward
+kernels', so a run can show that its main path went through them; they
+may be read and set from outside, and the wrappers add to them under a
+lock, since pipeline replicas launch from several threads. Every launch runs with its tensors' device current,
 whichever device the caller has current.
 """
 
@@ -101,6 +105,7 @@ LAUNCHES_DSPLIT = 0
 LAUNCHES_LSE = 0
 LAUNCHES_DQ = 0
 LAUNCHES_DKDV = 0
+LAUNCHES_BWD = 0
 LAUNCHES_DV = 0
 LAUNCHES_DK = 0
 _COUNT_LOCK = threading.Lock()
@@ -108,7 +113,8 @@ _COUNT_LOCK = threading.Lock()
 # on the part that grows with the query rows (their split terms, the
 # logits, P's terms), dQ's on the same part (S, dP, dS's terms), the fused
 # dK/dV's on the part that grows with the key rows (S, dP, the weights'
-# terms); a larger call takes them in chunks.
+# terms; the joint backward's also dS's terms by rows); a larger call takes
+# them in chunks.
 SCRATCH_CAP = 256 << 20
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -121,6 +127,7 @@ _ENTRY_POINTS = {
     "fwd_shared": ("contextual_attention_fwd", 2, 6, 4),
     "dq": ("contextual_attention_bwd", 1, 10, 5),
     "dkdv": ("contextual_attention_bwd", 1, 11, 5),
+    "bwd": ("contextual_attention_bwd", 1, 12, 5),
     "dv": ("contextual_attention_bwd", 1, 7, 4),
     "dk": ("contextual_attention_bwd", 1, 9, 4),
 }
@@ -333,8 +340,8 @@ _FWD_PLAN_KEYS = ("tile_rows", "column_slabs", "blocks_per_sm", "smem_bytes",
 
 def _plan(name: str, codes: tuple, B: int, N: int, P: int, D: int,
           keys: tuple = _PLAN_KEYS) -> dict:
-    """The launch plan of kernel ``name`` (fwd, fwd_dsplit, dq, dkdv, dv or
-    dk) on the current CUDA device, from its C ``..._plan`` entry point:
+    """The launch plan of kernel ``name`` (fwd, fwd_dsplit, dq, dkdv, bwd,
+    dv or dk) on the current CUDA device, from its C ``..._plan`` entry point:
     ``codes`` are its leading int arguments, ``keys`` name the five ints it
     fills."""
     from sketchedit_tpu_torch.ops import _build
@@ -504,6 +511,41 @@ def dkdv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
     return {**plan, "phases": list(DKDV_PHASES), "scratch_bytes": nbytes}
 
 
+def bwd_scratch(B: int, N: int, P: int, D: int, dtype=torch.float32,
+                same: bool = True, cap: Optional[int] = None
+                ) -> tuple[int, int]:
+    """(bytes, rows): the scratch the joint backward takes for these shapes
+    (the fused dK/dV's, with K transposed and dS's terms by rows), and the
+    key rows of each chunk, when the part that grows with the key rows may
+    take ``cap`` bytes (``SCRATCH_CAP`` by default)."""
+    return _scratch("bwd", _DTYPE_CODES[dtype], int(same), B, N, P, D,
+                    cap=SCRATCH_CAP if cap is None else cap)
+
+
+# the phases of the joint backward, in launch order: the fused dK/dV's
+# split copies and K transposed, then per chunk of key rows the S and dP
+# products, the weights pass (P^T and dS^T, dS by rows) and the dV, dK and
+# dQ products
+BWD_PHASES = DKDV_PHASES[:5] + ("keys_t",) + DKDV_PHASES[5:] + ("dq",)
+_BWD_PLAN_KEYS = _DKDV_PLAN_KEYS + ("dq_blocks", "dq_smem_bytes",
+                                    "dq_stages", "dq_blocks_per_sm",
+                                    "dq_block_rows", "dq_block_cols")
+
+
+def bwd_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
+             cap: Optional[int] = None) -> dict:
+    """How the joint backward runs these shapes on the current CUDA device
+    (V taken to be K, as on the main path), without launching it:
+    ``dkdv_plan``'s keys for its chunks of key rows (its launches per call
+    the joint's), the dQ product's blocks of a full chunk, shared memory,
+    stages, resident blocks per SM, block rows and columns, ``phases`` in
+    launch order and the scratch in bytes (``bwd_scratch``)."""
+    nbytes, rows = bwd_scratch(B, N, P, D, dtype, True, cap)
+    plan = _plan("bwd", (_DTYPE_CODES[dtype], rows), B, N, P, D,
+                 _BWD_PLAN_KEYS)
+    return {**plan, "phases": list(BWD_PHASES), "scratch_bytes": nbytes}
+
+
 def dk_dv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
                dk: bool = True) -> dict:
     """How the dK kernel (or, without ``dk``, the dV kernel) runs these
@@ -565,14 +607,25 @@ def attention_core_dk_reference(Q, K, V, keep, lse, delta, dO,
     return torch.bmm(dS.transpose(1, 2), Qf)
 
 
+def attention_core_bwd_joint_reference(Q, K, V, keep, lse, delta, dO,
+                                       softmax_scale: float = 10.0,
+                                       kscale=None):
+    """Plain version of the joint backward, in float32: P and dS formed
+    once, then (dQ = dS K_eff, dK_eff = dS^T Q, dV = P^T dO), the terms as
+    in ``attention_core_dq_reference``."""
+    P, dS, Qf, Kf = _bwd_terms(Q, K, V, keep, lse, delta, dO, softmax_scale,
+                               kscale)
+    return (torch.bmm(dS, Kf), torch.bmm(dS.transpose(1, 2), Qf),
+            torch.bmm(P.transpose(1, 2), dO))
+
+
 def attention_core_bwd_reference(Q, K, V, keep, out, lse, dO,
                                  softmax_scale: float = 10.0, kscale=None):
-    """Plain version of the backward: delta = rowsum(dO O), then the two
-    kernels' plain versions. Returns (dQ, dK_eff, dV), float32."""
+    """Plain version of the backward: delta = rowsum(dO O), then the joint
+    backward's plain version. Returns (dQ, dK_eff, dV), float32."""
     delta = (dO * out).sum(-1)
-    args = (Q, K, V, keep, lse, delta, dO, softmax_scale, kscale)
-    return (attention_core_dq_reference(*args),
-            *attention_core_dkdv_reference(*args))
+    return attention_core_bwd_joint_reference(Q, K, V, keep, lse, delta, dO,
+                                              softmax_scale, kscale)
 
 
 def _check_bwd(Q, K, V, keep, lse, delta, dO, kscale):
@@ -714,6 +767,13 @@ def _dkdv_cpu(Q: Tensor, K: Tensor, V: Tensor, keep: Tensor, lse: Tensor,
                                          softmax_scale, kscale)
 
 
+def _bwd_cpu(Q: Tensor, K: Tensor, V: Tensor, keep: Tensor, lse: Tensor,
+             delta: Tensor, dO: Tensor, softmax_scale: float,
+             kscale: Optional[Tensor]) -> tuple[Tensor, Tensor, Tensor]:
+    return attention_core_bwd_joint_reference(Q, K, V, keep, lse, delta, dO,
+                                              softmax_scale, kscale)
+
+
 def _dv_cpu(Q: Tensor, K: Tensor, keep: Tensor, lse: Tensor, dO: Tensor,
             softmax_scale: float, kscale: Optional[Tensor]) -> Tensor:
     return attention_core_dv_reference(Q, K, keep, lse, dO, softmax_scale,
@@ -729,6 +789,7 @@ def _dk_cpu(Q: Tensor, K: Tensor, V: Tensor, keep: Tensor, lse: Tensor,
 
 _dq_op = _backward_op("dq", _dq_cpu, lambda Q, *_: _f32_like(Q))
 _dkdv_op = _backward_op("dkdv", _dkdv_cpu, lambda Q, K, *_: _f32_like(K, K))
+_bwd_op = _backward_op("bwd", _bwd_cpu, lambda Q, K, *_: _f32_like(Q, K, K))
 _dv_op = _backward_op("dv", _dv_cpu, lambda Q, K, *_: _f32_like(K))
 _dk_op = _backward_op("dk", _dk_cpu, lambda Q, K, *_: _f32_like(K))
 
@@ -761,6 +822,20 @@ def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
     return dK, dV
 
 
+@_bwd_op.register_kernel("cuda")
+def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
+    dQ, dK, dV = _f32_like(Q, K, K)
+    B, N, D = Q.shape
+    nbytes, rows = bwd_scratch(B, N, K.shape[1], D, Q.dtype,
+                               K.data_ptr() == V.data_ptr())
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=Q.device)
+    _launch_bwd("bwd", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
+                              lse, delta, dQ, dK, dV, scratch), softmax_scale,
+                (rows,))
+    _count("LAUNCHES_BWD")
+    return dQ, dK, dV
+
+
 @_dv_op.register_kernel("cuda")
 def _(Q, K, keep, lse, dO, softmax_scale, kscale):
     dV = _f32_like(K)
@@ -779,8 +854,8 @@ def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
     return dK
 
 
-OPS = (_fwd_op, _fwd_shared_op, _fwd_dsplit_op, _dq_op, _dkdv_op, _dv_op,
-       _dk_op)
+OPS = (_fwd_op, _fwd_shared_op, _fwd_dsplit_op, _dq_op, _dkdv_op, _bwd_op,
+       _dv_op, _dk_op)
 
 
 def attention_core_dq(Q, K, V, keep, lse, delta, dO,
@@ -808,6 +883,19 @@ def attention_core_dkdv(Q, K, V, keep, lse, delta, dO,
                     kscale)
 
 
+def attention_core_bwd_joint(Q, K, V, keep, lse, delta, dO,
+                             softmax_scale: float = 10.0, kscale=None):
+    """(dQ, dK_eff, dV), float32, of ``attention_core`` from one sequence.
+    A CUDA tensor launches the joint backward (the fused dK/dV's split
+    copies and K transposed, then per chunk of key rows S, dP, the weights
+    (P^T, dS^T and dS by rows), dV, dK and dQ += dS K, the products on
+    TMA-fed ``wgmma``; needs sm_90a; ``bwd_plan`` says how it runs a
+    shape); a CPU tensor takes the plain version."""
+    _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
+    return _bwd_op(Q, K, V, keep, lse, delta, dO, float(softmax_scale),
+                   kscale)
+
+
 def attention_core_dv(Q, K, keep, lse, dO, softmax_scale: float = 10.0,
                       kscale=None):
     """dV (float32) of ``attention_core`` alone: it needs neither V nor
@@ -832,19 +920,19 @@ def attention_core_bwd(Q, K, V, keep, out, lse, dO,
     """Gradients of ``attention_core`` given its float32 output ``out``, its
     logsumexp ``lse`` and the float32 output gradient ``dO``: (dQ, dK_eff,
     dV), float32. delta = rowsum(dO O) is a plain reduction, as in the JAX
-    package; then the dQ kernel and the fused dK/dV kernel or, under
-    ``SKETCHEDIT_SPLIT_DKDV=1``, the dV and dK kernels (on the CPU, their
-    plain versions)."""
+    package; then the joint backward or, under ``SKETCHEDIT_SPLIT_DKDV=1``,
+    the dQ kernel and the dV and dK kernels (on the CPU, their plain
+    versions)."""
     if out.dtype != torch.float32 or out.shape != dO.shape:
         raise ValueError(f"out must be float32 {tuple(dO.shape)}, got "
                          f"{out.dtype} {tuple(out.shape)}")
     delta = (dO * out).sum(-1)
     args = (Q, K, V, keep, lse, delta, dO, softmax_scale, kscale)
-    dQ = attention_core_dq(*args)
     if os.environ.get("SKETCHEDIT_SPLIT_DKDV") == "1":
+        dQ = attention_core_dq(*args)
         dV = attention_core_dv(Q, K, keep, lse, dO, softmax_scale, kscale)
         return dQ, attention_core_dk(*args), dV
-    return (dQ, *attention_core_dkdv(*args))
+    return attention_core_bwd_joint(*args)
 
 
 class ContextualAttentionCore(torch.autograd.Function):

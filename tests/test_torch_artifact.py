@@ -343,13 +343,15 @@ def _op_cases():
                                        ks)),
         ("dkdv", attention_cuda._dkdv_op, (Q, K, V, keep, lse, delta, dO,
                                            10.0, None)),
+        ("bwd", attention_cuda._bwd_op, (Q, K, V, keep, lse, delta, dO, 10.0,
+                                         ks)),
         ("dv", attention_cuda._dv_op, (Q, K, keep, lse, dO, 10.0, ks)),
         ("dk", attention_cuda._dk_op, (Q, K, V, keep, lse, delta, dO, 10.0,
                                        ks)),
     ]
 
 
-@pytest.mark.parametrize("case", range(8), ids=[c[0] for c in _op_cases()])
+@pytest.mark.parametrize("case", range(9), ids=[c[0] for c in _op_cases()])
 def test_opcheck_on_the_cpu(case):
     """Schema, fake implementation and the traced graph of every kernel op
     (torch.library.opcheck), on CPU inputs."""
@@ -360,6 +362,6 @@ def test_opcheck_on_the_cpu(case):
 def test_every_kernel_is_a_custom_op():
     names = {op._name for op in attention_cuda.OPS}
     assert names == {f"attention_{k}" for k in (
-        "fwd", "fwd_shared", "fwd_dsplit", "dq", "dkdv", "dv", "dk")}
+        "fwd", "fwd_shared", "fwd_dsplit", "dq", "dkdv", "bwd", "dv", "dk")}
     for op in attention_cuda.OPS:
         assert hasattr(torch.ops.sketchedit, op._name)

@@ -1,7 +1,8 @@
 """Gradients of the port's contextual attention against the JAX package on
-the CPU: the backward plain version against ``_attention_core_bwd_pallas``
-(the flash dQ / dK / dV kernels, in interpret mode, as
-tests/test_attention_grad.py runs them), ``ContextualAttentionCore`` (the
+the CPU: the backward plain version and the joint backward op's plain
+version against ``_attention_core_bwd_pallas`` (the flash dQ / dK / dV
+kernels, in interpret mode, as tests/test_attention_grad.py runs them),
+the routes of ``attention_core_bwd``, ``ContextualAttentionCore`` (the
 autograd Function around the kernels) against ``jax.grad`` through
 ``attention_core_pallas``, and the fused contextual attention inside netG.
 
@@ -28,7 +29,8 @@ from sketchedit_tpu_torch.models.deepfill_c2 import (
     DeepFillC2Generator, DeepFillConfig)
 from sketchedit_tpu_torch.ops import attention_cuda
 from sketchedit_tpu_torch.ops.attention_cuda import (
-    attention_core_bwd, attention_core_bwd_reference,
+    attention_core_bwd, attention_core_bwd_joint,
+    attention_core_bwd_joint_reference, attention_core_bwd_reference,
     attention_core_differentiable, attention_core_dk,
     attention_core_dk_reference, attention_core_dv,
     attention_core_dv_reference, contextual_attention_fused)
@@ -81,14 +83,48 @@ def test_bwd_reference_matches_pallas_kernels(keep_p):
         assert not got[0].any() and not got[1].any()
 
 
+@pytest.mark.parametrize("with_kscale", [False, True],
+                         ids=["keys", "kscale"])
+@pytest.mark.parametrize("keep_p", [0.7, 0.0], ids=["gated", "all_gated"])
+def test_bwd_joint_op_reference_matches_pallas_kernels(keep_p, with_kscale):
+    """The joint backward op (``sketchedit::attention_bwd``) on CPU tensors,
+    its plain version (P and dS formed once for dQ, dK and dV), at
+    unaligned 2 x 130 x 150 x 70 with the Pallas forward's float32 output
+    and logsumexp, against the Pallas dQ / dK / dV; with kscale the JAX
+    side takes the keys K kscale, so dK_eff is the gradient of those."""
+    Q, K, V, keep, dO, ks = _core_inputs(3, 2, 130, 150, 70, keep_p)
+    keys = K * ks[:, None, :] if with_kscale else K
+    jq, jk, jv, jkeep, jdo = map(jnp.asarray, (Q, keys, V, keep, dO))
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = _attention_core_raw(jq, jk, jv, jkeep, return_lse=True,
+                                       out_dtype=jnp.float32)
+        want = _attention_core_bwd_pallas(jq, jk, jv, jkeep, out, lse, jdo,
+                                          10.0)
+    t = torch.from_numpy
+    out_t, lse_t = t(np.array(out)), t(np.array(lse))
+    before = attention_cuda.LAUNCHES_BWD
+    got = attention_cuda._bwd_op(
+        t(Q), t(K), t(V), t(keep), lse_t, (t(dO) * out_t).sum(-1), t(dO),
+        10.0, t(ks) if with_kscale else None)
+    assert attention_cuda.LAUNCHES_BWD == before
+    for name, g, w in zip(("dQ", "dK", "dV"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+    if keep_p == 0.0:       # all-gated: S is multiplied by 0, so no dQ / dK
+        assert not got[0].any() and not got[1].any()
+
+
 def test_bwd_wrapper_takes_plain_version_on_cpu():
     Q, K, V, keep, dO, ks = map(torch.from_numpy,
                                 _core_inputs(1, 1, 20, 24, 8, 0.5))
     out, lse = attention_cuda.attention_core(Q, K, V, keep, return_lse=True,
                                              kscale=ks)
-    before = (attention_cuda.LAUNCHES_DQ, attention_cuda.LAUNCHES_DKDV)
+    counters = ("LAUNCHES_DQ", "LAUNCHES_DKDV", "LAUNCHES_BWD", "LAUNCHES_DV",
+                "LAUNCHES_DK")
+    before = [getattr(attention_cuda, c) for c in counters]
     got = attention_core_bwd(Q, K, V, keep, out, lse, dO, 10.0, ks)
-    assert (attention_cuda.LAUNCHES_DQ, attention_cuda.LAUNCHES_DKDV) == before
+    assert [getattr(attention_cuda, c) for c in counters] == before
     want = attention_core_bwd_reference(Q, K, V, keep, out, lse, dO, 10.0, ks)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
@@ -254,19 +290,60 @@ def test_dv_dk_references_match_pallas_split_kernels(monkeypatch, keep_p):
         got_dk, rtol=0, atol=0)
     assert (attention_cuda.LAUNCHES_DV, attention_cuda.LAUNCHES_DK) == before
     calls = []
-    for name in ("attention_core_dv", "attention_core_dk",
-                 "attention_core_dkdv"):
+    for name in ("attention_core_dq", "attention_core_dv",
+                 "attention_core_dk", "attention_core_dkdv",
+                 "attention_core_bwd_joint"):
         def spy(*a, _fn=getattr(attention_cuda, name), _n=name, **k):
             calls.append(_n)
             return _fn(*a, **k)
         monkeypatch.setattr(attention_cuda, name, spy)
     split = attention_core_bwd(t(Q), t(K), t(V), t(keep), out_t, lse_t, t(dO))
-    assert calls == ["attention_core_dv", "attention_core_dk"]
+    assert calls == ["attention_core_dq", "attention_core_dv",
+                     "attention_core_dk"]
     monkeypatch.delenv("SKETCHEDIT_SPLIT_DKDV")
     fused = attention_core_bwd(t(Q), t(K), t(V), t(keep), out_t, lse_t, t(dO))
-    assert calls[2:] == ["attention_core_dkdv"]
+    assert calls[3:] == ["attention_core_bwd_joint"]
     for a, b in zip(split, fused):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_kscale", [True, False])
+@pytest.mark.parametrize("route", ["joint", "SKETCHEDIT_SPLIT_DKDV"])
+def test_bwd_routes_on_cpu(monkeypatch, route, with_kscale):
+    """attention_core_bwd on CPU tensors, with and without kscale: the
+    wrappers it calls (by default the joint backward; SKETCHEDIT_SPLIT_DKDV=1
+    dQ, dV and dK), no launch counted, and the same gradients as the joint
+    plain version: bit for bit by default, within float32 summation order
+    otherwise."""
+    if route == "joint":
+        monkeypatch.delenv("SKETCHEDIT_SPLIT_DKDV", raising=False)
+    else:
+        monkeypatch.setenv(route, "1")
+    Q, K, V, keep, dO, ks = map(torch.from_numpy,
+                                _core_inputs(4, 2, 33, 40, 12, 0.6))
+    ks = ks if with_kscale else None
+    out, lse = attention_cuda.attention_core(Q, K, V, keep, return_lse=True,
+                                             kscale=ks)
+    calls = []
+    for name in ("attention_core_dq", "attention_core_dv",
+                 "attention_core_dk", "attention_core_dkdv",
+                 "attention_core_bwd_joint"):
+        def spy(*a, _fn=getattr(attention_cuda, name), _n=name[15:], **k):
+            calls.append(_n)
+            return _fn(*a, **k)
+        monkeypatch.setattr(attention_cuda, name, spy)
+    counters = [c for c in dir(attention_cuda) if c.startswith("LAUNCHES")]
+    before = [getattr(attention_cuda, c) for c in counters]
+    got = attention_core_bwd(Q, K, V, keep, out, lse, dO, 10.0, ks)
+    assert [getattr(attention_cuda, c) for c in counters] == before
+    assert calls == (["bwd_joint"] if route == "joint"
+                     else ["dq", "dv", "dk"]), calls
+    want = attention_core_bwd_joint_reference(
+        Q, K, V, keep, lse, (dO * out).sum(-1), dO, 10.0, ks)
+    tol = dict(rtol=0, atol=0) if route == "joint" else dict(rtol=1e-5,
+                                                             atol=1e-6)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **tol)
 
 
 @pytest.mark.parametrize("switch", ["SKETCHEDIT_SHARED_ATTN",

@@ -1,6 +1,7 @@
 """The contextual-attention CUDA kernels (the default, shared-tensor and
-D-split forwards, dQ, fused dK/dV, dV and dK) against their plain PyTorch
-versions, and the kernel path's gradient against dense autograd.
+D-split forwards, dQ, fused dK/dV, the joint backward, dV and dK) against
+their plain PyTorch versions, and the kernel path's gradient against dense
+autograd.
 
 These need an NVIDIA GPU and nvcc, so they carry the ``gpu`` marker and
 skip elsewhere; chip_smoke.py holds the kernel to the same plain version on
@@ -25,12 +26,14 @@ import torch
 from sketchedit_tpu_torch.ops import attention_cuda
 from sketchedit_tpu_torch.ops.attention import contextual_attention
 from sketchedit_tpu_torch.ops.attention_cuda import (
-    attention_core, attention_core_dk, attention_core_dk_reference,
-    attention_core_dkdv, attention_core_dkdv_reference, attention_core_dq,
+    attention_core, attention_core_bwd_joint,
+    attention_core_bwd_joint_reference, attention_core_dk,
+    attention_core_dk_reference, attention_core_dkdv,
+    attention_core_dkdv_reference, attention_core_dq,
     attention_core_dq_reference, attention_core_dsplit,
     attention_core_dsplit_reference, attention_core_dv,
     attention_core_dv_reference, attention_core_reference,
-    attention_core_shared, attention_core_shared_reference,
+    attention_core_shared, attention_core_shared_reference, bwd_plan,
     contextual_attention_fused, dk_dv_plan, dkdv_plan, dq_plan, dsplit_cut,
     dsplit_plan, fwd_plan)
 
@@ -785,6 +788,173 @@ def test_dq_kernel_as_close_to_float64_as_before(cuda, dtype, B, H):
     assert d_dq / d_dk <= 1.5 * before, (d_dq, d_dk, before)
 
 
+def _check_joint(args, tag, parent=True):
+    """One joint backward call: one LAUNCHES_BWD count and no dQ or dK/dV
+    one; against the plain version (2e-4 of each gradient's max); where
+    ``parent``, against the dQ and fused dK/dV sequences on the same
+    inputs, bit for bit (one chunk: the same S, dP and dS bits, each
+    product in the same order). Returns (dQ, dK_eff, dV)."""
+    names = ("LAUNCHES_BWD", "LAUNCHES_DQ", "LAUNCHES_DKDV")
+    before = [getattr(attention_cuda, n) for n in names]
+    got = attention_core_bwd_joint(*args)
+    torch.cuda.synchronize()
+    assert [getattr(attention_cuda, n) - b
+            for n, b in zip(names, before)] == [1, 0, 0]
+    want = attention_core_bwd_joint_reference(*args)
+    diffs = []
+    for name, g, w in zip(("dQ", "dK_eff", "dV"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        scale = max(w.abs().max().item(), 1e-6)
+        diffs.append((g - w).abs().max().item() / scale)
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-4 * scale,
+                                   msg=lambda m, n=name: f"{tag} {n}: {m}")
+    # shown with -rP
+    print("bwd", tag, list(args[0].shape[:2]) + list(args[1].shape[1:]),
+          str(args[0].dtype), "max|. - plain| / max|.| (dQ, dK_eff, dV)",
+          diffs)
+    if parent:
+        two = (attention_core_dq(*args), *attention_core_dkdv(*args))
+        print("bwd", tag, "max|joint - dq, dkdv|",
+              [(a - b).abs().max().item() for a, b in zip(got, two)])
+        for name, a, b in zip(("dQ", "dK_eff", "dV"), got, two):
+            assert torch.equal(a, b), (tag, name)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    ("main", 1, 64), ("main", 8, 64),      # 256^2 training, one tensor
+    ((2, 150, 130, 70), 0.7), ((1, 17, 65, 33), 0.5), ((3, 300, 200, 97), 0.8),
+    ((2, 129, 65, 193), 0.9), ((2, 481, 961, 1536), 0.6),
+], ids=["main_B1", "main_B8", "150x130x70", "17x65x33", "300x200x97",
+        "129x65x193", "qslice481"])
+def test_bwd_joint_equals_dq_and_dkdv(cuda, dtype, shape):
+    """At one chunk the joint backward gives the dQ sequence's dQ and the
+    fused dK/dV's dK_eff and dV bit for bit: the main path's one-tensor
+    call at 256^2 (B = 1 and 8) and test_dq_kernel_ragged's shapes."""
+    if shape[0] == "main":
+        args = _main_path_bwd(shape[1] * 100 + shape[2] + 9, *shape[1:],
+                              dtype, cuda)
+    else:
+        args = _bwd_case(sum(shape[0]) + 9, *shape[0], shape[1], dtype, cuda)
+    B, N, D = args[0].shape
+    assert bwd_plan(B, N, args[1].shape[1], D, dtype)["chunks"] == 1
+    _check_joint(args, f"{shape}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_joint_in_chunks(cuda, monkeypatch, dtype):
+    """A scratch cap that takes the keys in several chunks (the last one
+    ragged): dK_eff and dV are one chunk's bit for bit (each key row's
+    products sum the queries alike in any chunk); dQ adds the chunks' parts
+    in order, within 2e-4 of max |dQ| of the plain version."""
+    args = _bwd_case(26, 2, 300, 700, 1536, 0.8, dtype, cuda)
+    B, N, D = args[0].shape
+    P = args[1].shape[1]
+    one = attention_core_bwd_joint(*args)
+    monkeypatch.setattr(attention_cuda, "SCRATCH_CAP", 2 << 20)
+    plan = bwd_plan(B, N, P, D, dtype, cap=2 << 20)
+    print("bwd chunks", str(dtype), plan["chunks"], plan["chunk_rows"])
+    assert plan["chunks"] >= 3 and P % plan["chunk_rows"] != 0
+    assert plan["launches_per_call"] == 6 + 6 * plan["chunks"]
+    got = _check_joint(args, "chunks", parent=False)
+    assert torch.equal(got[1], one[1]) and torch.equal(got[2], one[2])
+    print("bwd chunks max|dQ - one chunk| / max|dQ|",
+          ((got[0] - one[0]).abs().max() / one[0].abs().max()).item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_joint_v_apart_from_k(cuda, dtype):
+    """K and V apart on the main path's inputs (V's own split terms feed
+    dP): the bits of the one-tensor call, and of the two sequences."""
+    args = _main_path_bwd(35, 8, 64, dtype, cuda)
+    Q, K, V, *rest = args
+    got = _check_joint((Q, K.clone(), V.clone(), *rest), "v_apart")
+    one = attention_core_bwd_joint(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_joint_all_keys_gated(cuda, dtype):
+    """Every key gated: the dS multiplier is 0, so dQ and dK_eff are
+    exactly 0; dV the column sums of dO over the uniform P."""
+    args = _bwd_case(27, 9, 130, 500, 1536, 0.0, dtype, cuda)
+    assert not args[3].any()
+    dQ, dK, _ = _check_joint(args, "all_gated")
+    assert not dQ.any() and not dK.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_joint_wide_d(cuda, dtype):
+    """D = 4099: no widest D, an odd D pads the split rows."""
+    _check_joint(_bwd_case(4100, 1, 90, 30, 4099, 0.8, dtype, cuda), "D4099")
+
+
+def test_bwd_joint_repeats_bit_for_bit(cuda):
+    """Two calls on the same inputs give the same bits, in one chunk and in
+    several (dQ's later chunks add to its earlier ones in launch order)."""
+    args = _bwd_case(28, 9, 130, 500, 1536, 0.9, torch.float32, cuda)
+    for cap in (attention_cuda.SCRATCH_CAP, 1 << 20):
+        saved, attention_cuda.SCRATCH_CAP = attention_cuda.SCRATCH_CAP, cap
+        try:
+            first = attention_core_bwd_joint(*args)
+            second = attention_core_bwd_joint(*args)
+        finally:
+            attention_cuda.SCRATCH_CAP = saved
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), cap
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(1, 64), (3, 29)])
+def test_bwd_joint_as_close_to_float64(cuda, dtype, B, H):
+    """At test_dkdv_kernel_as_close_to_float64_as_dk_dv's inputs: the joint
+    dK_eff and dV within twice the dK and dV kernels' largest |difference|
+    from float64 (each a share of the largest value), and dQ's relative L2
+    over dK_eff's within 1.5x of the mma.sync dQ kernel's ratio (the bars
+    of that test and test_dq_kernel_as_close_to_float64_as_before)."""
+    args = _main_path_bwd(B * 100 + H + 5, B, H, dtype, cuda)
+    Q, K, _, keep, lse, _, dO, _, ks = args
+    want_dk, want_dv, want_dq = _float64_grads(args)
+    dQ, dK, dV = attention_core_bwd_joint(*args)
+    alone = (attention_core_dk(*args),
+             attention_core_dv(Q, K, keep, lse, dO, 10.0, ks))
+    dist = lambda a, w: ((a.double() - w).abs().max() / w.abs().max()).item()
+    for name, f, a, w in zip(("dK_eff", "dV"), (dK, dV), alone,
+                             (want_dk, want_dv)):
+        print("bwd float64", B, H, str(dtype), name, "joint", dist(f, w),
+              "alone", dist(a, w))
+        assert dist(f, w) <= 2 * dist(a, w), name
+    l2 = lambda a, w: ((a.double() - w).norm() / w.norm()).item()
+    ratio = l2(dQ, want_dq) / l2(dK, want_dk)
+    print("bwd float64", B, H, str(dtype), "dQ over dK_eff", ratio)
+    assert ratio <= 1.5 * DQ_F64_BEFORE[(B, H, dtype)], ratio
+
+
+@pytest.mark.parametrize("B,blocks_132", [(1, 128), (8, 1024)])
+def test_bwd_plan_at_the_main_path_shapes(cuda, B, blocks_132):
+    """256^2 training (N = P = 961, D = 1536): one chunk of all 961 keys
+    up to B = 8 (dS's terms by rows counted in the cap: 237 MB of 256 MiB
+    at B = 8), the fused dK/dV's blocks, dQ in 128 x 96 (64 x 192 in
+    bfloat16): 128 blocks a product at B = 1, 1024 at B = 8; twelve
+    launches a call."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = bwd_plan(B, 961, 961, 1536, dtype)
+        print("bwd_plan", B, str(dtype), plan)
+        dq = (128, 96) if dtype == torch.float32 else (64, 192)
+        assert plan["chunks"] == 1 and plan["chunk_rows"] == 961
+        assert (plan["logits_blocks"] == plan["dv_blocks"]
+                == plan["dk_blocks"] == plan["dq_blocks"] == blocks_132)
+        assert (plan["dq_block_rows"], plan["dq_block_cols"]) == dq
+        for k in ("logits", "dv", "dk", "dq"):
+            assert 0 < plan[f"{k}_smem_bytes"] <= 232448
+            assert plan[f"{k}_blocks_per_sm"] >= 1
+            assert plan[f"{k}_stages"] >= 3
+        assert plan["launches_per_call"] == 12
+        assert plan["phases"] == list(attention_cuda.BWD_PHASES)
+        assert plan["scratch_bytes"] > attention_cuda.dkdv_scratch(
+            B, 961, 961, 1536, dtype)[0]
+
+
 def test_launches_run_on_the_tensors_device(cuda):
     """Tensors on the second card, the first card current: every forward
     and backward kernel launches on the tensors' card and matches its plain
@@ -812,7 +982,9 @@ def test_launches_run_on_the_tensors_device(cuda):
              attention_core_dkdv_reference(*args)[0]),
             (attention_core_dv(Q, K, keep, lse, dO, 10.0, ks),
              attention_core_dv_reference(Q, K, keep, lse, dO, 10.0, ks)),
-            (attention_core_dk(*args), attention_core_dk_reference(*args))):
+            (attention_core_dk(*args), attention_core_dk_reference(*args)),
+            (attention_core_bwd_joint(*args)[0],
+             attention_core_bwd_joint_reference(*args)[0])):
         torch.cuda.synchronize(dev)
         assert got.device == dev and torch.cuda.current_device() == 0
         torch.testing.assert_close(got, want, rtol=0,
@@ -938,13 +1110,13 @@ def test_switched_gradient_matches_default(cuda, monkeypatch, switch):
 
     want = run()
     names = ("LAUNCHES", "LAUNCHES_SHARED", "LAUNCHES_DQ", "LAUNCHES_DKDV",
-             "LAUNCHES_DV", "LAUNCHES_DK")
+             "LAUNCHES_BWD", "LAUNCHES_DV", "LAUNCHES_DK")
     before = [getattr(attention_cuda, n) for n in names]
     monkeypatch.setenv(switch, "1")
     got = run()
     used = [getattr(attention_cuda, n) - b for n, b in zip(names, before)]
-    assert used == ([0, 1, 1, 1, 0, 0] if switch.endswith("SHARED_ATTN")
-                    else [1, 0, 1, 0, 1, 1]), used
+    assert used == {"SKETCHEDIT_SHARED_ATTN": [0, 1, 0, 0, 1, 0, 0],
+                    "SKETCHEDIT_SPLIT_DKDV": [1, 0, 1, 0, 0, 1, 1]}[switch], used
     torch.testing.assert_close(got[0], want[0], **TOL[torch.float32])
     torch.testing.assert_close(got[1], want[1], rtol=0,
                                atol=2e-4 * want[1].abs().max().item())
@@ -968,7 +1140,7 @@ def test_dsplit_switch_takes_the_dsplit_kernel(cuda, monkeypatch):
 
 def test_fused_gradient_matches_dense_autograd(cuda):
     """The kernel path's autograd (ContextualAttentionCore: forward with
-    lse, one dQ and one dK/dV launch) against dense autograd."""
+    lse, one joint backward launch) against dense autograd."""
     rs = np.random.RandomState(1)
     f = torch.from_numpy(np.maximum(rs.randn(2, 96, 32, 32), 0).astype(
         np.float32)).to(cuda)
@@ -977,13 +1149,11 @@ def test_fused_gradient_matches_dense_autograd(cuda):
     grads = []
     for fn in (contextual_attention_fused, contextual_attention):
         x = f.clone().requires_grad_()
-        before = (attention_cuda.LAUNCHES_LSE, attention_cuda.LAUNCHES_DQ,
-                  attention_cuda.LAUNCHES_DKDV)
+        before = (attention_cuda.LAUNCHES_LSE, attention_cuda.LAUNCHES_BWD)
         out = fn(x, x, mask)
         assert out.grad_fn is not None
         grads.append(torch.autograd.grad((out ** 2).sum(), x)[0])
-        after = (attention_cuda.LAUNCHES_LSE, attention_cuda.LAUNCHES_DQ,
-                 attention_cuda.LAUNCHES_DKDV)
+        after = (attention_cuda.LAUNCHES_LSE, attention_cuda.LAUNCHES_BWD)
         want = 1 if fn is contextual_attention_fused else 0
         assert after == tuple(b + want for b in before)
     scale = grads[1].abs().max().item()
@@ -1029,6 +1199,7 @@ def _op_args(op_name, device, seed=0, B=2, N=130, P=150, D=70):
         "fwd_dsplit": (Q, K, V, keep, ks, 10.0, f32, True),
         "dq": (Q, K, V, keep, lse, delta, dO, 10.0, ks),
         "dkdv": (Q, K, V, keep, lse, delta, dO, 10.0, ks),
+        "bwd": (Q, K, V, keep, lse, delta, dO, 10.0, ks),
         "dv": (Q, K, keep, lse, dO, 10.0, ks),
         "dk": (Q, K, V, keep, lse, delta, dO, 10.0, ks),
     }[op_name]
@@ -1036,7 +1207,8 @@ def _op_args(op_name, device, seed=0, B=2, N=130, P=150, D=70):
 
 OP_COUNTERS = {"fwd": "LAUNCHES", "fwd_shared": "LAUNCHES_SHARED",
                "fwd_dsplit": "LAUNCHES_DSPLIT", "dq": "LAUNCHES_DQ",
-               "dkdv": "LAUNCHES_DKDV", "dv": "LAUNCHES_DV",
+               "dkdv": "LAUNCHES_DKDV", "bwd": "LAUNCHES_BWD",
+               "dv": "LAUNCHES_DV",
                "dk": "LAUNCHES_DK"}
 
 

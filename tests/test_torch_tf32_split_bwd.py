@@ -11,7 +11,11 @@ end) on the main path's inputs at 64^2 features (256^2 images: N = P =
 must agree with ``_attention_core_bwd_pallas``'s dQ (interpret mode)
 within chip_smoke.py's BWD_TOL, 2e-4 of max |dQ|; so must its first 481
 query rows alone (the sharded path's query slice, N apart from P) against
-the JAX function's dQ for that slice. The dK and dV emulations run
+the JAX function's dQ for that slice. The joint backward's dQ is the same
+dS K taken over chunks of keys, each chunk's product scaled by kscale and
+added to the earlier chunks' sum; emulated over chunks of 384 keys from
+the same dS, it must agree with the JAX dQ within BWD_TOL too. The dK and
+dV emulations run
 the single-output kernels' products (S^T = (K kscale) Q^T with kscale on
 the owned keys, dP^T = K dO^T with the keys raw, then dS^T Q or P^T dO)
 on the same inputs and must agree with the same function's dK and dV
@@ -37,14 +41,13 @@ from sketchedit_tpu.ops.attention_pallas import _attention_core_bwd_pallas
 from tf32_emulation import BWD_TOL, SCALE, case, mma, operand
 
 
-def emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
-    """dQ of ``attention_core(Q, V, V, keep, kscale=kscale)`` as dQ's wgmma
-    sequence computes it: S = (Q kscale) V^T with kscale on the query side
-    and the keys raw, dP = dO V^T, both summed in runs of 16 k8 steps added
-    to the total with Kahan's compensation; dS = P (dP - delta) g with
-    P = exp(S g - lse) and g = keep * scale; dQ = (dS V) kscale, every step
-    added to the total and kscale on the columns at the end; Q kscale, dO
-    and dS are split, V is split where it holds float32 values."""
+def emulated_ds(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
+    """dS of ``attention_core(Q, V, V, keep, kscale=kscale)`` as dQ's and
+    the fused dK/dV's wgmma sequences form it: S = (Q kscale) V^T with
+    kscale on the query side and the keys raw, dP = dO V^T, both summed in
+    runs of 16 k8 steps added to the total with Kahan's compensation; dS =
+    P (dP - delta) g with P = exp(S g - lse) and g = keep * scale; Q kscale
+    and dO are split, V is split where it holds float32 values."""
     f32 = Q.dtype == torch.float32
     Kf = V.float()
     passes = 1 if one_pass else 3
@@ -54,9 +57,33 @@ def emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
     dP = mma(operand(dO, True), operand(Kf.transpose(1, 2), f32 or one_pass),
              passes, group=16, compensate=True)
     g = keep[:, None, :] * SCALE
-    dS = torch.exp(S * g - lse[..., None]) * (dP - delta[..., None]) * g
-    return mma(operand(dS, True), operand(Kf, f32 or one_pass),
-               passes) * kscale[:, None, :]
+    return torch.exp(S * g - lse[..., None]) * (dP - delta[..., None]) * g
+
+
+def emulated_dq_from_ds(dS, V, kscale, one_pass=False, chunk=None):
+    """dQ = (dS V) kscale as dQ's product computes it: dS split, V split
+    where it holds float32 values, every step added to the total, kscale on
+    the columns at the end. With ``chunk``, as the joint backward computes
+    it: each chunk of that many keys its own product, scaled by kscale and
+    added in order to the sum of the earlier chunks' (the first stored)."""
+    f32 = V.dtype == torch.float32
+    Kf, passes = V.float(), 1 if one_pass else 3
+    P = Kf.shape[1]
+    dq = None
+    for r0 in range(0, P, chunk or P):
+        r1 = min(P, r0 + (chunk or P))
+        part = mma(operand(dS[:, :, r0:r1].contiguous(), True),
+                   operand(Kf[:, r0:r1], f32 or one_pass),
+                   passes) * kscale[:, None, :]
+        dq = part if dq is None else dq + part
+    return dq
+
+
+def emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
+    """dQ of ``attention_core(Q, V, V, keep, kscale=kscale)`` as dQ's wgmma
+    sequence computes it: ``emulated_ds``, then ``emulated_dq_from_ds``."""
+    dS = emulated_ds(Q, V, keep, kscale, lse, delta, dO, one_pass)
+    return emulated_dq_from_ds(dS, V, kscale, one_pass)
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,6 +107,15 @@ def dq_case(dtype_name):
             *(torch.from_numpy(np.array(g)) for g in grads))
 
 
+@functools.lru_cache(maxsize=None)
+def main_ds(dtype_name):
+    """The emulated dS at case()'s inputs and dq_case()'s dO and delta,
+    formed once for the tests that take dQ from it."""
+    Q, V, keep, kscale, _, lse = case(dtype_name)
+    dO, delta, _, _, _ = dq_case(dtype_name)
+    return emulated_ds(Q, V, keep, kscale, lse, delta, dO)
+
+
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_split_tf32_dq_matches_jax(dtype_name, monkeypatch):
     monkeypatch.delenv("SKETCHEDIT_SPLIT_DKDV", raising=False)
@@ -87,13 +123,34 @@ def test_split_tf32_dq_matches_jax(dtype_name, monkeypatch):
     dO, delta, want, _, _ = dq_case(dtype_name)
     scale = want.abs().max().item()
     assert want.shape == (1, 961, 1536) and scale > 0
-    got = emulated_dq(Q, V, keep, kscale, lse, delta, dO)
+    got = emulated_dq_from_ds(main_ds(dtype_name), V, kscale)
     err = (got - want).abs().max().item() / scale
     one = emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=True)
     one_err = (one - want).abs().max().item() / scale
     print(dtype_name, "dQ split", err, "one pass", one_err,
           "(shares of max |dQ|)")
     torch.testing.assert_close(got, want, rtol=0, atol=BWD_TOL * scale)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_split_tf32_joint_dq_over_key_chunks_matches_jax(dtype_name,
+                                                         monkeypatch):
+    """The joint backward's dQ over chunks of 384 keys (961 = 384 + 384 +
+    193), kscale on each chunk's product and the chunks added in order,
+    from the same emulated dS, against the JAX dQ within BWD_TOL; and
+    within float32 summation order of the one-chunk dQ."""
+    monkeypatch.delenv("SKETCHEDIT_SPLIT_DKDV", raising=False)
+    _, V, _, kscale, _, _ = case(dtype_name)
+    _, _, want, _, _ = dq_case(dtype_name)
+    scale = want.abs().max().item()
+    dS = main_ds(dtype_name)
+    got = emulated_dq_from_ds(dS, V, kscale, chunk=384)
+    one = emulated_dq_from_ds(dS, V, kscale)
+    print(dtype_name, "joint dQ over 384-key chunks",
+          (got - want).abs().max().item() / scale, "against one chunk",
+          (got - one).abs().max().item() / scale, "(shares of max |dQ|)")
+    torch.testing.assert_close(got, want, rtol=0, atol=BWD_TOL * scale)
+    torch.testing.assert_close(got, one, rtol=0, atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
