@@ -17,24 +17,29 @@ Phases, in order; any failure raises and the exit code is not 0:
    the sharded path's query slices (481 of 961 patches, B = 1 and 8); the
    shared-tensor and D-split forwards (256^2 B = 1 and 8, 512^2 and 1024^2
    B = 1; a `dsplit_plan` line gives the D-split's tile rows, cluster shape
-   and resident clusters at each) and the dV and dK kernels the same way,
-   each also against the kernel that computes the same function (the
-   default forward, the fused dK/dV); a `dkdv_plan` line gives the fused
-   dK/dV's wgmma sequence at each training shape (chunks and their key
+   and resident clusters at each), each also against the default forward,
+   which computes the same function, and dV and dK alone (the joint
+   backward's sequence with a mask of one product) bit for bit against the
+   joint's and the fused dK/dV's outputs at every shape, in several chunks
+   of keys too (`dv_dk_chunks`), and at D = 4099; a `dkdv_plan` line
+   gives the fused dK/dV's wgmma sequence at each training shape (chunks
+   and their key
    rows, the blocks, block shapes, stages, shared memory and resident
    blocks per SM of each product, launches per call, scratch bytes), a
    `dq_plan` line the same for dQ's wgmma sequence (chunks of query rows),
    a `bwd_plan` line for the joint backward, a `bwd_vs_float64` line each
-   of its, the joint's, dQ's and the dK and dV kernels' distance from a
-   float64 evaluation at 256^2 (B = 1 and 8, float32: the fused and joint
-   sequences' relative L2 within 1.5x of theirs; dQ's over the fused
+   of its, the joint's, dQ's and dK's and dV's alone distance from a
+   float64 evaluation at 256^2 (B = 1 and 8, float32: the dK_eff and dV of
+   each within 1.5x of the relative L2 of the mma.sync dK and dV kernels
+   the masked sequences replaced, DK_DV_F64_BEFORE; dQ's over the fused
    dK_eff's within 1.5x of that ratio with the mma.sync dQ kernel it
-   replaced), `dk_dv_plan` lines the dV and dK kernels' rows per block,
-   column slabs, resident blocks per SM and shared memory, and
+   replaced), `dk_dv_plan` lines the masked sequences of dV and dK alone
+   (chunks, blocks, shared memory, launches per call, scratch bytes), and
    `fwd_ptxas`, `dq_ptxas`, `dk_dv_ptxas`, `dkdv_ptxas` and
    `dsplit_ptxas` lines the forward's wgmma products', dQ's (its ca_dq_*
-   kernels), the dV and dK, fused dK/dV (its ca_dkdv_* kernels) and
-   D-split instantiations' registers and spills;
+   kernels), the masked sequence's (dV and dK alone, the fused dK/dV and
+   the joint: its ca_dkdv_* kernels) and D-split instantiations' registers
+   and spills;
 4. inference path: the runner's EditPipeline on uint8 batches at 256^2
    (B = 1 and 4, float32 and bfloat16) and 252^2, one forward launch per
    netG forward, checked against the same pipeline with dense attention
@@ -43,7 +48,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    kernels and through the dense attention (losses and every gradient
    compared, launches counted: the default backward is the joint one), the
    same step under SKETCHEDIT_SPLIT_DKDV=1 and under
-   SKETCHEDIT_SHARED_ATTN=1 against the default kernels' step,
+   SKETCHEDIT_SHARED_ATTN=1 against the default kernels' step (and, with
+   cuDNN deterministic, the split step's gradients against the default
+   step's bit for bit where dQ takes one chunk, `train_step_split_bits`),
    the bfloat16 step's gradients held to the float32 ones, and the step on
    the GPU against the step on the CPU;
 6. training path: the train loop, 3 steps at 256^2, B = 8, in float32 and
@@ -199,6 +206,13 @@ BWD_TOL = 2e-4
 # replaced: the lowest over seeds 0-3 (scripts/dq_variants.py --seeds 4,
 # PERF.md PR 18); the sequence must stay within 1.5x of it
 DQ_F64_BEFORE = {1: 1.323, 8: 1.333}
+# dK_eff's and dV's relative L2 from float64 at 256^2, float32, by batch,
+# from the mma.sync dK and dV kernels that the masked sequences of dK and
+# dV alone replaced, at this script's inputs (seed 0; read on an H100 80GB
+# HBM3 at 700 W before the kernels were removed, PERF.md Findings): the
+# fused dK/dV, the joint and dK and dV alone must stay within 1.5x of them
+DK_DV_F64_BEFORE = {1: {"dK_eff": 3.0015e-06, "dV": 6.6153e-06},
+                    8: {"dK_eff": 2.9303e-06, "dV": 6.5271e-06}}
 # train step, kernel path vs dense path and GPU vs CPU (float32, TF32 off):
 # each gradient tensor's relative L2 error, ||got - want|| / ||want||. The
 # two sides differ by summation order only, but the discriminator's leaky
@@ -704,16 +718,17 @@ def main():
           "nvcc_seconds": _build.build_seconds, **card})
     # registers and spills of each dQ instantiation (ca_dq_*: its products,
     # ca_dq_wgmma_kernel<kWN, kMW, kSplitB, kStages, kGroup, kCompensate>,
-    # and its prep and weights kernels), each dV and dK one
-    # (ca_dk_or_dv_kernel<T, kDK, kSame, kVec>), each fused dK/dV one
-    # (ca_dkdv_*, the same kinds as dQ's) and each D-split
+    # and its prep and weights kernels), each instantiation of the masked
+    # sequence that dV and dK alone, the fused dK/dV and the joint run
+    # (ca_dkdv_*, the same kinds as dQ's; `dk_dv_ptxas` and `dkdv_ptxas`
+    # list the same kernels) and each D-split
     # one (ca_fwd_dsplit_kernel<T, TO, kMT, kVec>), where this run built the
     # library
     ptxas = {}
     for phase, stem, kernel in (
             ("fwd_ptxas", "fwd", "ca_fwd_wgmma_kernel"),
             ("dq_ptxas", "bwd", "ca_dq_"),
-            ("dk_dv_ptxas", "bwd", "ca_dk_or_dv_kernel"),
+            ("dk_dv_ptxas", "bwd", "ca_dkdv_"),
             ("dkdv_ptxas", "bwd", "ca_dkdv_"),
             ("dsplit_ptxas", "fwd", "ca_fwd_dsplit_kernel")):
         entry, found = None, []
@@ -904,7 +919,9 @@ def main():
         backward against their plain versions on the same inputs, the
         forward's lse and a random dO; the joint's three outputs equal the
         two kernels' bit for bit (one chunk: the same S, dP and dS, each
-        product in the same order)."""
+        product in the same order); dV and dK alone (the joint's sequence
+        masked) against their plain versions and bit for bit against the
+        joint's and the fused dK/dV's dV and dK_eff."""
         out, lse = attention_core(Q, K, V, keep, return_lse=True,
                                   out_dtype=torch.float32, kscale=kscale)
         dO = torch.randn(out.shape, generator=torch.Generator().manual_seed(
@@ -948,21 +965,23 @@ def main():
         row["joint_bits_equal_two"] = all(
             torch.equal(g, two) for g, two in zip(joint, got))
         assert row["joint_bits_equal_two"], row
-        # the single-output kernels: against their own plain versions and
-        # against the fused kernel's outputs
-        for name, g, w, sib in (
+        # dV and dK alone: against their own plain versions, and bit for
+        # bit against the fused kernel's and the joint's outputs
+        for name, g, w, sib, sib_joint in (
                 ("dV_alone", dV1, attention_core_dv_reference(
-                    Q, K, keep, lse, dO, 10.0, kscale), got[2]),
+                    Q, K, keep, lse, dO, 10.0, kscale), got[2], joint[2]),
                 ("dK_alone", dK1, attention_core_dk_reference(*bargs),
-                 got[1])):
+                 got[1], joint[1])):
             assert g.dtype == torch.float32 and g.shape == w.shape, tag
             assert torch.isfinite(g).all(), f"{tag} {name}"
             scale = max(w.abs().max().item(), 1e-6)
             row[f"{name}_max_abs_err"] = (g - w).abs().max().item()
             row[f"{name}_max_abs_diff_vs_fused"] = (g - sib).abs().max().item()
+            row[f"{name}_max_abs_diff_vs_joint"] = (
+                g - sib_joint).abs().max().item()
+            row[f"{name}_bits_equal_joint"] = torch.equal(g, sib_joint)
             assert row[f"{name}_max_abs_err"] <= BWD_TOL * scale, (tag, name)
-            assert row[f"{name}_max_abs_diff_vs_fused"] <= BWD_TOL * scale, (
-                tag, name)
+            assert torch.equal(g, sib) and torch.equal(g, sib_joint), row
         bwd_errs[tag] = {"dq": row["dQ_max_abs_err"],
                          "dkdv": max(row["dK_eff_max_abs_err"],
                                      row["dV_max_abs_err"]),
@@ -1001,8 +1020,10 @@ def main():
                   "dtype": str(dt).split(".")[-1],
                   **dq_plan(B, Q.shape[1], V.shape[1], Q.shape[2], dt),
                   **card})
-            # and the dV and dK kernels: key rows per block, column slabs,
-            # blocks resident per SM, shared memory, the grid's blocks
+            # and dV's and dK's alone, the sequence masked to one product:
+            # chunks, the blocks, block shapes, stages, shared memory and
+            # resident blocks per SM of S and the product, launches per
+            # call, scratch bytes
             for dk in (False, True):
                 emit({"phase": "dk_dv_plan", "kernel": "dk" if dk else "dv",
                       "image_hw": [256, 256],
@@ -1027,15 +1048,55 @@ def main():
     Q, V, keep, ksc = attention_inputs(fa, fa, torch.ones(1, 1, 64, 64,
                                                           device=dev))
     check_bwd("all_gated", Q, V, V, keep, ksc)
-    # the fused dK/dV, dQ and the dK and dV kernels against a float64
+    # D = 4099 (no widest D for any backward sequence), from its own seed
+    rw = np.random.RandomState(args.seed + 4099)
+    Qw, Kw, Vw = (torch.from_numpy((rw.randn(1, n, 4099) * sc).astype(
+        np.float32)).to(dev) for n, sc in ((30, 4099 ** -0.5), (90, 1.0),
+                                           (90, 1.0)))
+    keep_w = torch.from_numpy((rw.rand(1, 90) > 0.2).astype(np.float32)
+                              ).to(dev)
+    ksc_w = torch.from_numpy((0.5 + rw.rand(1, 4099)).astype(np.float32)
+                             ).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        check_bwd(f"wide_1x30x90x4099_{str(dt).split('.')[-1]}",
+                  *(t.to(dt) for t in (Qw, Kw, Vw)), keep_w, ksc_w)
+    del Qw, Kw, Vw
+    # dV and dK alone in several chunks of key rows (a scratch cap that
+    # takes 256 keys a chunk at 256^2, B = 1, the last one ragged): the
+    # joint's one-chunk bits all the same, since every S, dP and weight is
+    # formed alike in any chunk and each output row sums its queries in one
+    # order
+    for dt in (torch.float32, torch.bfloat16):
+        Q, K, V, keep, lse, delta, dO, sc, ksc = bargs = bwd_inputs[(1, dt)]
+        joint = attention_core_bwd_joint(*bargs)
+        cap, attention_cuda.SCRATCH_CAP = attention_cuda.SCRATCH_CAP, 4 << 20
+        try:
+            plans = {k: dk_dv_plan(1, Q.shape[1], K.shape[1], Q.shape[2], dt,
+                                   dk=k == "dk") for k in ("dv", "dk")}
+            alone = {"dv": attention_core_dv(Q, K, keep, lse, dO, sc, ksc),
+                     "dk": attention_core_dk(*bargs)}
+        finally:
+            attention_cuda.SCRATCH_CAP = cap
+        torch.cuda.synchronize()
+        row = {"phase": "dv_dk_chunks", "image_hw": [256, 256],
+               "shape_BNPD": [1, Q.shape[1], K.shape[1], Q.shape[2]],
+               "dtype": str(dt).split(".")[-1], "scratch_cap": 4 << 20}
+        for k, sib in (("dv", joint[2]), ("dk", joint[1])):
+            row[f"{k}_chunks"] = plans[k]["chunks"]
+            row[f"{k}_chunk_rows"] = plans[k]["chunk_rows"]
+            row[f"{k}_bits_equal_joint"] = torch.equal(alone[k], sib)
+        emit(row)
+        assert all(row[f"{k}_chunks"] > 1 and row[f"{k}_bits_equal_joint"]
+                   for k in ("dv", "dk")), row
+        del joint, alone
+    # the fused dK/dV, the joint, dQ and dK and dV alone against a float64
     # evaluation of the same function at the training path's call (256^2,
-    # B = 1 and 8, float32): all run split TF32, and the fused sequence,
-    # whose S and dP sum runs of 16 k8 steps where the single-output
-    # kernels sum per-warp partials, must be as close (relative L2 within
-    # 1.5x of theirs, each gradient); dQ's relative L2 over the fused
-    # dK_eff's must stay within 1.5x of that ratio with the mma.sync dQ
-    # kernel that dQ's wgmma sequence replaced (DQ_F64_BEFORE); the largest
-    # |difference| is reported
+    # B = 1 and 8, float32): all run split TF32 on the wgmma sequence, and
+    # each one's dK_eff and dV must be as close as the mma.sync dK and dV
+    # kernels were (relative L2 within 1.5x of DK_DV_F64_BEFORE); dQ's
+    # relative L2 over the fused dK_eff's must stay within 1.5x of that
+    # ratio with the mma.sync dQ kernel that dQ's wgmma sequence replaced
+    # (DQ_F64_BEFORE); the largest |difference| is reported
     for B in (1, 8):
         bargs = bwd_inputs[(B, torch.float32)]
         Q, K, V, keep, lse, delta, dO, sc, ksc = bargs
@@ -1064,9 +1125,10 @@ def main():
                 row[f"{name}_{k}_rel_l2_vs_float64"] = (
                     diff.norm() / w.norm()).item()
                 row[f"{name}_{k}_max_abs_vs_float64"] = diff.abs().max().item()
-            row[f"{name}_fused_x_alone_rel_l2"] = (
-                row[f"{name}_fused_rel_l2_vs_float64"]
-                / row[f"{name}_alone_rel_l2_vs_float64"])
+                row[f"{name}_{k}_x_before_rel_l2"] = (
+                    row[f"{name}_{k}_rel_l2_vs_float64"]
+                    / DK_DV_F64_BEFORE[B][name])
+            row[f"{name}_rel_l2_before"] = DK_DV_F64_BEFORE[B][name]
         row["dQ_rel_l2_vs_float64"] = (dq_diff.norm()
                                        / exact_dq.norm()).item()
         row["dQ_max_abs_vs_float64"] = dq_diff.abs().max().item()
@@ -1081,16 +1143,18 @@ def main():
                 diff.norm() / w.norm()).item()
             row[f"joint_{name}_max_abs_vs_float64"] = diff.abs().max().item()
         for name in ("dK_eff", "dV"):
-            row[f"joint_{name}_x_alone_rel_l2"] = (
+            row[f"joint_{name}_x_before_rel_l2"] = (
                 row[f"joint_{name}_rel_l2_vs_float64"]
-                / row[f"{name}_alone_rel_l2_vs_float64"])
+                / DK_DV_F64_BEFORE[B][name])
         row["joint_dQ_x_dK_eff_rel_l2"] = (
             row["joint_dQ_rel_l2_vs_float64"]
             / row["joint_dK_eff_rel_l2_vs_float64"])
         emit({**row, **card})
         for name in ("dK_eff", "dV"):
-            assert row[f"{name}_fused_x_alone_rel_l2"] <= 1.5, row
-            assert row[f"joint_{name}_x_alone_rel_l2"] <= 1.5, row
+            for k in ("fused", "alone", "joint"):
+                ratio = (row[f"joint_{name}_x_before_rel_l2"] if k == "joint"
+                         else row[f"{name}_{k}_x_before_rel_l2"])
+                assert ratio <= 1.5, (k, name, row)
         assert row["dQ_x_dK_eff_rel_l2"] <= 1.5 * DQ_F64_BEFORE[B], row
         assert row["joint_dQ_x_dK_eff_rel_l2"] <= 1.5 * DQ_F64_BEFORE[B], row
         del exact, exact_dq, dq_diff, fused, alone, joint
@@ -1369,6 +1433,34 @@ def main():
               "max_loss_rel_diff": losses_agree(m_s, m_k),
               "grad_err": grad_errors(g_s, g_k), "grad_tol": GRAD_TOL,
               "launches": n_s})
+    # SPLIT_DKDV's step gives the default step's gradients bit for bit
+    # where dQ takes one chunk of queries: dV and dK alone are the joint's
+    # sequence masked, and at one chunk dQ's sequence gives the joint's dQ.
+    # Both steps run with cuDNN deterministic (its default algorithms may
+    # sum in run-dependent order), and the default step repeats its own
+    # bits first
+    one_chunk = dq_plan(8, 961, 961, 1536)["chunks"] == 1
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, g_a, _ = one_step("float32", "kernel", batch8, (1, 1))
+        _, g_b, _ = one_step("float32", "kernel", batch8, (1, 1))
+        with env(SKETCHEDIT_SPLIT_DKDV="1"):
+            _, g_s, n_s = one_step("float32", "kernel", batch8, (1, 1))
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    assert n_s == expect(fwd=2, fwd_lse=1, dq=1, dv=1, dk=1), n_s
+    differ = [k for k in g_a if not torch.equal(g_s[k], g_a[k])]
+    row = {"phase": "train_step_split_bits", "hw": [256, 256], "batch": 8,
+           "dtype": "float32", "flag": 1, "dq_one_chunk": one_chunk,
+           "default_repeats_bits": all(torch.equal(g_b[k], g_a[k])
+                                       for k in g_a),
+           "tensors": len(g_a), "tensors_not_equal": len(differ),
+           "grad_err": grad_errors(g_s, g_a), "grad_tol": GRAD_TOL}
+    emit(row)
+    assert row["default_repeats_bits"], row
+    assert not one_chunk or not differ, (row, differ[:5])
+    del g_a, g_b, g_s
     # the same step with the attention's query patches in two shards on
     # this card (attention_impl='sharded'), by default and under the split
     # switch: each kernel launches once per shard; gradients against the
@@ -3004,6 +3096,7 @@ def main():
         row["dq_dv_dk_ms"] = row["dq_ms"] + row["dv_ms"] + row["dk_ms"]
         row["dq_dkdv_x_library"] = row["dq_dkdv_ms"] / row["library_ms"]
         row["dq_dv_dk_x_library"] = row["dq_dv_dk_ms"] / row["library_ms"]
+        row["dq_dv_dk_x_bwd"] = row["dq_dv_dk_ms"] / row["bwd_ms"]
         row["bwd_x_dq_dkdv"] = row["bwd_ms"] / row["dq_dkdv_ms"]
         row["dkdv_x_split"] = row["dkdv_ms"] / (row["dv_ms"] + row["dk_ms"])
         row["split_x_fused"] = (row["dv_ms"] + row["dk_ms"]) / row["dkdv_ms"]

@@ -50,9 +50,10 @@ PHASES = (("_split_", "prep"), ("wgmma_kernel<64", "s_dp"),
           ("ca_dq_wgmma_kernel<96", "dq"))
 
 
-def phase_ms(fn) -> dict:
+def phase_ms(fn, phases=PHASES) -> dict:
     """Device ms of each phase of one call of ``fn`` (torch.profiler),
-    summed over its launches, and the launches counted."""
+    summed over its launches, and the launches counted; ``phases`` maps a
+    kernel name's first matching part to its phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -62,7 +63,7 @@ def phase_ms(fn) -> dict:
         torch.cuda.synchronize()
     out = {"launches": 0}
     for ev in prof.key_averages():
-        for key, phase in PHASES:
+        for key, phase in phases:
             if key in ev.key:
                 t = getattr(ev, "device_time_total", None)
                 if t is None:

@@ -36,8 +36,7 @@ def category(name: str) -> str:
     low = name.lower()
     for kernel, cat in (("ca_fwd", "attention_fwd"),
                         ("ca_dq_", "attention_bwd"),
-                        ("ca_dkdv_", "attention_bwd"),
-                        ("ca_dk_or_dv_kernel", "attention_bwd")):
+                        ("ca_dkdv_", "attention_bwd")):
         if kernel in low:
             return cat
     if "multi_tensor" in low or "adam" in low:

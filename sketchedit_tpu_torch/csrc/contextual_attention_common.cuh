@@ -1,11 +1,10 @@
 // Device code shared by the contextual-attention kernels for Hopper
 // (contextual_attention_fwd.cu and contextual_attention_bwd.cu): the
 // float32-accurate tensor-core product (split TF32 on mma.sync) that the
-// D-split forward and the dV and dK backward kernels are built on, with
-// their block shape, per-warp cp.async staging and launch plans. Every one
-// of them runs kThreads = 256 threads a block and walks its streamed axis
-// in tiles of kT = 64. (The default and shared forwards, dQ and the fused
-// dK/dV run wgmma instead: contextual_attention_wgmma.cuh.)
+// D-split forward is built on, with its block shape, per-warp cp.async
+// staging and launch plan: kThreads = 256 threads a block, its streamed
+// axis in tiles of kT = 64. (The default and shared forwards and the
+// backward sequences run wgmma instead: contextual_attention_wgmma.cuh.)
 
 #pragma once
 
@@ -103,17 +102,14 @@ __device__ __forceinline__ void mma_tile(float (&c)[kN][4],
   for (int n = 0; n < kN; ++n) mma_tf32(c[n], ah[n % kA], bh[n]);
 }
 
-// The split-TF32 kernels (ca_dk_or_dv_kernel): a block is kWarps warps
-// over kRows owned rows (keys) and a slab of kSlab output columns; warp w
-// owns kGroups 32-column groups of the slab, and contracts Ds = mma_cols(D)
-// columns of D for its partial S. The D-split forward, whose clusters split
-// D over two blocks (ca_fwd_dsplit_kernel), gives each warp kHalfGroups
-// groups, a block kHalfCols columns.
+// The D-split forward (ca_fwd_dsplit_kernel), split TF32 on mma.sync: a
+// block is kWarps warps over kRows query rows, whose clusters split D over
+// two blocks; each warp owns kHalfGroups 32-column groups of its block's
+// kHalfCols output columns, and contracts Ds = mma_cols(D) columns of D for
+// its partial S.
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;                    // the mma's m16
-constexpr int kGroups = 6;                   // 192 columns a warp
-constexpr int kSlab = kWarps * kGroups * 32; // 1536
-constexpr int kHalfGroups = kGroups / 2;     // 96 columns a warp
+constexpr int kHalfGroups = 3;               // 96 columns a warp
 constexpr int kHalfCols = kWarps * kHalfGroups * 32;  // 768 a block
 constexpr int kPartLd = kT + 8;              // partial S rows: 72 floats
 constexpr int kPLd = kT + 4;                 // P rows: 68 floats
@@ -278,25 +274,6 @@ int cluster_plan(Kernel kernel, dim3 grid, size_t smem, int rows, int* plan) {
   plan[2] = clusters;
   plan[3] = (int)smem;
   plan[4] = (int)(grid.x * (grid.y / 2) * grid.z);
-  return 0;
-}
-
-
-// The split-TF32 kernels' launch plan without a launch: plan[0] query rows
-// per block, [1] column slabs, [2] the most blocks resident at once on an
-// SM of the current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// [3] dynamic shared-memory bytes per block, [4] blocks in the grid.
-template <typename Kernel>
-int block_plan(Kernel kernel, dim3 grid, size_t smem, int rows, int* plan) {
-  int per_sm = 0;
-  if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kThreads, smem))
-    return err;
-  plan[0] = rows;
-  plan[1] = (int)grid.y;
-  plan[2] = per_sm;
-  plan[3] = (int)smem;
-  plan[4] = (int)(grid.x * grid.y * grid.z);
   return 0;
 }
 

@@ -23,16 +23,17 @@ dQ = dS K as products, ``dq_scratch`` and ``dq_plan`` say how it runs a
 shape; for the fused dK/dV per chunk of key rows S, dP, a weights pass
 forming P^T and dS^T, dV = P^T dO and dK = dS^T Q as products,
 ``dkdv_scratch`` and ``dkdv_plan`` say how it runs a shape) on CUDA
-tensors and take their plain versions on CPU ones, as do the single-output
-``attention_core_dv`` and
-``attention_core_dk`` (``_dv_kernel``, ``_dk_kernel``: dQ's block with
-keys owned and queries streamed, on the tensor cores in split TF32;
-``dk_dv_plan`` says how they run a shape). ``attention_core_bwd_joint``
+tensors and take their plain versions on CPU ones. ``attention_core_bwd_joint``
 gives dQ, dK and dV from one sequence: the fused dK/dV's, whose weights
 pass also writes dS by rows, with dQ = dS K added to each chunk of keys,
 so S, dP and dS are formed once for the three products (``bwd_scratch``
-and ``bwd_plan`` say how it runs a shape). ``attention_core_bwd`` takes
-the joint sequence, or dQ and then the split pair.
+and ``bwd_plan`` say how it runs a shape). That sequence runs with a mask
+of its products (the C entry point ``grad``): the joint takes all three,
+the fused dK/dV dV and dK, and the single-output ``attention_core_dv`` and
+``attention_core_dk`` (replacing ``_dv_kernel`` and ``_dk_kernel``) one
+each, every masked sequence launching only the copies, products and
+weights its products read (``dk_dv_plan``). ``attention_core_bwd`` takes
+the joint sequence, or dQ and then dV and dK.
 ``ContextualAttentionCore`` ties forward and backward together for
 autograd.
 
@@ -41,7 +42,7 @@ them), choose among the kernels: ``SKETCHEDIT_SHARED_ATTN=1`` (the shared forwar
 where foreground and background are one tensor) and
 ``SKETCHEDIT_DSPLIT_ATTN=1`` (the D-split forward) in
 ``contextual_attention_fused``; ``SKETCHEDIT_SPLIT_DKDV=1`` in
-``attention_core_bwd`` (dQ's sequence, then the dV and dK kernels).
+``attention_core_bwd`` (dQ's sequence, then dV and dK alone).
 
 The three forwards run both products on the tensor cores in split TF32
 (float32-accurate: three passes for float32 operands, two where one
@@ -126,11 +127,13 @@ _ENTRY_POINTS = {
     "fwd_dsplit": ("contextual_attention_fwd", 2, 7, 4),
     "fwd_shared": ("contextual_attention_fwd", 2, 6, 4),
     "dq": ("contextual_attention_bwd", 1, 10, 5),
-    "dkdv": ("contextual_attention_bwd", 1, 11, 5),
-    "bwd": ("contextual_attention_bwd", 1, 12, 5),
-    "dv": ("contextual_attention_bwd", 1, 7, 4),
-    "dk": ("contextual_attention_bwd", 1, 9, 4),
+    "grad": ("contextual_attention_bwd", 2, 12, 5),
 }
+# the products of the backward sequence that ``grad`` launches (its C
+# mask), and the mask each backward op runs: the joint backward all three
+GRAD_DV, GRAD_DK, GRAD_DQ = 1, 2, 4
+_GRAD_MASKS = {"dkdv": GRAD_DV | GRAD_DK, "bwd": GRAD_DV | GRAD_DK | GRAD_DQ,
+               "dv": GRAD_DV, "dk": GRAD_DK}
 
 
 def _count(counter: str, n: int = 1):
@@ -334,14 +337,12 @@ def attention_core_dsplit(Q, K, V, keep, softmax_scale: float = 10.0,
 
 _PLAN_KEYS = ("tile_rows", "cluster_blocks", "max_active_clusters",
               "smem_bytes", "grid_clusters")
-_FWD_PLAN_KEYS = ("tile_rows", "column_slabs", "blocks_per_sm", "smem_bytes",
-                  "grid_blocks")
 
 
 def _plan(name: str, codes: tuple, B: int, N: int, P: int, D: int,
           keys: tuple = _PLAN_KEYS) -> dict:
-    """The launch plan of kernel ``name`` (fwd, fwd_dsplit, dq, dkdv, bwd,
-    dv or dk) on the current CUDA device, from its C ``..._plan`` entry point:
+    """The launch plan of kernel ``name`` (fwd, fwd_dsplit, dq or grad) on
+    the current CUDA device, from its C ``..._plan`` entry point:
     ``codes`` are its leading int arguments, ``keys`` name the five ints it
     fills."""
     from sketchedit_tpu_torch.ops import _build
@@ -468,6 +469,13 @@ def dq_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
     return {**plan, "phases": list(DQ_PHASES), "scratch_bytes": nbytes}
 
 
+def _grad_scratch(mask: int, B: int, N: int, P: int, D: int, dtype,
+                  same: bool, cap: Optional[int]) -> tuple[int, int]:
+    """(bytes, rows) of the backward sequence run with ``mask``."""
+    return _scratch("grad", _DTYPE_CODES[dtype], mask, int(same), B, N, P, D,
+                    cap=SCRATCH_CAP if cap is None else cap)
+
+
 def dkdv_scratch(B: int, N: int, P: int, D: int, dtype=torch.float32,
                  same: bool = True, cap: Optional[int] = None
                  ) -> tuple[int, int]:
@@ -475,40 +483,7 @@ def dkdv_scratch(B: int, N: int, P: int, D: int, dtype=torch.float32,
     (``same``: V is K, one tensor, whose terms serve S and dP), and the key
     rows of each chunk, when the part that grows with the key rows may take
     ``cap`` bytes (``SCRATCH_CAP`` by default)."""
-    return _scratch("dkdv", _DTYPE_CODES[dtype], int(same), B, N, P, D,
-                    cap=SCRATCH_CAP if cap is None else cap)
-
-
-# the phases of the fused dK/dV, in launch order: the split copies (by
-# rows: K, Q kscale, dO; transposed: Q, dO), then per chunk of key rows
-# the S and dP products, the weights pass and the dV and dK products
-DKDV_PHASES = ("keys", "queries", "grads", "queries_t", "grads_t", "logits",
-               "dp", "weights", "dv", "dk")
-_DKDV_PLAN_KEYS = ("chunk_rows", "chunks", "logits_blocks", "weights_blocks",
-                   "dv_blocks", "dk_blocks", "logits_smem_bytes",
-                   "dv_smem_bytes", "dk_smem_bytes", "logits_stages",
-                   "dv_stages", "dk_stages", "logits_blocks_per_sm",
-                   "dv_blocks_per_sm", "dk_blocks_per_sm",
-                   "threads_per_block", "launches_per_call",
-                   "logits_block_rows", "logits_block_cols",
-                   "dv_block_rows", "dv_block_cols", "dk_block_rows",
-                   "dk_block_cols")
-
-
-def dkdv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
-              cap: Optional[int] = None) -> dict:
-    """How the fused dK/dV runs these shapes on the current CUDA device (V
-    taken to be K, as on the main path), without launching it: the key
-    rows of a chunk and the chunks, the blocks of the S (``logits``; dP's
-    are the same), weights, dV and dK launches of a full chunk, the three
-    product kinds' dynamic shared memory per block, their pipeline stages
-    and resident blocks per SM, the threads of a product block, the CUDA
-    launches per call, each product's block rows and columns, ``phases``
-    in launch order and the scratch in bytes (``dkdv_scratch``)."""
-    nbytes, rows = dkdv_scratch(B, N, P, D, dtype, True, cap)
-    plan = _plan("dkdv", (_DTYPE_CODES[dtype], rows), B, N, P, D,
-                 _DKDV_PLAN_KEYS)
-    return {**plan, "phases": list(DKDV_PHASES), "scratch_bytes": nbytes}
+    return _grad_scratch(_GRAD_MASKS["dkdv"], B, N, P, D, dtype, same, cap)
 
 
 def bwd_scratch(B: int, N: int, P: int, D: int, dtype=torch.float32,
@@ -518,44 +493,82 @@ def bwd_scratch(B: int, N: int, P: int, D: int, dtype=torch.float32,
     (the fused dK/dV's, with K transposed and dS's terms by rows), and the
     key rows of each chunk, when the part that grows with the key rows may
     take ``cap`` bytes (``SCRATCH_CAP`` by default)."""
-    return _scratch("bwd", _DTYPE_CODES[dtype], int(same), B, N, P, D,
-                    cap=SCRATCH_CAP if cap is None else cap)
+    return _grad_scratch(_GRAD_MASKS["bwd"], B, N, P, D, dtype, same, cap)
 
 
-# the phases of the joint backward, in launch order: the fused dK/dV's
-# split copies and K transposed, then per chunk of key rows the S and dP
-# products, the weights pass (P^T and dS^T, dS by rows) and the dV, dK and
-# dQ products
-BWD_PHASES = DKDV_PHASES[:5] + ("keys_t",) + DKDV_PHASES[5:] + ("dq",)
-_BWD_PLAN_KEYS = _DKDV_PLAN_KEYS + ("dq_blocks", "dq_smem_bytes",
-                                    "dq_stages", "dq_blocks_per_sm",
-                                    "dq_block_rows", "dq_block_cols")
+def grad_phases(mask: int) -> tuple:
+    """The phases of the backward sequence run with ``mask``, in launch
+    order: the split copies (by rows: K, Q kscale, and dO where dP is
+    formed; transposed: Q for dK, dO for dV, K for dQ), then per chunk of
+    key rows the S product, the dP product (for dK or dQ), the weights pass
+    and the mask's products (dV, dK, dQ)."""
+    dp = bool(mask & (GRAD_DK | GRAD_DQ))
+    pick = lambda *named: tuple(n for n, on in named if on)
+    return (pick(("keys", True), ("queries", True), ("grads", dp),
+                 ("queries_t", mask & GRAD_DK), ("grads_t", mask & GRAD_DV),
+                 ("keys_t", mask & GRAD_DQ))
+            + pick(("logits", True), ("dp", dp), ("weights", True),
+                   ("dv", mask & GRAD_DV), ("dk", mask & GRAD_DK),
+                   ("dq", mask & GRAD_DQ)))
+
+
+DKDV_PHASES = grad_phases(_GRAD_MASKS["dkdv"])
+BWD_PHASES = grad_phases(_GRAD_MASKS["bwd"])
+# the 29 ints of the C grad_plan: every product described, whatever the mask
+_BWD_PLAN_KEYS = ("chunk_rows", "chunks", "logits_blocks", "weights_blocks",
+                  "dv_blocks", "dk_blocks", "logits_smem_bytes",
+                  "dv_smem_bytes", "dk_smem_bytes", "logits_stages",
+                  "dv_stages", "dk_stages", "logits_blocks_per_sm",
+                  "dv_blocks_per_sm", "dk_blocks_per_sm",
+                  "threads_per_block", "launches_per_call",
+                  "logits_block_rows", "logits_block_cols",
+                  "dv_block_rows", "dv_block_cols", "dk_block_rows",
+                  "dk_block_cols", "dq_blocks", "dq_smem_bytes",
+                  "dq_stages", "dq_blocks_per_sm", "dq_block_rows",
+                  "dq_block_cols")
+
+
+def _grad_plan(mask: int, B: int, N: int, P: int, D: int, dtype,
+               cap: Optional[int]) -> dict:
+    """How the backward sequence run with ``mask`` runs these shapes on the
+    current CUDA device (V taken to be K, as on the main path), without
+    launching it: the key rows of a chunk and the chunks, the blocks of the
+    S (``logits``; dP's are the same), weights and product launches of a
+    full chunk, each of the mask's product kinds' dynamic shared memory per
+    block, pipeline stages, resident blocks per SM and block rows and
+    columns, the threads of a product block, the CUDA launches per call,
+    ``phases`` in launch order and the scratch in bytes."""
+    nbytes, rows = _grad_scratch(mask, B, N, P, D, dtype, True, cap)
+    plan = _plan("grad", (_DTYPE_CODES[dtype], mask, rows), B, N, P, D,
+                 _BWD_PLAN_KEYS)
+    left_out = {k for k, bit in (("dv", GRAD_DV), ("dk", GRAD_DK),
+                                 ("dq", GRAD_DQ)) if not mask & bit}
+    return {**{k: v for k, v in plan.items()
+               if k.split("_")[0] not in left_out},
+            "phases": list(grad_phases(mask)), "scratch_bytes": nbytes}
+
+
+def dkdv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
+              cap: Optional[int] = None) -> dict:
+    """How the fused dK/dV runs these shapes (``_grad_plan``'s keys for dV
+    and dK; scratch as ``dkdv_scratch``)."""
+    return _grad_plan(_GRAD_MASKS["dkdv"], B, N, P, D, dtype, cap)
 
 
 def bwd_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
              cap: Optional[int] = None) -> dict:
-    """How the joint backward runs these shapes on the current CUDA device
-    (V taken to be K, as on the main path), without launching it:
-    ``dkdv_plan``'s keys for its chunks of key rows (its launches per call
-    the joint's), the dQ product's blocks of a full chunk, shared memory,
-    stages, resident blocks per SM, block rows and columns, ``phases`` in
-    launch order and the scratch in bytes (``bwd_scratch``)."""
-    nbytes, rows = bwd_scratch(B, N, P, D, dtype, True, cap)
-    plan = _plan("bwd", (_DTYPE_CODES[dtype], rows), B, N, P, D,
-                 _BWD_PLAN_KEYS)
-    return {**plan, "phases": list(BWD_PHASES), "scratch_bytes": nbytes}
+    """How the joint backward runs these shapes (``_grad_plan``'s keys for
+    dV, dK and dQ; scratch as ``bwd_scratch``)."""
+    return _grad_plan(_GRAD_MASKS["bwd"], B, N, P, D, dtype, cap)
 
 
 def dk_dv_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
-               dk: bool = True) -> dict:
-    """How the dK kernel (or, without ``dk``, the dV kernel) runs these
-    shapes on the current CUDA device (V taken to be K, as on the main
-    path), without launching it: the key rows of a block (``tile_rows``),
-    the slabs of up to 1536 output columns, the most
-    blocks resident at once on an SM, each block's dynamic shared memory in
-    bytes, and the blocks of the grid."""
-    return _plan("dk" if dk else "dv", (_DTYPE_CODES[dtype],), B, N, P, D,
-                 _FWD_PLAN_KEYS)
+               dk: bool = True, cap: Optional[int] = None) -> dict:
+    """How dK alone (or, without ``dk``, dV alone) runs these shapes: the
+    backward sequence with a mask of that one product (``_grad_plan``'s
+    keys for it, as ``dkdv_plan`` gives them)."""
+    return _grad_plan(_GRAD_MASKS["dk" if dk else "dv"], B, N, P, D, dtype,
+                      cap)
 
 
 def _bwd_terms(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
@@ -647,15 +660,17 @@ def _kscale_or_ones(Q, kscale):
                       device=Q.device)
 
 
-def _launch_bwd(name, Q, K, tensors, softmax_scale, extra=()):
-    """Launch the backward kernel ``name`` with Q's dtype code, the data
-    pointers of ``tensors`` in the C signature's order, the dimensions and
-    the ints ``extra`` after them."""
+def _launch_bwd(name, Q, K, tensors, softmax_scale, extra=(), codes=()):
+    """Launch the backward kernel ``name`` with Q's dtype code and the ints
+    ``codes``, the data pointers of ``tensors`` in the C signature's order
+    (None for a NULL pointer), the dimensions and the ints ``extra`` after
+    them."""
     B, N, D = Q.shape
     P = K.shape[1]
     fn, err_str = _kernel(name)
     with torch.cuda.device(Q.device):  # a launch runs on the current device
-        rc = fn(_DTYPE_CODES[Q.dtype], *(t.data_ptr() for t in tensors),
+        rc = fn(_DTYPE_CODES[Q.dtype], *codes,
+                *(None if t is None else t.data_ptr() for t in tensors),
                 B, N, P, D, *extra, float(softmax_scale),
                 torch.cuda.current_stream(Q.device).cuda_stream)
     if rc != 0:
@@ -808,16 +823,27 @@ def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
     return dQ
 
 
+def _launch_grad(op, Q, K, V, keep, lse, delta, dO, softmax_scale, kscale,
+                 dQ=None, dK=None, dV=None):
+    """Launch the backward sequence with backward op ``op``'s mask on its
+    own scratch: V and delta may be None where the mask forms no dP (dV
+    alone), and so may the outputs it leaves out."""
+    mask = _GRAD_MASKS[op]
+    B, N, D = Q.shape
+    same = V is None or K.data_ptr() == V.data_ptr()
+    nbytes, rows = _grad_scratch(mask, B, N, K.shape[1], D, Q.dtype, same,
+                                 None)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=Q.device)
+    _launch_bwd("grad", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
+                               lse, delta, dQ, dK, dV, scratch),
+                softmax_scale, (rows,), (mask,))
+
+
 @_dkdv_op.register_kernel("cuda")
 def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
     dK, dV = _f32_like(K, K)
-    B, N, D = Q.shape
-    nbytes, rows = dkdv_scratch(B, N, K.shape[1], D, Q.dtype,
-                                K.data_ptr() == V.data_ptr())
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=Q.device)
-    _launch_bwd("dkdv", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
-                               lse, delta, dK, dV, scratch), softmax_scale,
-                (rows,))
+    _launch_grad("dkdv", Q, K, V, keep, lse, delta, dO, softmax_scale, kscale,
+                 dK=dK, dV=dV)
     _count("LAUNCHES_DKDV")
     return dK, dV
 
@@ -825,13 +851,8 @@ def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
 @_bwd_op.register_kernel("cuda")
 def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
     dQ, dK, dV = _f32_like(Q, K, K)
-    B, N, D = Q.shape
-    nbytes, rows = bwd_scratch(B, N, K.shape[1], D, Q.dtype,
-                               K.data_ptr() == V.data_ptr())
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=Q.device)
-    _launch_bwd("bwd", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
-                              lse, delta, dQ, dK, dV, scratch), softmax_scale,
-                (rows,))
+    _launch_grad("bwd", Q, K, V, keep, lse, delta, dO, softmax_scale, kscale,
+                 dQ, dK, dV)
     _count("LAUNCHES_BWD")
     return dQ, dK, dV
 
@@ -839,8 +860,8 @@ def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
 @_dv_op.register_kernel("cuda")
 def _(Q, K, keep, lse, dO, softmax_scale, kscale):
     dV = _f32_like(K)
-    _launch_bwd("dv", Q, K, (Q, K, keep, _kscale_or_ones(Q, kscale), dO, lse,
-                             dV), softmax_scale)
+    _launch_grad("dv", Q, K, None, keep, lse, None, dO, softmax_scale, kscale,
+                 dV=dV)
     _count("LAUNCHES_DV")
     return dV
 
@@ -848,8 +869,8 @@ def _(Q, K, keep, lse, dO, softmax_scale, kscale):
 @_dk_op.register_kernel("cuda")
 def _(Q, K, V, keep, lse, delta, dO, softmax_scale, kscale):
     dK = _f32_like(K)
-    _launch_bwd("dk", Q, K, (Q, K, V, keep, _kscale_or_ones(Q, kscale), dO,
-                             lse, delta, dK), softmax_scale)
+    _launch_grad("dk", Q, K, V, keep, lse, delta, dO, softmax_scale, kscale,
+                 dK=dK)
     _count("LAUNCHES_DK")
     return dK
 
@@ -899,8 +920,11 @@ def attention_core_bwd_joint(Q, K, V, keep, lse, delta, dO,
 def attention_core_dv(Q, K, keep, lse, dO, softmax_scale: float = 10.0,
                       kscale=None):
     """dV (float32) of ``attention_core`` alone: it needs neither V nor
-    delta. A CUDA tensor launches the dV kernel; a CPU tensor takes the
-    plain version."""
+    delta. A CUDA tensor launches the backward sequence with dV alone in
+    its mask (split copies of K, Q kscale and dO transposed, then per chunk
+    of key rows S, the weights pass forming P^T and dV = P^T dO; the joint
+    backward's dV bit for bit; ``dk_dv_plan`` says how it runs a shape); a
+    CPU tensor takes the plain version."""
     # V and delta are not read: K and lse stand in for them in the checks
     _check_bwd(Q, K, K, keep, lse, lse, dO, kscale)
     return _dv_op(Q, K, keep, lse, dO, float(softmax_scale), kscale)
@@ -909,8 +933,12 @@ def attention_core_dv(Q, K, keep, lse, dO, softmax_scale: float = 10.0,
 def attention_core_dk(Q, K, V, keep, lse, delta, dO,
                       softmax_scale: float = 10.0, kscale=None):
     """dK_eff (float32) of ``attention_core`` alone, the gradient of the
-    keys K * kscale. A CUDA tensor launches the dK kernel; a CPU tensor
-    takes the plain version."""
+    keys K * kscale. A CUDA tensor launches the backward sequence with dK
+    alone in its mask (split copies of K, Q kscale, dO and Q transposed,
+    then per chunk of key rows S, dP, the weights pass forming dS^T and
+    dK_eff = dS^T Q; the joint backward's dK_eff bit for bit;
+    ``dk_dv_plan`` says how it runs a shape); a CPU tensor takes the plain
+    version."""
     _check_bwd(Q, K, V, keep, lse, delta, dO, kscale)
     return _dk_op(Q, K, V, keep, lse, delta, dO, float(softmax_scale), kscale)
 
@@ -921,7 +949,7 @@ def attention_core_bwd(Q, K, V, keep, out, lse, dO,
     logsumexp ``lse`` and the float32 output gradient ``dO``: (dQ, dK_eff,
     dV), float32. delta = rowsum(dO O) is a plain reduction, as in the JAX
     package; then the joint backward or, under ``SKETCHEDIT_SPLIT_DKDV=1``,
-    the dQ kernel and the dV and dK kernels (on the CPU, their plain
+    dQ's sequence and dV and dK alone (on the CPU, their plain
     versions)."""
     if out.dtype != torch.float32 or out.shape != dO.shape:
         raise ValueError(f"out must be float32 {tuple(dO.shape)}, got "

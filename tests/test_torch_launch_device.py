@@ -88,7 +88,7 @@ def test_every_launch_runs_inside_its_tensors_device(stub_launches):
             name, Q, K, V, keep, 10.0, True, torch.float32, kscale)
         assert out.shape == (B, N, D) and got_lse.shape == (B, N)
     # the C signatures' pointer counts
-    backwards = (("dq", 10), ("dkdv", 11), ("bwd", 12), ("dv", 7), ("dk", 9))
+    backwards = (("dq", 10), ("grad", 12))
     for name, n_ptrs in backwards:
         attention_cuda._launch_bwd(name, Q, K, (Q,) * n_ptrs, 10.0)
     names = [name for name in forwards] + [name for name, _ in backwards]
@@ -106,5 +106,6 @@ def test_a_refused_launch_still_restores_the_device(stub_launches,
     monkeypatch.setattr(attention_cuda, "_kernel", refused)
     Q = _OnCuda1(1, 4, 8)
     with pytest.raises(RuntimeError, match="too much shared memory"):
-        attention_cuda._launch_bwd("dkdv", Q, Q, (Q,) * 11, 10.0, (64,))
+        attention_cuda._launch_bwd("grad", Q, Q, (Q,) * 12, 10.0, (64,),
+                                   (attention_cuda.GRAD_DV,))
     assert current[0] == 0

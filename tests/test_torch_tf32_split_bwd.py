@@ -14,17 +14,16 @@ query rows alone (the sharded path's query slice, N apart from P) against
 the JAX function's dQ for that slice. The joint backward's dQ is the same
 dS K taken over chunks of keys, each chunk's product scaled by kscale and
 added to the earlier chunks' sum; emulated over chunks of 384 keys from
-the same dS, it must agree with the JAX dQ within BWD_TOL too. The dK and
-dV emulations run
-the single-output kernels' products (S^T = (K kscale) Q^T with kscale on
-the owned keys, dP^T = K dO^T with the keys raw, then dS^T Q or P^T dO)
-on the same inputs and must agree with the same function's dK and dV
-under SKETCHEDIT_SPLIT_DKDV=1 (its ``_dk_kernel`` and ``_dv_kernel``)
-within BWD_TOL. The fused dK/dV emulation runs the wgmma sequence's four
-products (S = (Q kscale) K^T and dP = dO V^T over D, each summed in runs
-of 16 k8 steps added to the total with Kahan's compensation; then P^T dO
-and dS^T Q over the queries, every step to the total) and must agree with the same function's default dK and dV (its
-``_dkdv_kernel``) within BWD_TOL.
+the same dS, it must agree with the JAX dQ within BWD_TOL too. The fused
+dK/dV emulation runs the wgmma sequence's four products (S = (Q kscale)
+K^T and dP = dO V^T over D, each summed in runs of 16 k8 steps added to
+the total with Kahan's compensation; then P^T dO and dS^T Q over the
+queries, every step to the total) and must agree within BWD_TOL with the
+same function's default dK and dV (its ``_dkdv_kernel``) and with its dK
+and dV under SKETCHEDIT_SPLIT_DKDV=1 (its ``_dk_kernel`` and
+``_dv_kernel``): the port's dV and dK alone are that sequence with a mask
+of one product, so they compute each in the same order. The emulation is
+formed once per dtype for both.
 """
 
 import functools
@@ -87,15 +86,24 @@ def emulated_dq(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
 
 
 @functools.lru_cache(maxsize=None)
-def dq_case(dtype_name):
-    """case()'s inputs with a seeded dO, delta = rowsum(dO O) from the JAX
-    forward, and the JAX package's dQ, dK and dV on them from its default
-    kernels (``_dq_kernel``, ``_dkdv_kernel``; float32 values of the inputs,
-    as the forward's case)."""
-    assert os.environ.get("SKETCHEDIT_SPLIT_DKDV") != "1"
-    Q, V, keep, kscale, out, lse = case(dtype_name)
+def upstream(dtype_name):
+    """A seeded dO at case()'s inputs, and delta = rowsum(dO O) from the
+    JAX forward."""
+    Q, _, _, _, out, _ = case(dtype_name)
     dO = torch.from_numpy(np.random.RandomState(8).randn(*Q.shape).astype(
         np.float32))
+    return dO, (dO * out).sum(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def dq_case(dtype_name):
+    """case()'s inputs with ``upstream``'s dO and delta, and the JAX
+    package's dQ, dK and dV on them from its default kernels
+    (``_dq_kernel``, ``_dkdv_kernel``; float32 values of the inputs, as the
+    forward's case)."""
+    assert os.environ.get("SKETCHEDIT_SPLIT_DKDV") != "1"
+    Q, V, keep, kscale, out, lse = case(dtype_name)
+    dO, delta = upstream(dtype_name)
     K = V.float() * kscale[:, None, :]
     with pltpu.force_tpu_interpret_mode():
         grads = _attention_core_bwd_pallas(
@@ -103,8 +111,7 @@ def dq_case(dtype_name):
             jnp.asarray(V.float().numpy()), jnp.asarray(keep.numpy()),
             jnp.asarray(out.numpy()), jnp.asarray(lse.numpy()),
             jnp.asarray(dO.numpy()), SCALE)
-    return (dO, (dO * out).sum(-1),
-            *(torch.from_numpy(np.array(g)) for g in grads))
+    return (dO, delta, *(torch.from_numpy(np.array(g)) for g in grads))
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,38 +186,14 @@ def test_split_tf32_dq_query_slice_matches_jax(dtype_name, monkeypatch):
     torch.testing.assert_close(got, want, rtol=0, atol=BWD_TOL * scale)
 
 
-def emulated_dk_dv(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
-    """(dK_eff, dV) of ``attention_core(Q, V, V, keep, kscale=kscale)`` as
-    the dK and dV kernels compute them, keys owned and queries streamed:
-    S^T = (K kscale) Q^T with kscale on the owned keys (split) and Q split
-    where it holds float32 values; dP^T = K dO^T with the keys raw (split
-    where they hold float32 values) and dO split; P^T = exp(S^T g - lse)
-    and dS^T = P^T (dP^T - delta) g with g = keep * scale per key; dK_eff =
-    dS^T Q and dV = P^T dO, the weights split, Q split where it holds
-    float32 values, dO split."""
-    f32 = Q.dtype == torch.float32
-    Kf, Qf = V.float(), Q.float()
-    passes = 1 if one_pass else 3
-    ST = mma(operand(Kf * kscale[:, None, :], True),
-             operand(Qf.transpose(1, 2), f32 or one_pass), passes)
-    dPT = mma(operand(Kf, f32 or one_pass),
-              operand(dO.transpose(1, 2), True), passes)
-    g = keep[:, :, None] * SCALE
-    PT = torch.exp(ST * g - lse[:, None, :])
-    dST = PT * (dPT - delta[:, None, :]) * g
-    return (mma(operand(dST, True), operand(Qf, f32 or one_pass), passes),
-            mma(operand(PT, True), operand(dO, True), passes))
-
-
 @functools.lru_cache(maxsize=None)
 def split_case(dtype_name):
-    """dq_case()'s seeded dO and delta, and the JAX package's dK and dV from
-    its single-output kernels on them (the caller sets
+    """The JAX package's dK and dV from its single-output kernels at
+    case()'s inputs and ``upstream``'s dO and delta (the caller sets
     SKETCHEDIT_SPLIT_DKDV=1, which the JAX function reads per call)."""
     assert os.environ.get("SKETCHEDIT_SPLIT_DKDV") == "1"
     Q, V, keep, kscale, out, lse = case(dtype_name)
-    dO = torch.from_numpy(np.random.RandomState(8).randn(*Q.shape).astype(
-        np.float32))
+    dO, _ = upstream(dtype_name)
     K = V.float() * kscale[:, None, :]
     with pltpu.force_tpu_interpret_mode():
         _, dk, dv = _attention_core_bwd_pallas(
@@ -218,27 +201,30 @@ def split_case(dtype_name):
             jnp.asarray(V.float().numpy()), jnp.asarray(keep.numpy()),
             jnp.asarray(out.numpy()), jnp.asarray(lse.numpy()),
             jnp.asarray(dO.numpy()), SCALE)
-    return (dO, (dO * out).sum(-1), torch.from_numpy(np.array(dk)),
-            torch.from_numpy(np.array(dv)))
+    return torch.from_numpy(np.array(dk)), torch.from_numpy(np.array(dv))
 
 
-@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-def test_split_tf32_dk_dv_match_jax(dtype_name, monkeypatch):
-    monkeypatch.setenv("SKETCHEDIT_SPLIT_DKDV", "1")
-    Q, V, keep, kscale, _, lse = case(dtype_name)
-    dO, delta, want_dk, want_dv = split_case(dtype_name)
-    args = (Q, V, keep, kscale, lse, delta, dO)
-    got = emulated_dk_dv(*args)
-    one = emulated_dk_dv(*args, one_pass=True)
+def check_dkdv(dtype_name, want_dk, want_dv, label):
+    """``main_dkdv``'s split and one-pass emulations against the JAX dK and
+    dV within BWD_TOL (the one pass printed beside them)."""
+    got, one = main_dkdv(dtype_name), main_dkdv(dtype_name, one_pass=True)
     for name, g, o, want in zip(("dK_eff", "dV"), got, one,
                                 (want_dk, want_dv)):
         scale = want.abs().max().item()
         assert want.shape == (1, 961, 1536) and scale > 0, name
-        print(dtype_name, name, "split", (g - want).abs().max().item() / scale,
+        print(dtype_name, name, label, (g - want).abs().max().item() / scale,
               "one pass", (o - want).abs().max().item() / scale,
               "(shares of max |.|)")
         torch.testing.assert_close(g, want, rtol=0, atol=BWD_TOL * scale,
                                    msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_split_tf32_dk_dv_match_jax(dtype_name, monkeypatch):
+    """dV and dK alone (the fused sequence's order, masked) against the
+    JAX ``_dv_kernel`` and ``_dk_kernel``."""
+    monkeypatch.setenv("SKETCHEDIT_SPLIT_DKDV", "1")
+    check_dkdv(dtype_name, *split_case(dtype_name), "alone (masked) split")
 
 
 def emulated_dkdv(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
@@ -266,20 +252,17 @@ def emulated_dkdv(Q, V, keep, kscale, lse, delta, dO, one_pass=False):
             mma(operand(P.transpose(1, 2), True), operand(dO, True), passes))
 
 
+@functools.lru_cache(maxsize=None)
+def main_dkdv(dtype_name, one_pass=False):
+    """``emulated_dkdv`` at case()'s inputs and ``upstream``'s dO and
+    delta, formed once for the tests that hold it to the JAX dK and dV."""
+    Q, V, keep, kscale, _, lse = case(dtype_name)
+    dO, delta = upstream(dtype_name)
+    return emulated_dkdv(Q, V, keep, kscale, lse, delta, dO, one_pass)
+
+
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_split_tf32_dkdv_matches_jax(dtype_name, monkeypatch):
     monkeypatch.delenv("SKETCHEDIT_SPLIT_DKDV", raising=False)
-    Q, V, keep, kscale, _, lse = case(dtype_name)
-    dO, delta, _, want_dk, want_dv = dq_case(dtype_name)
-    args = (Q, V, keep, kscale, lse, delta, dO)
-    got = emulated_dkdv(*args)
-    one = emulated_dkdv(*args, one_pass=True)
-    for name, g, o, want in zip(("dK_eff", "dV"), got, one,
-                                (want_dk, want_dv)):
-        scale = want.abs().max().item()
-        assert want.shape == (1, 961, 1536) and scale > 0, name
-        print(dtype_name, name, "fused split", (g - want).abs().max().item()
-              / scale, "one pass", (o - want).abs().max().item() / scale,
-              "(shares of max |.|)")
-        torch.testing.assert_close(g, want, rtol=0, atol=BWD_TOL * scale,
-                                   msg=lambda m, n=name: f"{n}: {m}")
+    _, _, _, want_dk, want_dv = dq_case(dtype_name)
+    check_dkdv(dtype_name, want_dk, want_dv, "fused split")
