@@ -157,6 +157,7 @@ import io
 import json
 import multiprocessing
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -297,6 +298,44 @@ def ops_ms(flops: float, dtype: str, peaks: dict) -> float:
     if dtype != "float32":
         return flops / peaks[dtype] * 1e3
     return min(flops / peaks["float32"], 3 * flops / peaks["tf32"]) * 1e3
+
+
+def dq_rows(bargs, dq) -> dict:
+    """dQ (B, N, D) of the backward on ``bargs`` row by row against a
+    float64 evaluation of the same function from the same inputs (the
+    kernels' lse and delta): each row's largest distance over its largest
+    |dS|.|K_eff| term sum (``err_over_dS_K``, a cancelled row's own size),
+    and its largest distance in split TF32's units (``tf32_units``: over
+    2^-22 times what rounding S, dP, delta and lse to that accuracy, and dS
+    and K_eff in the product, can move the element by, from the terms'
+    sizes before dS = P (dP - delta) g cancels); and ``cancel``, each row's
+    |dS|.|K_eff| over its largest |dQ|. Returns per-row float64 tensors."""
+    Q, K, V, keep, lse, delta, dO, sc, ksc = bargs
+    Qd, Vd, dOd = Q.double(), V.double(), dO.double()
+    Kd = K.double() * ksc.double()[:, None, :]
+    g = keep.double()[:, None, :] * sc
+    P = torch.exp(torch.bmm(Qd, Kd.transpose(1, 2)) * g
+                  - lse.double()[..., None])
+    dP = torch.bmm(dOd, Vd.transpose(1, 2))
+    dPd = (dP - delta.double()[..., None]).abs()
+    dS = P * (dP - delta.double()[..., None]) * g
+    exact = torch.bmm(dS, Kd)
+    del dP
+    # the sizes of dP's and delta's terms, and the largest logit's
+    terms = torch.bmm(dOd.abs(), Vd.abs().transpose(1, 2))
+    terms += (dOd.abs() * torch.bmm(P, Vd.abs())).sum(-1, keepdim=True)
+    s_max = (torch.bmm(Qd.abs(), Kd.abs().transpose(1, 2)) * g).amax(
+        -1, keepdim=True)
+    scale = torch.bmm(dS.abs(), Kd.abs())
+    bound = torch.bmm(g * P * (terms + 2 * s_max * dPd), Kd.abs()) + scale
+    del P, dPd, terms
+    err = (dq.double() - exact).abs()
+    rows = scale.amax(-1) > 0
+    return {"err_over_dS_K": err.amax(-1)[rows] / scale.amax(-1)[rows],
+            "tf32_units": (err / (2.0 ** -22 * bound).clamp_min(1e-300)
+                           ).amax(-1)[rows],
+            "cancel": scale.amax(-1)[rows]
+            / exact.abs().amax(-1)[rows].clamp_min(1e-300)}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -717,13 +756,21 @@ def main():
     emit({"phase": "build", "seconds": round(build_s, 3),
           "nvcc_seconds": _build.build_seconds, **card})
     # registers and spills of each dQ instantiation (ca_dq_*: its products,
-    # ca_dq_wgmma_kernel<kWN, kMW, kSplitB, kStages, kGroup, kCompensate>,
-    # and its prep and weights kernels), each instantiation of the masked
-    # sequence that dV and dK alone, the fused dK/dV and the joint run
-    # (ca_dkdv_*, the same kinds as dQ's; `dk_dv_ptxas` and `dkdv_ptxas`
-    # list the same kernels) and each D-split
+    # ca_dq_wgmma_kernel<kWN, kMW, kSplitB, kStages, kGroup, kCompensate,
+    # kFresh>, and its prep and weights kernels), each
+    # instantiation of the masked sequence that dV and dK alone, the fused
+    # dK/dV and the joint run (ca_dkdv_*, the same kinds as dQ's;
+    # `dk_dv_ptxas` and `dkdv_ptxas` list the same kernels) and each D-split
     # one (ca_fwd_dsplit_kernel<T, TO, kMT, kVec>), where this run built the
-    # library
+    # library. Every backward product runs the warp-specialised block of 384
+    # threads, whose consumers raise themselves to 232 registers from the
+    # 168 a thread that the launch gives (setmaxnreg): each must compile to
+    # 168 at launch (fewer would leave the consumers' raise waiting on
+    # registers the block does not hold), spill nothing at 232, and draw no
+    # ptxas note that it serialized its wgmma or set aside setmaxnreg
+    bwd_log = _build.build_log.get("contextual_attention_bwd", "")
+    bwd_notes = [ln.strip() for ln in bwd_log.splitlines()
+                 if "serializ" in ln or "setmaxnreg" in ln]
     ptxas = {}
     for phase, stem, kernel in (
             ("fwd_ptxas", "fwd", "ca_fwd_wgmma_kernel"),
@@ -741,7 +788,22 @@ def main():
             elif "Used" in ln and entry and kernel in entry and found:
                 found[-1]["registers"] = ln.split(":", 1)[1].strip()
         ptxas[phase] = found
-        emit({"phase": phase, "instantiations": found})
+        row = {"phase": phase, "instantiations": found}
+        if stem == "bwd" and bwd_log:
+            products = [f for f in found if "wgmma_kernel" in f["entry"]]
+            row["products"] = len(products)
+            row["ptxas_notes"] = bwd_notes
+            emit(row)
+            assert products and not bwd_notes, row
+            for f in products:
+                spills = [int(x) for x in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", f["spills"])]
+                assert len(spills) == 2 and not any(spills), (phase, f)
+                regs = re.search(r"Used (\d+) registers", f.get("registers",
+                                                                 ""))
+                assert regs and int(regs.group(1)) == 168, (phase, f)
+        else:
+            emit(row)
 
     # 3. kernel vs plain --------------------------------------------------
     rs = np.random.RandomState(args.seed)
@@ -1096,29 +1158,91 @@ def main():
     # kernels were (relative L2 within 1.5x of DK_DV_F64_BEFORE); dQ's
     # relative L2 over the fused dK_eff's must stay within 1.5x of that
     # ratio with the mma.sync dQ kernel that dQ's wgmma sequence replaced
-    # (DQ_F64_BEFORE); the largest |difference| is reported
-    for B in (1, 8):
-        bargs = bwd_inputs[(B, torch.float32)]
+    # (DQ_F64_BEFORE); the largest |difference| is reported. At B = 8, in
+    # both dtypes, the joint's dQ and the plain float32 version's row by
+    # row (`dq_rows`), beside the same figures for the (N, P, D) = (2, 3, 1)
+    # case whose dS is a cancellation in dP - delta: how many of the main
+    # path's rows come as far from float64, over their |dS|.|K_eff|, as
+    # that case's dQ, and how far each is in split TF32's units
+    def float64_grads(bargs):
+        """dQ, dK_eff and dV of the plain function in float64 from the same
+        inputs (the kernels' lse and delta)."""
         Q, K, V, keep, lse, delta, dO, sc, ksc = bargs
         Qd = Q.double()
+        Kd = K.double() * ksc.double()[:, None, :]
         g = keep.double()[:, None, :] * sc
-        Pd = torch.exp(torch.bmm(Qd, (K.double() * ksc.double()[:, None, :])
-                                 .transpose(1, 2)) * g
+        Pd = torch.exp(torch.bmm(Qd, Kd.transpose(1, 2)) * g
                        - lse.double()[..., None])
         dSd = Pd * (torch.bmm(dO.double(), V.double().transpose(1, 2))
                     - delta.double()[..., None]) * g
-        exact = (torch.bmm(dSd.transpose(1, 2), Qd),
-                 torch.bmm(Pd.transpose(1, 2), dO.double()))
-        exact_dq = torch.bmm(dSd, K.double() * ksc.double()[:, None, :])
-        del Pd, dSd, Qd
-        dq_diff = attention_core_dq(*bargs).double() - exact_dq
-        fused = attention_core_dkdv(*bargs)
+        return (torch.bmm(dSd, Kd), torch.bmm(dSd.transpose(1, 2), Qd),
+                torch.bmm(Pd.transpose(1, 2), dO.double()))
+
+    rc = np.random.RandomState(11)      # (2, 3, 1), every key kept
+    small = [torch.from_numpy((rc.randn(1, n, 1) * 1.0).astype(np.float32))
+             for n in (2, 3, 3)]
+    keep_s = torch.from_numpy((rc.rand(1, 3) < 1.0).astype(np.float32))
+    rc = np.random.RandomState(18)
+    dO_s = torch.from_numpy(rc.randn(1, 2, 1).astype(np.float32)).to(dev)
+    ksc_s = torch.from_numpy((0.5 + rc.rand(1, 1)).astype(np.float32)).to(dev)
+    cancel_case = {}
+    for dt in (torch.float32, torch.bfloat16):
+        Qs, Ks, Vs = (t.to(dev, dt) for t in small)
+        out_s, lse_s = attention_core(Qs, Ks, Vs, keep_s.to(dev),
+                                      return_lse=True,
+                                      out_dtype=torch.float32, kscale=ksc_s)
+        sargs = (Qs, Ks, Vs, keep_s.to(dev), lse_s, (dO_s * out_s).sum(-1),
+                 dO_s, 10.0, ksc_s)
+        cancel_case[dt] = {
+            k: {f: v.max().item() for f, v in dq_rows(sargs, dq).items()}
+            for k, dq in (("kernel", attention_core_bwd_joint(*sargs)[0]),
+                          ("plain", attention_core_bwd_joint_reference(
+                              *sargs)[0]))}
+    for B, dt in ((1, torch.float32), (8, torch.float32),
+                  (8, torch.bfloat16)):
+        bargs = bwd_inputs[(B, dt)]
+        Q, K, V, keep, lse, delta, dO, sc, ksc = bargs
+        exact_dq, *exact = float64_grads(bargs)
         joint = attention_core_bwd_joint(*bargs)
-        alone = (attention_core_dk(*bargs),
-                 attention_core_dv(Q, K, keep, lse, dO, sc, ksc))
         row = {"phase": "bwd_vs_float64", "image_hw": [256, 256],
                "shape_BNPD": [B, Q.shape[1], K.shape[1], Q.shape[2]],
-               "dtype": "float32", "ratio_max": 1.5}
+               "dtype": str(dt).split(".")[-1], "ratio_max": 1.5}
+        if B == 8:
+            case = cancel_case[dt]
+            row["dq_rows"] = {"case_2x3x1": case}
+            for k, dq in (("kernel", joint[0]),
+                          ("plain", attention_core_bwd_joint_reference(
+                              *bargs)[0])):
+                fig = dq_rows(bargs, dq)
+                row["dq_rows"][k] = {
+                    "rows": fig["cancel"].numel(),
+                    **{f"{f}_{q}": v.quantile(at).item()
+                       for f, v in fig.items()
+                       for q, at in (("median", 0.5), ("p999", 0.999))},
+                    **{f"{f}_max": v.max().item() for f, v in fig.items()},
+                    "rows_at_or_past_case": int((
+                        fig["err_over_dS_K"]
+                        >= case["kernel"]["err_over_dS_K"]).sum())}
+                del fig, dq
+            # every row of the kernel's dQ within one unit of split TF32's
+            # accuracy, cancelled or not
+            assert row["dq_rows"]["kernel"]["tf32_units_max"] <= 1.0, row
+        # the joint backward's three (held to the bars below in float32;
+        # in bfloat16 reported, the bars being float32 figures)
+        for name, g, w in zip(("dQ", "dK_eff", "dV"), joint,
+                              (exact_dq, *exact)):
+            diff = g.double() - w
+            row[f"joint_{name}_rel_l2_vs_float64"] = (
+                diff.norm() / w.norm()).item()
+            row[f"joint_{name}_max_abs_vs_float64"] = diff.abs().max().item()
+        if dt == torch.bfloat16:
+            emit({**row, **card})
+            del exact, exact_dq, joint
+            continue
+        dq_diff = attention_core_dq(*bargs).double() - exact_dq
+        fused = attention_core_dkdv(*bargs)
+        alone = (attention_core_dk(*bargs),
+                 attention_core_dv(Q, K, keep, lse, dO, sc, ksc))
         for name, f_, a_, w in zip(("dK_eff", "dV"), fused, alone, exact):
             for k, got in (("fused", f_), ("alone", a_)):
                 diff = got.double() - w
@@ -1135,13 +1259,6 @@ def main():
         row["dQ_x_dK_eff_rel_l2"] = (row["dQ_rel_l2_vs_float64"]
                                      / row["dK_eff_fused_rel_l2_vs_float64"])
         row["dQ_x_dK_eff_before"] = DQ_F64_BEFORE[B]
-        # the joint backward's three, held to the same bars
-        for name, g, w in zip(("dQ", "dK_eff", "dV"), joint,
-                              (exact_dq, *exact)):
-            diff = g.double() - w
-            row[f"joint_{name}_rel_l2_vs_float64"] = (
-                diff.norm() / w.norm()).item()
-            row[f"joint_{name}_max_abs_vs_float64"] = diff.abs().max().item()
         for name in ("dK_eff", "dV"):
             row[f"joint_{name}_x_before_rel_l2"] = (
                 row[f"joint_{name}_rel_l2_vs_float64"]

@@ -3,13 +3,26 @@
 and fused dK/dV sequences it replaces, here and in an older checkout, on
 one GPU, in one run, in turns.
 
-    python3 scripts/bwd_variants.py [--parent DIR]
+    python3 scripts/bwd_variants.py [--parent DIR] [--variants NAME ...]
 
 The harness is scripts/dsplit_variants.py's: the checkout as committed
-(``committed``) and, with ``--parent DIR``, another checkout as it is (an
-unpacked parent commit, ``parent``) each build their kernels, then each is
-timed in its own process, in the order given and then in reverse
-(committed, parent, parent, committed).
+(``committed``), the design choices named by ``--variants`` (copies of
+the committed kernels with their constants edited) and, with ``--parent
+DIR``, another checkout as it is (an unpacked parent commit, ``parent``)
+each build their kernels, then each is timed in its own process, in the
+order given and then in reverse (committed, parent, parent, committed).
+The variants are the ways of spending the warp-specialised product
+block's registers (``contextual_attention_wgmma.cuh``, WarpSpec) that the
+committed kernels do not take: ``cols96`` dQ, dV and dK in warpgroup tiles
+of 64 x 96 (the forward's P V width) in place of 64 x 128, ``fresh2`` S
+and dP with two fresh accumulators (one k8 step in flight) in place of
+three, ``gradfresh3`` dQ, dV and dK with three in 64 x 96 tiles (three of
+64 x 128 would not fit 232 registers). None changes an output element's
+order of summation, so every one must give the committed digests. Each
+build prints its product instantiations' registers and spills and any
+ptxas note on ``wgmma`` serialisation or ``setmaxnreg``, and a
+warp-specialised build whose products do not take 168 registers at launch
+stops the run before anything is timed.
 
 One JSON line per checkout, shape and dtype, at the main path's call (Q =
 K = V one tensor, kscale, float32 dO; chip_smoke.py's inputs at 256^2, B =
@@ -24,8 +37,9 @@ joint's), a digest of each route's outputs (dQ, dK_eff, dV:
 ``two_digest``, ``bwd_digest``; equal digests are equal bits), the joint's
 launch plan, its largest |difference| from the plain version as a share of
 each gradient's max, the library's backward (``F.scaled_dot_product_attention``
-and its gradients through autograd on the same function, ``library_ms``)
-and the card's name and power limit. Needs a GPU.
+and its gradients through autograd on the same function, ``library_ms``),
+a digest of the default forward's output and lse at the same inputs
+(``fwd_digest``) and the card's name and power limit. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -33,21 +47,33 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from dq_variants import digest, main_path_args  # noqa: E402
-from dsplit_variants import ROOT, card, drive, make  # noqa: E402
+from dsplit_variants import (ROOT, card, drive, make,  # noqa: E402
+                             report_ptxas)
 from fwd_variants import host_ms  # noqa: E402
 
 OUT = os.path.join(ROOT, "results", "bwd_variants")
 BWD = os.path.join("sketchedit_tpu_torch", "csrc",
                    "contextual_attention_bwd.cu")
+WGMMA = os.path.join("sketchedit_tpu_torch", "csrc",
+                     "contextual_attention_wgmma.cuh")
 SHAPES = ((8, "float32"), (8, "bfloat16"), (1, "float32"), (1, "bfloat16"))
-# profiler kernel name -> phase, first match
-PHASES = (("_split_", "prep"), ("wgmma_kernel<64", "s_dp"),
-          ("_weights", "weights"), ("ca_dkdv_wgmma_kernel<96", "dv_dk"),
-          ("ca_dq_wgmma_kernel<96", "dq"))
+# profiler kernel name -> phase, first match (S and dP's products are the
+# 64-column ones)
+PHASES = (("_split_", "prep"), ("wgmma_kernel<64,", "s_dp"),
+          ("_weights", "weights"), ("ca_dkdv_wgmma_kernel<", "dv_dk"),
+          ("ca_dq_wgmma_kernel<", "dq"))
+COLS96 = [("constexpr int kGradCols = 128;", "constexpr int kGradCols = 96;")]
+# variant -> edits to contextual_attention_bwd.cu's constants
+VARIANTS = {"committed": [], "cols96": COLS96,
+            "fresh2": [("constexpr int kScoreFresh = 3;",
+                        "constexpr int kScoreFresh = 2;")],
+            "gradfresh3": COLS96 + [("constexpr int kGradFresh = 2;",
+                                     "constexpr int kGradFresh = 3;")]}
 
 
 def phase_ms(fn, phases=PHASES) -> dict:
@@ -108,8 +134,12 @@ def time_variant(root: str, name: str):
         dq = lambda: ac.attention_core_dq(*bargs)
         dkdv = lambda: ac.attention_core_dkdv(*bargs)
         two = lambda: (dq(), *dkdv())
+        Q, V, keep = bargs[0], bargs[1], bargs[3]
+        fwd = ac.attention_core(Q, V, V, keep, return_lse=True,
+                                out_dtype=torch.float32, kscale=bargs[8])
         row = {"variant": name, "image_hw": [256, 256],
                "shape_BNPD": [B, N, N, D], "dtype": dtype, "card": card_,
+               "fwd_digest": digest(fwd),
                "two_ms": cuda_ms(two, reps), "dq_ms": cuda_ms(dq, reps),
                "dkdv_ms": cuda_ms(dkdv, reps), "two_host_ms": host_ms(two),
                "two_digest": digest(two())}
@@ -131,25 +161,42 @@ def time_variant(root: str, name: str):
         row["phase_ms"] = phases
         row["library_ms"] = library_ms(bargs, cuda_ms, reps)
         print(json.dumps(row), flush=True)
-        del bargs
+        del bargs, fwd, Q, V, keep
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="another checkout, timed as it is")
+    ap.add_argument("--variants", nargs="+", default=["committed"],
+                    choices=list(VARIANTS))
     ap.add_argument("--time", nargs=2, metavar=("ROOT", "NAME"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--build", nargs=2, metavar=("ROOT", "NAME"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.build:
-        sys.path.insert(0, args.build[0])
+        report_ptxas(*args.build, "contextual_attention_bwd", "wgmma_kernel")
         from sketchedit_tpu_torch.ops import _build
-        _build.load()
+        log = _build.build_log.get("contextual_attention_bwd", "")
+        notes = [ln.strip() for ln in log.splitlines()
+                 if "serializ" in ln or "setmaxnreg" in ln]
+        print(json.dumps({"ptxas_notes": args.build[1], "notes": notes}),
+              flush=True)
+        # a warp-specialised product compiled to fewer than 168 registers
+        # at launch would leave its consumers' setmaxnreg.inc waiting on
+        # registers the block does not hold: time nothing
+        with open(os.path.join(args.build[0], WGMMA)) as fh:
+            warp_spec = "struct WarpSpec" in fh.read()
+        regs = re.findall(r"Compiling entry function '(\S*wgmma_kernel\S*)'"
+                          r"[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used (\d+) registers",
+                          log)
+        if warp_spec and (not regs or any(n != "168" for _, n in regs)):
+            raise SystemExit(f"{args.build[1]}: product registers {regs}")
         return
     if args.time:
         return time_variant(*args.time)
-    roots = {"committed": make("committed", [], BWD, ROOT, OUT)}
+    roots = {name: make(name, VARIANTS[name], BWD, ROOT, OUT)
+             for name in args.variants}
     if args.parent:
         roots["parent"] = os.path.abspath(args.parent)
     drive(__file__, roots)

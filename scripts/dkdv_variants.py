@@ -18,20 +18,18 @@ adds another checkout as it is (an unpacked parent commit) as the variant
   committed  the sequence as committed: the split copies; then per chunk of
              key rows S and dP in blocks of 64 queries x 128 keys, their
              k8 steps summed in runs of 16, each run added to the total
-             with Kahan's compensation (in shared memory); the weights
-             pass; dV and dK in blocks of 128 keys x 96 columns (two
-             warpgroups over the rows sharing each B box), dK 64 x 192 in
+             with Kahan's compensation (in registers); the weights pass;
+             dV and dK in blocks of 128 keys x 128 columns (two
+             warpgroups over the rows sharing each B box), dK 64 x 256 in
              bfloat16, every step added to the total
   nogroup    S and dP add every k8 step to the total (one chain of 192 at
              D = 1536): what the grouped sum costs
   nokahan    S and dP add their runs to the total without Kahan's
              compensation
-  gradcols   dV and dK in blocks of 64 keys x 192 columns in both dtypes
+  gradcols   dV and dK in blocks of 64 keys x 256 columns in both dtypes
              (warpgroups side by side, each B box its own)
   gradgroup  dV and dK summed in runs of 16 k8 steps as S and dP are, in
-             warpgroup tiles 64 columns wide (a 96-wide tile and a fourth
-             accumulator would pass the 168 registers a thread of a
-             nine-warp block gets)
+             warpgroup tiles 64 columns wide
   group8     S and dP summed in runs of 8 k8 steps
   group32    S and dP summed in runs of 32 k8 steps
   hifirst    every k8 step's hi x hi pass first into the fresh
@@ -113,8 +111,8 @@ VARIANTS = {
 SHAPES = ((8, 64, "float32"), (8, 64, "bfloat16"), (1, 64, "float32"),
           (1, 64, "bfloat16"), (3, 29, "float32"), (3, 29, "bfloat16"))
 # profiler kernel name -> phase of the fused dK/dV
-PHASES = (("ca_dkdv_split", "prep"), ("ca_dkdv_wgmma_kernel<64", "s_dp"),
-          ("ca_dkdv_weights", "weights"), ("ca_dkdv_wgmma_kernel<96", "dv_dk"),
+PHASES = (("ca_dkdv_split", "prep"), ("ca_dkdv_wgmma_kernel<64,", "s_dp"),
+          ("ca_dkdv_weights", "weights"), ("ca_dkdv_wgmma_kernel<", "dv_dk"),
           ("ca_dkdv_kernel", "cluster"))
 
 

@@ -19,11 +19,11 @@ adds another checkout as it is (an unpacked parent commit) as the variant
              rows S and dP in blocks of 64 queries x 128 keys, their k8
              steps summed in runs of 16, each run added to the total with
              Kahan's compensation; the weights pass writing dS by rows;
-             dQ = dS K in blocks of 128 queries x 96 columns (two
-             warpgroups over the rows sharing each B box), 64 x 192 in
+             dQ = dS K in blocks of 128 queries x 128 columns (two
+             warpgroups over the rows sharing each B box), 64 x 256 in
              bfloat16, every step added to the total, kscale on the
              columns in the epilogue
-  cols192    dQ's product in blocks of 64 queries x 192 columns in float32
+  cols192    dQ's product in blocks of 64 queries x 256 columns in float32
              too (warpgroups side by side, each B box its own)
   nokahan    S and dP add their runs to the total without Kahan's
              compensation (the constant is shared, so the copy's fused
@@ -79,8 +79,8 @@ VARIANTS = {
 }
 SHAPES = ((8, "float32"), (8, "bfloat16"), (1, "float32"), (1, "bfloat16"))
 # profiler kernel name -> phase of dQ
-PHASES = (("ca_dq_split", "prep"), ("ca_dq_wgmma_kernel<64", "s_dp"),
-          ("ca_dq_weights", "weights"), ("ca_dq_wgmma_kernel<96", "dq"),
+PHASES = (("ca_dq_split", "prep"), ("ca_dq_wgmma_kernel<64,", "s_dp"),
+          ("ca_dq_weights", "weights"), ("ca_dq_wgmma_kernel<", "dq"),
           ("ca_dq_kernel", "mma_sync"))
 
 

@@ -58,14 +58,14 @@
 //              so the same values as its S and dP;
 //     weights  P = exp(S g - lse) and dS = P (dP - delta) g, written by
 //              rows (B, rows, Pp) as TF32 terms, 0 past P;
-//     dQ       dS (K^T)^T, the forward's P V block (128 queries x 96
-//              columns, two warpgroups over the rows sharing each B box;
-//              64 x 192 in bfloat16, whose K^T terms are one), every step
+//     dQ       dS (K^T)^T in blocks of 128 queries x 128 columns (two
+//              warpgroups over the rows sharing each B box; 64 x 256 in
+//              bfloat16, whose K^T terms are one), every step
 //              added to the total (a chain of 121 at P = 961), and kscale
 //              on each column in the epilogue, so K enters raw and stays
 //              one term in bfloat16.
-//   At 256^2, B = 1 every product is 128 blocks on 132 SMs; 8 launches a
-//   call.
+//   At 256^2, B = 1 S and dP are 128 blocks on 132 SMs and dQ 96; 8
+//   launches a call.
 // - dkdv, launches named ca_dkdv_*:
 //     prep     once a call, the TF32 terms of K (V's apart where V is not K;
 //              on the main path one set serves S and dP), of Q kscale and
@@ -77,8 +77,7 @@
 //   is, so large shapes take chunks):
 //     S        (Q kscale) K^T, the forward's logits block (64 queries x 128
 //              keys), its steps summed in runs of 16, each run added to
-//              the total with Kahan's compensation (kept in shared memory:
-//              the registers of a nine-warp block hold no more), which puts
+//              the total with Kahan's compensation (in registers), which puts
 //              dK and dV 0.72-0.87x the dK and dV kernels' distance from
 //              float64 (relative L2) where plain run sums gave 0.91-1.13x;
 //     dP       dO V^T, the same block and sum (dS carries dP's error times
@@ -86,15 +85,15 @@
 //     weights  P = exp(S g - lse) and dS = P (dP - delta) g, written
 //              transposed (B, keys, Np) as TF32 terms through 32 x 32
 //              shared-memory tiles;
-//     dV, dK   P^T dO and dS^T Q, the forward's P V block (128 keys x 96
-//              columns, two warpgroups over the rows sharing each B box;
-//              dK in bfloat16 64 x 192, its Q^T one term), every step
+//     dV, dK   P^T dO and dS^T Q, dQ's block (128 keys x 128 columns,
+//              two warpgroups over the rows sharing each B box; dK in
+//              bfloat16 64 x 256, its Q^T one term), every step
 //              added to the total (a chain of 121 at N = 961, as the dV
 //              and dK kernels' accumulation).
 //   Every product takes its A operand split (Q kscale, dO, P^T and dS^T
 //   hold float32 values); the tensor maps' extents end the contraction at
 //   D or N, so TMA reads zeros past them. Shared memory sets no widest D.
-//   At 256^2, B = 1 every product is 128 blocks on 132 SMs.
+//   At 256^2, B = 1 S and dP are 128 blocks on 132 SMs, dV and dK 96.
 // - bwd, the default route: dkdv's sequence with dQ added, so S, dP and dS
 //   are formed once for the three products where dq and dkdv each form
 //   them (the same bits: both use the same blocks and sums):
@@ -132,6 +131,15 @@
 //   replace dv and dk kernels on mma.sync, which held the keys' rows in
 //   shared memory (206 KB a block, D up to 1920) and recomputed S and dP
 //   for every further column slab; the masked sequence takes any D.
+//
+// Blocks. Every product block is warp-specialised (WarpSpec in
+// contextual_attention_wgmma.cuh): 384 threads, two consumer warpgroups
+// raised to 232 registers a thread by setmaxnreg and a producer warpgroup
+// lowered to 40, one lane of which issues the TMA loads; the forwards keep
+// the nine-warp block of 168. The registers hold the wider dQ, dV and dK
+// tiles (64 x 128 a warpgroup) and S and dP's compensations and a third
+// fresh accumulator (two k8 steps in flight), none of which changes an
+// output element's order of summation.
 
 #include "contextual_attention_common.cuh"
 #include "contextual_attention_wgmma.cuh"
@@ -142,10 +150,19 @@ namespace {
 // (the prep bodies and the product's body: contextual_attention_wgmma.cuh)
 
 constexpr int kKeyCols = 64;     // keys a warpgroup in S and dP
-constexpr int kGradCols = 96;    // output columns a warpgroup in dQ, dV, dK
+constexpr int kGradCols = 128;   // output columns a warpgroup in dQ, dV, dK
 constexpr int kScoreGroup = kSumStages;  // stages S and dP sum apart
 constexpr bool kScoreKahan = true;       // and add to their totals
 constexpr int kGradGroup = 0;            // and dQ, dV and dK (every step)
+// Every product runs the warp-specialised block (WarpSpec: a producer
+// warpgroup that gives its registers to the two consumer warpgroups), S
+// and dP with kScoreFresh fresh accumulators (acc, the run sum, its
+// compensation and three fresh ones, 32 floats each: 192 a thread), dQ, dV
+// and dK with kGradFresh (acc and two fresh ones of 64 floats: 192).
+constexpr int kScoreFresh = 3;
+constexpr int kGradFresh = 2;
+using ScoreBlock = WarpSpec<kScoreFresh>;
+using GradBlock = WarpSpec<kGradFresh>;
 
 // Rows r0 .. r0 + rc of each image of `in` (B, rows_in, D), times ks (B, D)
 // where given, as TF32 terms (B, rc, Dp); one block a row.
@@ -193,7 +210,7 @@ struct GradEpi {
 // kCompensate), and a float32 store of each accumulator, scaled by its
 // column's cs where e.cs is given.
 template <int kWN, int kMW, bool kSplitB, int kStages, int kGroup,
-          bool kCompensate>
+          bool kCompensate, class Block>
 __device__ __forceinline__ void grad_product(const CUtensorMap& a_hi,
                                              const CUtensorMap& a_lo,
                                              const CUtensorMap& b_hi,
@@ -201,7 +218,7 @@ __device__ __forceinline__ void grad_product(const CUtensorMap& a_hi,
                                              const GradEpi& e) {
   constexpr int kBM = kTileM * kMW, kBN = kWN * 2 / kMW;  // the block's tile
   float acc[kWN / 2];
-  if (!wgmma_product<kWN, kMW, kSplitB, kStages, kGroup, kCompensate>(
+  if (!wgmma_product<kWN, kMW, kSplitB, kStages, kGroup, kCompensate, Block>(
           a_hi, a_lo, b_hi, b_lo, K, acc))
     return;                                               // the producer
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
@@ -230,27 +247,30 @@ __device__ __forceinline__ void grad_product(const CUtensorMap& a_hi,
   }
 }
 
+// The product kernels, on WarpSpec<kFresh>'s block of 384 threads: one
+// block an SM, whose 168 registers a thread at launch the producer
+// warpgroup gives to the consumers.
 template <int kWN, int kMW, bool kSplitB, int kStages, int kGroup,
-          bool kCompensate>
-__global__ void __launch_bounds__(kWgThreads, 1)
+          bool kCompensate, int kFresh>
+__global__ void __launch_bounds__(WarpSpec<kFresh>::kThreads, 1)
 ca_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                      const __grid_constant__ CUtensorMap a_lo,
                      const __grid_constant__ CUtensorMap b_hi,
                      const __grid_constant__ CUtensorMap b_lo, int K,
                      GradEpi e) {
-  grad_product<kWN, kMW, kSplitB, kStages, kGroup, kCompensate>(
-      a_hi, a_lo, b_hi, b_lo, K, e);
+  grad_product<kWN, kMW, kSplitB, kStages, kGroup, kCompensate,
+               WarpSpec<kFresh>>(a_hi, a_lo, b_hi, b_lo, K, e);
 }
 template <int kWN, int kMW, bool kSplitB, int kStages, int kGroup,
-          bool kCompensate>
-__global__ void __launch_bounds__(kWgThreads, 1)
+          bool kCompensate, int kFresh>
+__global__ void __launch_bounds__(WarpSpec<kFresh>::kThreads, 1)
 ca_dq_wgmma_kernel(const __grid_constant__ CUtensorMap a_hi,
                    const __grid_constant__ CUtensorMap a_lo,
                    const __grid_constant__ CUtensorMap b_hi,
                    const __grid_constant__ CUtensorMap b_lo, int K,
                    GradEpi e) {
-  grad_product<kWN, kMW, kSplitB, kStages, kGroup, kCompensate>(
-      a_hi, a_lo, b_hi, b_lo, K, e);
+  grad_product<kWN, kMW, kSplitB, kStages, kGroup, kCompensate,
+               WarpSpec<kFresh>>(a_hi, a_lo, b_hi, b_lo, K, e);
 }
 
 // dQ's weights for one chunk of rc query rows from r0 on, one block a row,
@@ -483,14 +503,14 @@ int dq_chunk_rows(int B, int N, int P, long long cap) {
   return (int)(rows < 128 ? (N < 128 ? N : 128) : (rows > N ? N : rows));
 }
 
-// The products' block shapes, the forward's: S and dP as its logits (64
-// queries x 128 keys), dQ, dV and dK as its P V (128 rows x 96 columns,
-// two warpgroups over the rows sharing each B box, where B is split; 64 x
-// 192 for dQ and dK in bfloat16, whose K^T and Q^T terms are one, half the
-// bytes). Each gives 128 blocks at 256^2, B = 1.
-template <bool kF32>
-using ScoreGemm =
-    Gemm<kKeyCols, 1, kF32, kScoreKahan ? kCompBytes<kKeyCols> : 0>;
+// The products' block shapes: S and dP as the forward's logits (64 queries
+// x 128 keys, 128 blocks at 256^2, B = 1), dQ, dV and dK wider than its P
+// V (128 rows x 128 columns, two warpgroups over the rows sharing each B
+// box, where B is split; 64 x 256 for dQ and dK in bfloat16, whose K^T and
+// Q^T terms are one, half the bytes: 96 blocks at 256^2, B = 1, 768 at B =
+// 8). Each consumer thread of dQ, dV and dK holds 192 accumulator floats,
+// more than a nine-warp block's 168 registers a thread.
+template <bool kF32> using ScoreGemm = Gemm<kKeyCols, 1, kF32>;
 template <bool kSplitB>
 using GradGemm = Gemm<kGradCols, kSplitB ? 2 : 1, kSplitB>;
 
@@ -510,37 +530,47 @@ struct Args {
 
 // The product kernel of dQ (kDq) or of launch_grad.
 template <bool kDq, int kWN, int kMW, bool kSplitB, int kStages, int kGroup,
-          bool kCompensate>
+          bool kCompensate, class Block>
 auto grad_kernel() {
   if constexpr (kDq)
     return ca_dq_wgmma_kernel<kWN, kMW, kSplitB, kStages, kGroup,
-                              kCompensate>;
+                              kCompensate, Block::kFresh>;
   else
     return ca_dkdv_wgmma_kernel<kWN, kMW, kSplitB, kStages, kGroup,
-                                kCompensate>;
+                                kCompensate, Block::kFresh>;
 }
 
 // One product of dQ (kDq) or of launch_grad: a grid of Gemm<kWN, kMW,
-// kSplitB> blocks over rows x cols of each image (with room for the
-// compensations where kCompensate); with per_sm, the resident blocks per
-// SM instead of a launch.
+// kSplitB> blocks of Block's shape over rows x cols of each image; with
+// per_sm, the resident blocks per SM instead of a launch.
 template <int kWN, int kMW, bool kSplitB, int kGroup, bool kCompensate,
-          bool kDq = false>
+          class Block, bool kDq = false>
 int launch_grad_gemm(int rows, int cols, int B, const CUtensorMap (&m)[4],
                      int K, const GradEpi& e, cudaStream_t stream,
                      int* per_sm = nullptr) {
-  using G = Gemm<kWN, kMW, kSplitB, kCompensate ? kCompBytes<kWN> : 0>;
+  using G = Gemm<kWN, kMW, kSplitB>;
   const auto kernel = grad_kernel<kDq, kWN, kMW, kSplitB, G::kStages, kGroup,
-                                  kCompensate>();
+                                  kCompensate, Block>();
   static std::atomic<unsigned long long> opted{0};
   if (int err = opt_in_once(kernel, G::kSmem, opted)) return err;
   if (per_sm != nullptr)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, kernel, kWgThreads, G::kSmem);
-  kernel<<<G::grid(rows, cols, B), kWgThreads, G::kSmem, stream>>>(
+        per_sm, kernel, Block::kThreads, G::kSmem);
+  kernel<<<G::grid(rows, cols, B), Block::kThreads, G::kSmem, stream>>>(
       m[0], m[1], m[2], m[3], K, e);
   return (int)cudaGetLastError();
 }
+
+// The two kinds of product, of dQ (kDq) or of launch_grad: S and dP, and
+// dQ, dV and dK (kSplitB: B's terms are two; kMW its warpgroups over the
+// rows).
+template <bool kF32, bool kDq = false>
+constexpr auto score_gemm = launch_grad_gemm<kKeyCols, 1, kF32, kScoreGroup,
+                                             kScoreKahan, ScoreBlock, kDq>;
+template <bool kSplitB, bool kDq = false>
+constexpr auto grad_gemm =
+    launch_grad_gemm<kGradCols, GradGemm<kSplitB>::kMW, kSplitB, kGradGroup,
+                     false, GradBlock, kDq>;
 
 // The products of a.mask on a.scratch, laid out by grad_layout() for
 // chunks of a.rows key rows: the prep launches, then S, dP, the weights and
@@ -656,8 +686,7 @@ int launch_grad(const Args& a) {
                            kstride, GS::kBN))
       return err;
     const long long sstride = (long long)N * L.ld;
-    constexpr auto score = launch_grad_gemm<kKeyCols, 1, kF32, kScoreGroup,
-                                            kScoreKahan>;
+    constexpr auto score = score_gemm<kF32>;
     if (int err = score(N, rc, B, ms, D, GradEpi{s, sstride, N, rc, L.ld}, st,
                         nullptr))
       return err;
@@ -683,8 +712,7 @@ int launch_grad(const Args& a) {
         return err;
       if (int err = make_map(&mv[1], pl, N, rc, B, L.Np, wstride, GV::kBM))
         return err;
-      constexpr auto grad_v =
-          launch_grad_gemm<kGradCols, GV::kMW, true, kGradGroup, false>;
+      constexpr auto grad_v = grad_gemm<true>;
       if (int err = grad_v(rc, D, B, mv, N,
                            GradEpi{a.out2 + oo, ostride, rc, D, D}, st,
                            nullptr))
@@ -695,8 +723,7 @@ int launch_grad(const Args& a) {
         return err;
       if (int err = make_map(&mk[1], dl, N, rc, B, L.Np, wstride, GK::kBM))
         return err;
-      constexpr auto grad_k =
-          launch_grad_gemm<kGradCols, GK::kMW, kF32, kGradGroup, false>;
+      constexpr auto grad_k = grad_gemm<kF32>;
       if (int err = grad_k(rc, D, B, mk, N,
                            GradEpi{a.out + oo, ostride, rc, D, D}, st,
                            nullptr))
@@ -718,8 +745,7 @@ int launch_grad(const Args& a) {
     if (int err = make_map(&mq[3], (kF32 ? ktl : kth) + r0, rc, D, B, L.Pp,
                            ktstride, GK::kBN))
       return err;
-    constexpr auto grad_q =
-        launch_grad_gemm<kGradCols, GK::kMW, kF32, kGradGroup, false, true>;
+    constexpr auto grad_q = grad_gemm<kF32, true>;
     if (int err = grad_q(N, D, B, mq, rc,
                          GradEpi{a.dq, (long long)N * D, N, D, D, a.kscale,
                                  r0 > 0},
@@ -738,8 +764,10 @@ int launch_grad(const Args& a) {
 // [16] launches per call, [17] and [18] the S block's rows and columns,
 // [19] and [20] dV's, [21] and [22] dK's, [23] dQ product blocks, [24] its
 // dynamic shared memory per block, [25] its stages, [26] its resident
-// blocks per SM, [27] and [28] its block's rows and columns. Every product
-// is described whatever the mask; the launches count the mask's.
+// blocks per SM, [27] and [28] its block's rows and columns, [29] and [30]
+// the registers a thread that the producer warpgroup and the consumers set
+// (setmaxnreg). Every product is described whatever the mask; the
+// launches count the mask's.
 template <typename T>
 int plan_grad(int mask, int B, int N, int P, int D, int rows, int* plan) {
   constexpr bool kF32 = sizeof(T) == sizeof(float);
@@ -764,19 +792,13 @@ int plan_grad(int mask, int B, int N, int P, int D, int rows, int* plan) {
   plan[9] = GS::kStages;
   plan[10] = GV::kStages;
   plan[11] = GK::kStages;
-  if (int err = launch_grad_gemm<kKeyCols, 1, kF32, kScoreGroup,
-                                 kScoreKahan>(1, 1, 1, none, 0, e, nullptr,
-                                              &plan[12]))
+  if (int err = score_gemm<kF32>(1, 1, 1, none, 0, e, nullptr, &plan[12]))
     return err;
-  if (int err = launch_grad_gemm<kGradCols, GV::kMW, true, kGradGroup,
-                                 false>(1, 1, 1, none, 0, e, nullptr,
-                                        &plan[13]))
+  if (int err = grad_gemm<true>(1, 1, 1, none, 0, e, nullptr, &plan[13]))
     return err;
-  if (int err = launch_grad_gemm<kGradCols, GK::kMW, kF32, kGradGroup,
-                                 false>(1, 1, 1, none, 0, e, nullptr,
-                                        &plan[14]))
+  if (int err = grad_gemm<kF32>(1, 1, 1, none, 0, e, nullptr, &plan[14]))
     return err;
-  plan[15] = kWgThreads;
+  plan[15] = GradBlock::kThreads;
   plan[16] = Mask(mask).launches() * (1 + chunks);
   plan[17] = GS::kBM;
   plan[18] = GS::kBN;
@@ -787,12 +809,13 @@ int plan_grad(int mask, int B, int N, int P, int D, int rows, int* plan) {
   plan[23] = blocks(GK::grid(N, D, B));     // dQ's product is dK's kind
   plan[24] = (int)GK::kSmem;
   plan[25] = GK::kStages;
-  if (int err = launch_grad_gemm<kGradCols, GK::kMW, kF32, kGradGroup, false,
-                                 true>(1, 1, 1, none, 0, e, nullptr,
-                                       &plan[26]))
+  if (int err = grad_gemm<kF32, true>(1, 1, 1, none, 0, e, nullptr,
+                                      &plan[26]))
     return err;
   plan[27] = GK::kBM;
   plan[28] = GK::kBN;
+  plan[29] = GradBlock::kProducerRegs;
+  plan[30] = GradBlock::kConsumerRegs;
   return 0;
 }
 
@@ -871,8 +894,7 @@ int launch_dq(const Args& a) {
     if (int err = make_map(&mp[1], ol + qo, D, rc, B, L.Dp, qstride, GS::kBM))
       return err;
     const long long sstride = (long long)rc * L.Pp;
-    constexpr auto score = launch_grad_gemm<kKeyCols, 1, kF32, kScoreGroup,
-                                            kScoreKahan, true>;
+    constexpr auto score = score_gemm<kF32, true>;
     if (int err = score(rc, P, B, ms, D, GradEpi{s, sstride, rc, P, L.Pp},
                         st, nullptr))
       return err;
@@ -886,8 +908,7 @@ int launch_dq(const Args& a) {
       return err;
     if (int err = make_map(&mq[1], dl, P, rc, B, L.Pp, sstride, GQ::kBM))
       return err;
-    constexpr auto grad_q =
-        launch_grad_gemm<kGradCols, GQ::kMW, kF32, kGradGroup, false, true>;
+    constexpr auto grad_q = grad_gemm<kF32, true>;
     if (int err = grad_q(rc, D, B, mq, P,
                          GradEpi{a.out + (long long)r0 * D, (long long)N * D,
                                  rc, D, D, a.kscale},
@@ -904,7 +925,8 @@ int launch_dq(const Args& a) {
 // dynamic shared memory per block, [7] and [8] their stages, [9] and [10]
 // their resident blocks per SM, [11] threads a product block, [12]
 // launches per call, [13] and [14] the S block's rows and columns, [15]
-// and [16] the dQ block's.
+// and [16] the dQ block's, [17] and [18] the registers a thread that the
+// producer warpgroup and the consumers set.
 template <typename T>
 int plan_dq(int B, int N, int P, int D, int rows, int* plan) {
   constexpr bool kF32 = sizeof(T) == sizeof(float);
@@ -924,20 +946,20 @@ int plan_dq(int B, int N, int P, int D, int rows, int* plan) {
   plan[6] = (int)GQ::kSmem;
   plan[7] = GS::kStages;
   plan[8] = GQ::kStages;
-  if (int err = launch_grad_gemm<kKeyCols, 1, kF32, kScoreGroup, kScoreKahan,
-                                 true>(1, 1, 1, none, 0, e, nullptr,
+  if (int err = score_gemm<kF32, true>(1, 1, 1, none, 0, e, nullptr,
                                        &plan[9]))
     return err;
-  if (int err = launch_grad_gemm<kGradCols, GQ::kMW, kF32, kGradGroup, false,
-                                 true>(1, 1, 1, none, 0, e, nullptr,
-                                       &plan[10]))
+  if (int err = grad_gemm<kF32, true>(1, 1, 1, none, 0, e, nullptr,
+                                      &plan[10]))
     return err;
-  plan[11] = kWgThreads;
+  plan[11] = GradBlock::kThreads;
   plan[12] = 4 + 4 * chunks;
   plan[13] = GS::kBM;
   plan[14] = GS::kBN;
   plan[15] = GQ::kBM;
   plan[16] = GQ::kBN;
+  plan[17] = GradBlock::kProducerRegs;
+  plan[18] = GradBlock::kConsumerRegs;
   return 0;
 }
 
@@ -1012,7 +1034,7 @@ long long sketchedit_contextual_attention_dq_scratch(int dtype, int same,
 }
 
 // dQ's launch plan for these shapes and `rows` query rows a chunk on the
-// current device, without a launch: the 17 ints plan_dq fills.
+// current device, without a launch: the 19 ints plan_dq fills.
 int sketchedit_contextual_attention_dq_plan(int dtype, int rows, int B, int N,
                                             int P, int D, int* plan) {
   Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
@@ -1067,7 +1089,7 @@ long long sketchedit_contextual_attention_grad_scratch(int dtype, int mask,
 }
 
 // The launch plan of the sequence of `mask` for these shapes and `rows`
-// key rows a chunk on the current device, without a launch: the 29 ints
+// key rows a chunk on the current device, without a launch: the 31 ints
 // plan_grad fills.
 int sketchedit_contextual_attention_grad_plan(int dtype, int mask, int rows,
                                               int B, int N, int P, int D,

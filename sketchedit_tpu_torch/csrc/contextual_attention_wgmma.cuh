@@ -2,8 +2,9 @@
 // shared forwards (contextual_attention_fwd.cu), dQ and the fused dK/dV
 // backward (contextual_attention_bwd.cu) are built on: the prep bodies that
 // write an operand's TF32 terms, by rows or transposed, and the body of a
-// product block, C[b] = A[b] B[b]^T, up to its accumulators. Each file
-// wraps these in kernels of its own names and epilogues.
+// product block, C[b] = A[b] B[b]^T, up to its accumulators, in either of
+// two block shapes (NineWarps, WarpSpec). Each file wraps these in kernels
+// of its own names and epilogues.
 
 #pragma once
 
@@ -20,6 +21,30 @@ constexpr int kChunk = 32;       // contraction elements a stage: 128 bytes
 constexpr int kSumStages = 4;    // stages a grouped product sums apart
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+
+// A product block's shape beside its tiles. The forwards' (NineWarps):
+// kWgThreads threads, two consumer warpgroups and one producer warp, whose
+// nine warps cap every thread at 168 registers (three of them share an SM
+// quarter's 16,384). The backward's (WarpSpec): three warpgroups, the third
+// the producer, which gives back all but kProducerRegs of its 168
+// registers a thread (setmaxnreg) so that each consumer thread may hold
+// kConsumerRegs: 128 x 40 + 256 x 232 = 64,512 of an SM's 65,536. Both keep
+// warps 0-7 as the consumers. kFresh fresh accumulators a consumer cycles
+// through: kFresh - 1 k8 steps in flight while the FADDs of the one before
+// them run.
+struct NineWarps {
+  static constexpr bool kWs = false;
+  static constexpr int kFresh = 2;
+};
+template <int kFreshV> struct WarpSpec {
+  static constexpr bool kWs = true;
+  static constexpr int kFresh = kFreshV;
+  static constexpr int kThreads = 384, kProducerRegs = 40,
+                       kConsumerRegs = 232;
+  static_assert(kFresh == 2 || kFresh == 3, "two or three accumulators");
+  static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536,
+                "the block's registers exceed the SM's");
+};
 
 // x as two TF32 terms with their low 13 bits clear, x = hi + lo to within
 // 2^-22 |x|: hi = rna(x), lo = rna(x - hi) (to_tf32's rounding on the bits).
@@ -87,6 +112,27 @@ __device__ __forceinline__ void split_t(const T* X, float* hi, float* lo,
   }
 }
 
+// A k8 step's passes into the fresh accumulator f, committed as one group.
+template <int kN, bool kSplitB>
+__device__ __forceinline__ void issue_step(float (&f)[kN / 2], uint64_t ah,
+                                           uint64_t al, uint64_t bh,
+                                           uint64_t bl) {
+  wg_fence();
+  wgmma_tf32<kN>(f, al, bh, 0);
+  if constexpr (kSplitB) wgmma_tf32<kN>(f, ah, bl, 1);
+  wgmma_tf32<kN>(f, ah, bh, 1);
+  wg_commit();
+}
+
+// f added into sum, once the wait before it has seen f's group done.
+template <int kN>
+__device__ __forceinline__ void add_fresh(float (&sum)[kN / 2],
+                                          float (&f)[kN / 2]) {
+  pin(f);
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) sum[i] += f[i];
+}
+
 // One k8 step of a warpgroup's product into the fresh accumulator f (a
 // pass per term: lo hi, hi lo where B is split, hi hi); then, once all but
 // this step's wgmma are done, the previous step's fresh accumulator `prev`
@@ -97,11 +143,7 @@ __device__ __forceinline__ void k8_step(float (&acc)[kN / 2],
                                         float (&prev)[kN / 2], uint64_t ah,
                                         uint64_t al, uint64_t bh, uint64_t bl,
                                         bool add_prev) {
-  wg_fence();
-  wgmma_tf32<kN>(f, al, bh, 0);
-  if constexpr (kSplitB) wgmma_tf32<kN>(f, ah, bl, 1);
-  wgmma_tf32<kN>(f, ah, bh, 1);
-  wg_commit();
+  issue_step<kN, kSplitB>(f, ah, al, bh, bl);
   wg_wait<1>();  // the previous step's group is done
   pin(prev);
   if (add_prev) {
@@ -126,34 +168,55 @@ __device__ __forceinline__ void stage_product(float (&sum)[kN / 2],
   k8_step<kN, kSplitB>(sum, f0, f1, ah + 4, al + 4, bh + 4, bl + 4, true);
   k8_step<kN, kSplitB>(sum, f1, f0, ah + 6, al + 6, bh + 6, bl + 6, true);
   wg_wait<0>();
-  pin(f1);
-#pragma unroll
-  for (int i = 0; i < kN / 2; ++i) sum[i] += f1[i];
+  add_fresh<kN>(sum, f1);
 }
 
-// The body of a product block of kWgThreads threads: C[b] = A[b] B[b]^T
-// over K contraction elements, A (rows x K) and B (cols x K) K-major
-// float32 tensors given as their TF32 terms through tensor maps (a_hi,
-// a_lo, b_hi and, where B is split, b_lo). Warps 0-7 are two consumer
-// warpgroups, each a 64-row x kWN-column tile: side by side over the
-// columns (kMW = 1: a block is 64 x 2 kWN) or one above the other over the
-// rows (kMW = 2: 128 x kWN, sharing each B box). Warp 8 is the producer:
-// its lane 0 keeps kStages stages of 32 contraction elements in flight
-// (each stage: the A terms' and the B terms' boxes, 128-byte swizzled; a
-// `full` mbarrier per stage counts their bytes, an `empty` one the eight
-// consumer warps' release). Each warpgroup runs a stage's four k8 steps
-// with stage_product. kGroup > 0 sums each run of kGroup stages apart
-// before adding it to the total (a float32 chain over all of D's 192 k8
-// steps at D = 1536 drifts ~3x further from float64 than one of ~30);
-// kGroup = 0 adds every step to the total. kCompensate (with kGroup > 0)
-// adds the runs to the total with Kahan's compensation, kept in shared
-// memory behind the stages' barriers (kWN / 2 floats a consumer thread),
-// so the total's own rounding no longer builds up. Returns false in the
-// producer warp; in a consumer, acc[4j + h] is row 16 (warp % 4) + g (+ 8
-// for h >= 2), column 8j + 2t (+ 1 for odd h) of its warpgroup's tile (g =
-// lane / 4, t = lane % 4).
+// stage_product with three fresh accumulators: two k8 steps in flight
+// while the FADDs of the one before them run. The same steps are added in
+// the same order, so the same bits; the stage is drained before its
+// release, as there.
+template <int kN, bool kSplitB>
+__device__ __forceinline__ void stage_product3(
+    float (&sum)[kN / 2], float (&f0)[kN / 2], float (&f1)[kN / 2],
+    float (&f2)[kN / 2], uint64_t ah, uint64_t al, uint64_t bh, uint64_t bl) {
+  issue_step<kN, kSplitB>(f0, ah, al, bh, bl);
+  issue_step<kN, kSplitB>(f1, ah + 2, al + 2, bh + 2, bl + 2);
+  issue_step<kN, kSplitB>(f2, ah + 4, al + 4, bh + 4, bl + 4);
+  wg_wait<2>();
+  add_fresh<kN>(sum, f0);
+  issue_step<kN, kSplitB>(f0, ah + 6, al + 6, bh + 6, bl + 6);
+  wg_wait<2>();
+  add_fresh<kN>(sum, f1);
+  wg_wait<1>();
+  add_fresh<kN>(sum, f2);
+  wg_wait<0>();
+  add_fresh<kN>(sum, f0);
+}
+
+// The body of a product block of Block's shape: C[b] = A[b] B[b]^T over
+// K contraction elements, A (rows x K) and B (cols x K) K-major float32
+// tensors given as their TF32 terms through tensor maps (a_hi, a_lo, b_hi
+// and, where B is split, b_lo). Warps 0-7 are two consumer warpgroups,
+// each a 64-row x kWN-column tile: side by side over the columns (kMW = 1:
+// a block is 64 x 2 kWN) or one above the other over the rows (kMW = 2:
+// 128 x kWN, sharing each B box). Warp 8 is the producer (in a WarpSpec
+// block, with warps 9-11, the warpgroup that gives its registers to the
+// consumers): its lane 0 keeps kStages stages of 32 contraction elements
+// in flight (each stage: the A terms' and the B terms' boxes, 128-byte
+// swizzled; a `full` mbarrier per stage counts their bytes, an `empty` one
+// the eight consumer warps' release). Each warpgroup runs a stage's four
+// k8 steps with stage_product (stage_product3 where Block::kFresh is 3).
+// kGroup > 0 sums each run of kGroup stages apart before adding it to the
+// total (a float32 chain over all of D's 192 k8 steps at D = 1536 drifts
+// ~3x further from float64 than one of ~30); kGroup = 0 adds every step to
+// the total. kCompensate (with kGroup > 0; a WarpSpec block, whose
+// consumers have the registers) adds the runs to the total with Kahan's
+// compensation, kWN / 2 more floats a thread, so the total's own rounding
+// no longer builds up. Returns false in the producer; in a consumer,
+// acc[4j + h] is row 16 (warp % 4) + g (+ 8 for h >= 2), column 8j + 2t (+
+// 1 for odd h) of its warpgroup's tile (g = lane / 4, t = lane % 4).
 template <int kWN, int kMW, bool kSplitB, int kStages, int kGroup,
-          bool kCompensate = false>
+          bool kCompensate = false, class Block = NineWarps>
 __device__ __forceinline__ bool wgmma_product(const CUtensorMap& a_hi,
                                               const CUtensorMap& a_lo,
                                               const CUtensorMap& b_hi,
@@ -163,6 +226,8 @@ __device__ __forceinline__ bool wgmma_product(const CUtensorMap& a_hi,
   constexpr int kA = kBM * 128, kB = kBN * 128;           // bytes a box
   constexpr int kStage = 2 * kA + (kSplitB ? 2 : 1) * kB;
   constexpr int kR = kWN / 2;                             // floats a thread
+  static_assert(!kCompensate || Block::kWs,
+                "the compensations need a WarpSpec block's registers");
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled boxes want 1024-byte aligned stages
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -180,8 +245,9 @@ __device__ __forceinline__ bool wgmma_product(const CUtensorMap& a_hi,
   }
   __syncthreads();
 
-  if (warp == 8) {  // the producer
-    if (lane == 0) {
+  if (warp >= 8) {  // the producer
+    if constexpr (Block::kWs) regs_dec<Block::kProducerRegs>();
+    if (warp == 8 && lane == 0) {
       for (int c = 0; c < nchunk; ++c) {
         const int s = c % kStages;
         mbar_wait(&empty[s], ((c / kStages) & 1) ^ 1);
@@ -194,20 +260,25 @@ __device__ __forceinline__ bool wgmma_product(const CUtensorMap& a_hi,
           tma_load3(st + 2 * kA + kB, &b_lo, &full[s], c * kChunk, col0, b);
       }
     }
+    // A WarpSpec producer ends its threads here: were its path to join the
+    // consumers' on the way back to the caller, ptxas would hold the code
+    // after the join, the consumers' epilogue with it, to the producer's 40
+    // registers and spill the accumulators across it
+    if constexpr (Block::kWs) asm volatile("exit;");
     return false;
   }
 
+  if constexpr (Block::kWs) regs_inc<Block::kConsumerRegs>();
   // a consumer warpgroup: its 64 x kWN tile's offsets in the block's
   const int wg = warp >> 2;
   const int wrow = kMW == 2 ? wg * kTileM : 0;
   const int wcol = kMW == 2 ? 0 : wg * kWN;
-  float f0[kR], f1[kR], part[kGroup ? kR : 1];
-  // the compensations, [kR][256] by consumer thread
-  float* comp = reinterpret_cast<float*>(empty + kStages);
+  float f0[kR], f1[kR], f2[Block::kFresh == 3 ? kR : 1];
+  float part[kGroup ? kR : 1], comp[kCompensate ? kR : 1];
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
     acc[i] = f0[i] = f1[i] = 0.f;
-    if constexpr (kCompensate) comp[i * 256 + tid] = 0.f;
+    if constexpr (kCompensate) comp[i] = 0.f;
   }
   for (int c = 0; c < nchunk; ++c) {
     const int s = c % kStages;
@@ -223,20 +294,25 @@ __device__ __forceinline__ bool wgmma_product(const CUtensorMap& a_hi,
 #pragma unroll
         for (int i = 0; i < kR; ++i) part[i] = 0.f;
       }
-      stage_product<kWN, kSplitB>(part, f0, f1, ah, al, bh, bl);
+      if constexpr (Block::kFresh == 3)
+        stage_product3<kWN, kSplitB>(part, f0, f1, f2, ah, al, bh, bl);
+      else
+        stage_product<kWN, kSplitB>(part, f0, f1, ah, al, bh, bl);
       if (c % kGroup == kGroup - 1 || c == nchunk - 1) {
 #pragma unroll
         for (int i = 0; i < kR; ++i) {
           if constexpr (kCompensate) {
-            const float y = part[i] - comp[i * 256 + tid];
+            const float y = part[i] - comp[i];
             const float t = acc[i] + y;
-            comp[i * 256 + tid] = (t - acc[i]) - y;
+            comp[i] = (t - acc[i]) - y;
             acc[i] = t;
           } else {
             acc[i] += part[i];
           }
         }
       }
+    } else if constexpr (Block::kFresh == 3) {
+      stage_product3<kWN, kSplitB>(acc, f0, f1, f2, ah, al, bh, bl);
     } else {
       stage_product<kWN, kSplitB>(acc, f0, f1, ah, al, bh, bl);
     }
@@ -244,28 +320,22 @@ __device__ __forceinline__ bool wgmma_product(const CUtensorMap& a_hi,
   }
   if constexpr (kCompensate) {
 #pragma unroll
-    for (int i = 0; i < kR; ++i) acc[i] -= comp[i * 256 + tid];
+    for (int i = 0; i < kR; ++i) acc[i] -= comp[i];
   }
   return true;
 }
 
-// Shared-memory bytes of wgmma_product's compensations for kWN columns.
-template <int kWN>
-constexpr int kCompBytes = kWN / 2 * 256 * (int)sizeof(float);
-
 // A product's block shape and pipeline: warpgroups of 64 x kWN, kMW of
-// them over the rows; as many stages as fit the opt-in shared memory
-// beside kExtra bytes (wgmma_product's compensations).
-template <int kWN, int kMWv, bool kSplitB, int kExtra = 0> struct Gemm {
+// them over the rows; as many stages as fit the opt-in shared memory.
+template <int kWN, int kMWv, bool kSplitB> struct Gemm {
   static constexpr int kMW = kMWv;
   static constexpr int kBM = kTileM * kMW, kBN = kWN * 2 / kMW;
   static constexpr int kStage = 2 * kBM * 128 + (kSplitB ? 2 : 1) * kBN * 128;
   static constexpr int kStages =
-      (int)((kMaxSmem - 1024 - kExtra) / (kStage + 16)) > 8
+      (int)((kMaxSmem - 1024) / (kStage + 16)) > 8
           ? 8
-          : (int)((kMaxSmem - 1024 - kExtra) / (kStage + 16));
-  static constexpr size_t kSmem =
-      (size_t)kStages * (kStage + 16) + 1024 + kExtra;
+          : (int)((kMaxSmem - 1024) / (kStage + 16));
+  static constexpr size_t kSmem = (size_t)kStages * (kStage + 16) + 1024;
   static dim3 grid(int rows, int cols, int B) {
     return dim3((rows + kBM - 1) / kBM, (cols + kBN - 1) / kBN, B);
   }

@@ -450,7 +450,7 @@ _DQ_PLAN_KEYS = ("chunk_rows", "chunks", "logits_blocks", "weights_blocks",
                  "logits_stages", "dq_stages", "logits_blocks_per_sm",
                  "dq_blocks_per_sm", "threads_per_block", "launches_per_call",
                  "logits_block_rows", "logits_block_cols", "dq_block_rows",
-                 "dq_block_cols")
+                 "dq_block_cols", "producer_registers", "consumer_registers")
 
 
 def dq_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
@@ -461,8 +461,9 @@ def dq_plan(B: int, N: int, P: int, D: int, dtype=torch.float32,
     same), weights and dQ launches of a full chunk, the two product kinds'
     dynamic shared memory per block, their pipeline stages and resident
     blocks per SM, the threads of a product block, the CUDA launches per
-    call, each product's block rows and columns, ``phases`` in launch order
-    and the scratch in bytes (``dq_scratch``)."""
+    call, each product's block rows and columns, the registers a thread
+    that a product block's producer warpgroup and its consumers set,
+    ``phases`` in launch order and the scratch in bytes (``dq_scratch``)."""
     nbytes, rows = dq_scratch(B, N, P, D, dtype, True, cap)
     plan = _plan("dq", (_DTYPE_CODES[dtype], rows), B, N, P, D,
                  _DQ_PLAN_KEYS)
@@ -514,7 +515,7 @@ def grad_phases(mask: int) -> tuple:
 
 DKDV_PHASES = grad_phases(_GRAD_MASKS["dkdv"])
 BWD_PHASES = grad_phases(_GRAD_MASKS["bwd"])
-# the 29 ints of the C grad_plan: every product described, whatever the mask
+# the 31 ints of the C grad_plan: every product described, whatever the mask
 _BWD_PLAN_KEYS = ("chunk_rows", "chunks", "logits_blocks", "weights_blocks",
                   "dv_blocks", "dk_blocks", "logits_smem_bytes",
                   "dv_smem_bytes", "dk_smem_bytes", "logits_stages",
@@ -525,7 +526,8 @@ _BWD_PLAN_KEYS = ("chunk_rows", "chunks", "logits_blocks", "weights_blocks",
                   "dv_block_rows", "dv_block_cols", "dk_block_rows",
                   "dk_block_cols", "dq_blocks", "dq_smem_bytes",
                   "dq_stages", "dq_blocks_per_sm", "dq_block_rows",
-                  "dq_block_cols")
+                  "dq_block_cols", "producer_registers",
+                  "consumer_registers")
 
 
 def _grad_plan(mask: int, B: int, N: int, P: int, D: int, dtype,
@@ -537,7 +539,9 @@ def _grad_plan(mask: int, B: int, N: int, P: int, D: int, dtype,
     full chunk, each of the mask's product kinds' dynamic shared memory per
     block, pipeline stages, resident blocks per SM and block rows and
     columns, the threads of a product block, the CUDA launches per call,
-    ``phases`` in launch order and the scratch in bytes."""
+    the registers a thread that a product block's producer warpgroup and
+    its consumers set, ``phases`` in launch order and the scratch in
+    bytes."""
     nbytes, rows = _grad_scratch(mask, B, N, P, D, dtype, True, cap)
     plan = _plan("grad", (_DTYPE_CODES[dtype], mask, rows), B, N, P, D,
                  _BWD_PLAN_KEYS)

@@ -470,21 +470,26 @@ def test_dq_kernel_repeats_bit_for_bit(cuda, same):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("B,blocks_132", [(1, 128), (8, 1024)])
-def test_dq_plan_at_the_main_path_shapes(cuda, B, blocks_132):
+@pytest.mark.parametrize("B,blocks_132,grad_blocks", [(1, 128, 96),
+                                                      (8, 1024, 768)])
+def test_dq_plan_at_the_main_path_shapes(cuda, B, blocks_132, grad_blocks):
     """256^2 training (N = P = 961, D = 1536): one chunk of all 961 query
     rows (Q kscale's and dO's terms are split once a call, outside the
     capped part, so B = 8 float32 takes one too); S (and dP) in blocks of
-    64 queries x 128 keys, the dQ product in 128 x 96 in float32 and
-    64 x 192 in bfloat16: 128 blocks each at B = 1, which covers a 132-SM
-    card in one wave, 1024 at B = 8; every block within the shared memory
-    a block may opt into; eight launches a call."""
+    64 queries x 128 keys, 128 at B = 1, which covers a 132-SM card in one
+    wave, 1024 at B = 8; the dQ product in 128 x 128 in float32 and 64 x
+    256 in bfloat16, 96 blocks at B = 1, 768 at B = 8; every block within
+    the shared memory a block may opt into; eight launches a call; every
+    product block the warp-specialised one (384 threads: a producer
+    warpgroup at 40 registers a thread, two consumer warpgroups raised to
+    232)."""
     for dtype in (torch.float32, torch.bfloat16):
         plan = dq_plan(B, 961, 961, 1536, dtype)
         print("dq_plan", B, str(dtype), plan)
-        dq = (128, 96) if dtype == torch.float32 else (64, 192)
+        dq = (128, 128) if dtype == torch.float32 else (64, 256)
         assert plan["chunks"] == 1 and plan["chunk_rows"] == 961
-        assert plan["logits_blocks"] == plan["dq_blocks"] == blocks_132
+        assert plan["logits_blocks"] == blocks_132
+        assert plan["dq_blocks"] == grad_blocks
         assert plan["weights_blocks"] == B * 961
         assert (plan["logits_block_rows"],
                 plan["logits_block_cols"]) == (64, 128)
@@ -494,6 +499,8 @@ def test_dq_plan_at_the_main_path_shapes(cuda, B, blocks_132):
             assert plan[f"{k}_blocks_per_sm"] >= 1
             assert plan[f"{k}_stages"] >= 3
         assert plan["launches_per_call"] == 8
+        assert (plan["threads_per_block"], plan["producer_registers"],
+                plan["consumer_registers"]) == BLOCK_384
         assert plan["phases"] == list(attention_cuda.DQ_PHASES)
         assert plan["scratch_bytes"] > 0
 
@@ -563,6 +570,24 @@ def test_dq_kernel_wide_d(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_where_ds_cancels_within_split_tf32(cuda, dtype):
+    """(N, P, D) = (2, 3, 1), every key kept: dS = P (dP - delta) g cancels
+    with one dominant key, so dQ sits ~9e-4 of max |dQ| from the plain
+    float32 version, past the 2e-4 the other shapes meet. Against float64
+    both dQ routes (dQ's sequence and the joint's) stay within one unit of
+    split TF32's accuracy: 2^-22 times what S, dP, delta and lse carried
+    to that accuracy, and dS and K_eff in the product, can move each
+    element by (chip_smoke.py's dq_rows, which holds the main path's rows
+    to the same unit)."""
+    from chip_smoke import dq_rows
+    args = _bwd_case(11, 1, 2, 3, 1, 1.0, dtype, cuda)
+    for dq in (attention_core_dq(*args), attention_core_bwd_joint(*args)[0]):
+        units = dq_rows(args, dq)["tf32_units"].max().item()
+        print("dq split tf32 units", str(dtype), units)
+        assert units <= 1.0, units
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dq_kernel_all_keys_gated(cuda, dtype):
     """Every key gated: the dS multiplier is 0, so dQ is exactly 0."""
     args = _bwd_case(23, 9, 130, 500, 1536, 0.0, dtype, cuda)
@@ -611,6 +636,11 @@ def _check_dkdv(args, tag):
           str(args[0].dtype), "max|dK_eff - plain|", diffs[0],
           "max|dV - plain|", diffs[1])
     return got
+
+
+# every backward product's block: threads, and the registers a thread that
+# its producer warpgroup and its consumers set
+BLOCK_384 = (384, 40, 232)
 
 
 def _bwd_case(seed, B, N, P, D, keep_p, dtype, device):
@@ -665,30 +695,34 @@ def test_dkdv_kernel_wide_d(cuda, dtype):
     _check_dkdv(_bwd_case(4099, 1, 30, 90, 4099, 0.8, dtype, cuda), "D4099")
 
 
-@pytest.mark.parametrize("B,blocks_132", [(1, 128), (8, 1024)])
-def test_dkdv_plan_at_the_main_path_shapes(cuda, B, blocks_132):
+@pytest.mark.parametrize("B,blocks_132,grad_blocks", [(1, 128, 96),
+                                                      (8, 1024, 768)])
+def test_dkdv_plan_at_the_main_path_shapes(cuda, B, blocks_132,
+                                           grad_blocks):
     """256^2 training (N = P = 961, D = 1536): one chunk of all 961 keys;
-    S (and dP) in blocks of 64 queries x 128 keys, dV in 128 keys x 96
-    columns, dK the same in float32 and 64 x 192 in bfloat16: 128 blocks
-    each at B = 1, which covers a 132-SM card in one wave, 1024 at B = 8;
-    every block within the shared memory a block may opt into; ten
-    launches a call."""
+    S (and dP) in blocks of 64 queries x 128 keys, 128 at B = 1, which
+    covers a 132-SM card in one wave, 1024 at B = 8; dV in 128 keys x 128
+    columns, dK the same in float32 and 64 x 256 in bfloat16, 96 blocks at
+    B = 1, 768 at B = 8; every block within the shared memory a block may
+    opt into; ten launches a call; the warp-specialised product block."""
     for dtype in (torch.float32, torch.bfloat16):
         plan = dkdv_plan(B, 961, 961, 1536, dtype)
         print("dkdv_plan", B, str(dtype), plan)
-        dk = (128, 96) if dtype == torch.float32 else (64, 192)
+        dk = (128, 128) if dtype == torch.float32 else (64, 256)
         assert plan["chunks"] == 1 and plan["chunk_rows"] == 961
-        assert (plan["logits_blocks"] == plan["dv_blocks"]
-                == plan["dk_blocks"] == blocks_132)
+        assert plan["logits_blocks"] == blocks_132
+        assert plan["dv_blocks"] == plan["dk_blocks"] == grad_blocks
         assert (plan["logits_block_rows"],
                 plan["logits_block_cols"]) == (64, 128)
-        assert (plan["dv_block_rows"], plan["dv_block_cols"]) == (128, 96)
+        assert (plan["dv_block_rows"], plan["dv_block_cols"]) == (128, 128)
         assert (plan["dk_block_rows"], plan["dk_block_cols"]) == dk
         for k in ("logits", "dv", "dk"):
             assert 0 < plan[f"{k}_smem_bytes"] <= 232448
             assert plan[f"{k}_blocks_per_sm"] >= 1
             assert plan[f"{k}_stages"] >= 3
         assert plan["launches_per_call"] == 10
+        assert (plan["threads_per_block"], plan["producer_registers"],
+                plan["consumer_registers"]) == BLOCK_384
         assert plan["phases"] == list(attention_cuda.DKDV_PHASES)
         assert plan["scratch_bytes"] > 0
 
@@ -944,26 +978,31 @@ def test_bwd_joint_as_close_to_float64(cuda, dtype, B, H):
     assert ratio <= 1.5 * DQ_F64_BEFORE[(B, H, dtype)], ratio
 
 
-@pytest.mark.parametrize("B,blocks_132", [(1, 128), (8, 1024)])
-def test_bwd_plan_at_the_main_path_shapes(cuda, B, blocks_132):
+@pytest.mark.parametrize("B,blocks_132,grad_blocks", [(1, 128, 96),
+                                                      (8, 1024, 768)])
+def test_bwd_plan_at_the_main_path_shapes(cuda, B, blocks_132, grad_blocks):
     """256^2 training (N = P = 961, D = 1536): one chunk of all 961 keys
     up to B = 8 (dS's terms by rows counted in the cap: 237 MB of 256 MiB
-    at B = 8), the fused dK/dV's blocks, dQ in 128 x 96 (64 x 192 in
-    bfloat16): 128 blocks a product at B = 1, 1024 at B = 8; twelve
-    launches a call."""
+    at B = 8), the fused dK/dV's blocks, dQ in 128 x 128 (64 x 256 in
+    bfloat16): S and dP 128 blocks at B = 1, 1024 at B = 8, dV, dK and dQ
+    96 and 768; twelve launches a call; the warp-specialised product
+    block."""
     for dtype in (torch.float32, torch.bfloat16):
         plan = bwd_plan(B, 961, 961, 1536, dtype)
         print("bwd_plan", B, str(dtype), plan)
-        dq = (128, 96) if dtype == torch.float32 else (64, 192)
+        dq = (128, 128) if dtype == torch.float32 else (64, 256)
         assert plan["chunks"] == 1 and plan["chunk_rows"] == 961
-        assert (plan["logits_blocks"] == plan["dv_blocks"]
-                == plan["dk_blocks"] == plan["dq_blocks"] == blocks_132)
+        assert plan["logits_blocks"] == blocks_132
+        assert (plan["dv_blocks"] == plan["dk_blocks"] == plan["dq_blocks"]
+                == grad_blocks)
         assert (plan["dq_block_rows"], plan["dq_block_cols"]) == dq
         for k in ("logits", "dv", "dk", "dq"):
             assert 0 < plan[f"{k}_smem_bytes"] <= 232448
             assert plan[f"{k}_blocks_per_sm"] >= 1
             assert plan[f"{k}_stages"] >= 3
         assert plan["launches_per_call"] == 12
+        assert (plan["threads_per_block"], plan["producer_registers"],
+                plan["consumer_registers"]) == BLOCK_384
         assert plan["phases"] == list(attention_cuda.BWD_PHASES)
         assert plan["scratch_bytes"] > attention_cuda.dkdv_scratch(
             B, 961, 961, 1536, dtype)[0]
@@ -1089,16 +1128,18 @@ def test_dk_dv_repeat_bit_for_bit(cuda, same):
     assert torch.equal(attention_core_dk(*args), attention_core_dk(*args))
 
 
-@pytest.mark.parametrize("B,blocks_132", [(1, 128), (8, 1024)])
-def test_dk_dv_plan_at_the_main_path_shapes(cuda, B, blocks_132):
+@pytest.mark.parametrize("B,blocks_132,grad_blocks", [(1, 128, 96),
+                                                      (8, 1024, 768)])
+def test_dk_dv_plan_at_the_main_path_shapes(cuda, B, blocks_132,
+                                            grad_blocks):
     """256^2 training (N = P = 961, D = 1536): dV and dK alone each take
-    one chunk of all 961 keys, the fused dK/dV's S blocks and their own
-    product's (128 blocks at B = 1, 1024 at B = 8), every block within the
-    shared memory a block may opt into; dV alone 3 + 3 launches (K, Q
-    kscale and dO transposed; S, the weights, dV), dK alone 4 + 4 (K, Q
+    one chunk of all 961 keys, the fused dK/dV's S blocks (128 at B = 1,
+    1024 at B = 8) and their own product's (96 and 768), every block
+    within the shared memory a block may opt into; dV alone 3 + 3 launches
+    (K, Q kscale and dO transposed; S, the weights, dV), dK alone 4 + 4 (K, Q
     kscale, dO, Q transposed; S, dP, the weights, dK), each on less scratch
-    than the fused dK/dV; no product of the other's in the plan; and D =
-    4099 in one chunk too."""
+    than the fused dK/dV; no product of the other's in the plan; the
+    warp-specialised product block; and D = 4099 in one chunk too."""
     for dtype in (torch.float32, torch.bfloat16):
         fused = dkdv_plan(B, 961, 961, 1536, dtype)
         for dk, own, other, launches in ((False, "dv", "dk", 6),
@@ -1106,7 +1147,8 @@ def test_dk_dv_plan_at_the_main_path_shapes(cuda, B, blocks_132):
             plan = dk_dv_plan(B, 961, 961, 1536, dtype, dk=dk)
             print("dk_dv_plan", B, str(dtype), own, plan)
             assert plan["chunks"] == 1 and plan["chunk_rows"] == 961
-            assert plan["logits_blocks"] == plan[f"{own}_blocks"] == blocks_132
+            assert plan["logits_blocks"] == blocks_132
+            assert plan[f"{own}_blocks"] == grad_blocks
             for k in ("logits", own):
                 assert 0 < plan[f"{k}_smem_bytes"] <= 232448
                 assert plan[f"{k}_blocks_per_sm"] >= 1
@@ -1115,6 +1157,8 @@ def test_dk_dv_plan_at_the_main_path_shapes(cuda, B, blocks_132):
                     assert plan[f"{k}_{key}"] == fused[f"{k}_{key}"]
             assert not any(k.startswith((other, "dq")) for k in plan), plan
             assert plan["launches_per_call"] == launches
+            assert (plan["threads_per_block"], plan["producer_registers"],
+                    plan["consumer_registers"]) == BLOCK_384
             assert plan["phases"] == list(attention_cuda.grad_phases(
                 attention_cuda.GRAD_DK if dk else attention_cuda.GRAD_DV))
             assert 0 < plan["scratch_bytes"] < fused["scratch_bytes"]
